@@ -216,7 +216,9 @@ class UNet(nn.Module):
                  + deconv.bias.to(cd)[None, :, None, None])
             if i < 6:
                 x = getattr(self, f"deconv{i}_BAD")[0](x, weight)
-                x = torch.clamp(x, min=0.0)  # ReLU
+                # ReLU as jnp.maximum(x, 0): the gradient at an exact 0 is
+                # 0.5, as JAX's (torch.clamp gives 1 there, torch.relu 0)
+                x = torch.maximum(x, torch.zeros_like(x))
                 if self.training:
                     x = dropout2d(x, cfg.dropout_rate, generator)
         return torch.sigmoid(x.to(torch.float32))[:, 0]

@@ -55,9 +55,10 @@ class SVSConfig:
     mr_fft_sizes: Tuple[int, ...] = (1024, 2048, 512)
     mr_hop_sizes: Tuple[int, ...] = (120, 240, 50)
     mr_win_lengths: Tuple[int, ...] = (600, 1200, 240)
-    # loss magnitude implementation: 'matmul_bf16' (windowed-DFT matmuls) or
-    # 'fft' (exact auraloss-parity path); the losses come with the training
-    # slice of the port
+    # loss magnitude implementation (svs_torch/losses/mrstft.py):
+    # 'matmul_bf16' (windowed-DFT matmuls, the default), 'fft' (exact
+    # auraloss-parity path), or the hand-written CUDA kernels 'pallas_bf16'
+    # (spectral_mag), 'pallas_fused' and 'pallas_fused_wide' (loss_partials)
     mr_mag_impl: str = "matmul_bf16"
 
     # --- compute ---

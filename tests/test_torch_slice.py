@@ -249,7 +249,8 @@ def test_port_imports_neither_jax_nor_svs_tpu():
     files = [os.path.join(root, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(root, "svs_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    bad = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|svs_tpu)\b", re.M)
+    bad = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|ml_dtypes|svs_tpu)"
+                     r"\b", re.M)
     for path in files:
         with open(path) as f:
             assert not bad.search(f.read()), path
