@@ -11,7 +11,9 @@ Phases, each printing what it found on its own line:
 3. kernels — each kernel against its plain PyTorch version on the card
              (TF32 off) at the main paths' shapes, with CUDA-event times of
              the kernel, the plain version and a PyTorch yardstick:
-             ``stft_magphase`` at the decode shapes, and the four MR-STFT
+             ``stft_magphase`` at the decode shapes, ``stft_magnitude`` at
+             the same and at ``bench_cli --frontend``'s 240-s signal, and
+             the four MR-STFT
              loss kernels (``spectral_mag`` and ``loss_partials``, forward
              and backward) at the train step's shapes (B = 32, 97,536
              samples, all three resolutions), a ragged shape and a weighted
@@ -32,9 +34,21 @@ Phases, each printing what it found on its own line:
              before each and read just after), ms per step from CUDA
              events and the device's busy share of a step from a
              torch.profiler trace;
-6. parity  — the U-Net at float32 on the card (cuDNN, TF32 off) against the
+6. bench   — the bench entry point: ``bench_cli --frontend`` (counts
+             zeroed just before and read just after: 102 launches of each
+             front-end kernel), then the full default line ``bench_cli``
+             at the ``default`` preset (PCM16 stream, device-resident
+             decode, the train step at B = 32 with its MFU, the epoch with
+             the host pipeline and with the dataset on the card), every
+             number finite and positive; one song of the PCM16 stream held
+             against ``separate_wav`` (2 LSB), and ``DeviceDataset``
+             batches on the card against the host ``PatchDataset``'s
+             (bitwise);
+7. parity  — the U-Net at float32 on the card (cuDNN, TF32 off) against the
              same weights and input on the CPU, and one float32 ``fft``
              train step (B = 4, no dropout) on the card against the CPU.
+
+Each phase's seconds are printed on a ``phase seconds`` line.
 
 The line before the last is the ``nvidia-smi`` name and power limit, the one
 before it the ``kernels`` JSON; the last line is the ``{"ok": true, ...}``
@@ -45,7 +59,9 @@ script fails the same way.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -65,6 +81,8 @@ PEAK_BYTES = 3.35e12
 SR = 8192
 SONG_SECONDS = 60
 N_SONGS = 3
+# bench_cli --frontend's default signal length (seconds, not bucketed)
+FRONTEND_SECONDS = 240
 # kernel tolerance: tests/test_pallas.py's bound for the TPU kernel against
 # the exact FFT; both sides here are f32 sums in different orders
 ATOL, RTOL = 2e-3, 1e-4
@@ -143,8 +161,9 @@ def write_songs(np, wav, root: str, seed: int) -> None:
                       vocal.astype(np.float32), SR)
 
 
-def kernel_phase(torch, np, cdsp):
-    """stft_magphase against its plain version; returns the JSON entry."""
+def frontend_phase(torch, np, cdsp, phase: bool):
+    """The front-end kernel against its plain version: ``stft_magphase``
+    (``phase``) or ``stft_magnitude``; returns the JSON entry."""
     rng = np.random.default_rng(0)
 
     def signal(n_samples: int, bucket: int = 1 << 18):
@@ -160,33 +179,50 @@ def kernel_phase(torch, np, cdsp):
         ("hq44k 60-s song, hop 256 (K=4)", signal(60 * 44100), 1024, 256),
         ("zero signal", torch.zeros(1 << 18, device="cuda"), 1024, 768),
     ]
+    if phase:
+        name, main_label = "stft_magphase", "decode 4-min song, default"
+        kernel, plain = cdsp.stft_magphase, cdsp.stft_magphase_plain
+    else:
+        # bench_cli --frontend's own signal: 240 s, not bucketed
+        name, main_label = "stft_magnitude", "bench --frontend 240-s song"
+        kernel, plain = cdsp.stft_magnitude, cdsp.stft_magnitude_plain
+        cases.append((main_label, signal(FRONTEND_SECONDS * SR, bucket=1),
+                      1024, 768))
     max_err = 0.0
     timing = {}
     for label, y, n_fft, hop in cases:
-        mag, ph = cdsp.stft_magphase(y, n_fft, hop)
+        got = kernel(y, n_fft, hop)
         torch.cuda.synchronize()
-        ref_mag, ref_ph = cdsp.stft_magphase_plain(y, n_fft, hop)
-        spec, ref_spec = mag * ph, ref_mag * ref_ph
+        want = plain(y, n_fft, hop)
+        if phase:
+            (mag, ph), (ref_mag, ref_ph) = got, want
+            spec, ref_spec = mag * ph, ref_mag * ref_ph
+            e_spec = (spec - ref_spec).abs().max().item()
+        else:
+            mag, ref_mag = got, want
         e_mag = (mag - ref_mag).abs().max().item()
-        e_spec = (spec - ref_spec).abs().max().item()
         scale = max(ref_mag.abs().max().item(), 1e-30)
-        print(f"kernel {label}: samples={y.numel()} frames={mag.shape[1]} "
-              f"max_abs_err mag={e_mag:.3e} mag*phase={e_spec:.3e} "
-              f"max_rel_err mag={e_mag / scale:.3e} "
-              f"mag*phase={e_spec / scale:.3e}")
+        line = (f"kernel {name} {label}: samples={y.numel()} "
+                f"frames={mag.shape[1]} max_abs_err mag={e_mag:.3e} ")
+        if phase:
+            line += f"mag*phase={e_spec:.3e} "
+        line += f"max_rel_err mag={e_mag / scale:.3e}"
+        print(line + (f" mag*phase={e_spec / scale:.3e}" if phase else ""))
         torch.testing.assert_close(mag, ref_mag, atol=ATOL, rtol=RTOL)
-        torch.testing.assert_close(spec, ref_spec, atol=ATOL, rtol=0)
-        max_err = max(max_err, e_mag, e_spec)
+        max_err = max(max_err, e_mag)
+        if phase:
+            torch.testing.assert_close(spec, ref_spec, atol=ATOL, rtol=0)
+            max_err = max(max_err, e_spec)
         if label == "zero signal":
-            check(bool((mag == 0).all()), "zero signal: mag is exactly 0")
-            check(bool((ph[0] == 1).all() and (ph[1] == 0).all()),
-                  "zero signal: phase is exactly 1+0j")
+            check(bool((mag == 0).all()), f"{name} zero signal: mag is 0")
+            if phase:
+                check(bool((ph[0] == 1).all() and (ph[1] == 0).all()),
+                      "zero signal: phase is exactly 1+0j")
             continue
         window = torch.hann_window(n_fft, device="cuda")
         t = {
-            "ms": cuda_ms(torch, lambda: cdsp.stft_magphase(y, n_fft, hop)),
-            "plain_ms": cuda_ms(
-                torch, lambda: cdsp.stft_magphase_plain(y, n_fft, hop)),
+            "ms": cuda_ms(torch, lambda: kernel(y, n_fft, hop)),
+            "plain_ms": cuda_ms(torch, lambda: plain(y, n_fft, hop)),
             "library_ms": cuda_ms(torch, lambda: torch.stft(
                 y, n_fft, hop, window=window, center=True,
                 pad_mode="constant", return_complex=True).abs()),
@@ -194,11 +230,12 @@ def kernel_phase(torch, np, cdsp):
         n_bins, n_frames = mag.shape
         # the least work of the function: per frame the window multiply, a
         # real FFT (2.5 n log2 n operations, half a complex FFT's 5 n log2 n)
-        # and, per bin, |z| and the two divides of the unit phase (6); the
-        # signal read once, magnitude and phase written once
+        # and, per bin, |z| (3) and the two divides of the unit phase (3
+        # more); the signal read once, magnitude (and phase) written once
+        planes, per_bin = (3, 6) if phase else (1, 3)
         flops = n_frames * (n_fft + 2.5 * n_fft * math.log2(n_fft)
-                            + 6 * n_bins)
-        bytes_ = 4 * (y.numel() + 3 * n_bins * n_frames)
+                            + per_bin * n_bins)
+        bytes_ = 4 * (y.numel() + planes * n_bins * n_frames)
         t["bound_ms"] = max(flops / PEAK_F32_FLOPS, bytes_ / PEAK_BYTES) * 1e3
         t["bound_by"] = ("operations" if flops / PEAK_F32_FLOPS
                          >= bytes_ / PEAK_BYTES else "bytes")
@@ -212,14 +249,15 @@ def kernel_phase(torch, np, cdsp):
             gemm_flops / PEAK_F32_FLOPS,
             (bytes_ + 4 * n_fft * n_fft) / PEAK_BYTES) * 1e3
         t["formulation_gflop"] = gemm_flops / 1e9
-        print(f"kernel {label} times: " + json.dumps(t))
+        print(f"kernel {name} {label} times: " + json.dumps(t))
         timing[label] = dict(t, samples=y.numel(), n_fft=n_fft, hop=hop)
-    main = timing["decode 4-min song, default"]
+    main = timing[main_label]
     return {
-        "name": "stft_magphase",
+        "name": name,
         "route": "cuda",
         "source": "svs_torch/csrc/stft_magphase.cu",
-        "replaces": "svs_tpu/ops/pallas/dsp.py:179",
+        "replaces": ("svs_tpu/ops/pallas/dsp.py:179" if phase
+                     else "svs_tpu/ops/pallas/dsp.py:115"),
         "launches": None,  # filled from the main path's run
         "max_abs_err": max_err,
         "ms": main["ms"],
@@ -227,10 +265,10 @@ def kernel_phase(torch, np, cdsp):
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
+        "library": "torch.stft (cuFFT) + abs",
         "formulation_bound_ms": main["formulation_bound_ms"],
         "shape": {"samples": main["samples"], "n_fft": 1024, "hop": 768},
-        "other_shapes": {k: v for k, v in timing.items()
-                         if k != "decode 4-min song, default"},
+        "other_shapes": {k: v for k, v in timing.items() if k != main_label},
     }
 
 
@@ -651,6 +689,128 @@ def slice_phase(torch, np, work: str):
     return launches
 
 
+def run_cli(main, argv) -> dict:
+    """Run a CLI's ``main(argv)``, echo what it printed, return its last
+    line as JSON."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    text = buf.getvalue()
+    print(text, end="")
+    check(rc == 0, f"{' '.join(argv)}: exit code 0")
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def bench_phase(torch, np, spec: str):
+    """The bench entry point (``bench_cli``) at the full ``default`` preset
+    on the card, with the counts zeroed just before each run and read just
+    after; then the PCM16 stream against ``separate_wav`` and the
+    device-resident batches against the host sampler's.  Returns the launch
+    counts of the ``--frontend`` run."""
+    from svs_torch.cli import bench_cli
+    from svs_torch.data.dataset import PatchDataset
+    from svs_torch.data.device_data import DeviceDataset
+    from svs_torch.infer import separate
+    from svs_torch.models.unet import UNet
+    from svs_torch.ops.cuda import diff_mag as cdm
+    from svs_torch.ops.cuda import dsp as cdsp
+    from svs_torch.ops.cuda import fused_loss as cfl
+    from svs_torch.utils.benchmark import _music_fixture
+    from svs_torch.utils.config import get_config
+
+    def zero():
+        cdsp.launches = cdsp.mag_launches = 0
+        cdm.reset_counts()
+        cfl.reset_counts()
+
+    def counts():
+        return {"stft_magphase": cdsp.launches,
+                "stft_magnitude": cdsp.mag_launches,
+                "spectral_mag_fwd": cdm.fwd_launches,
+                "spectral_mag_bwd": cdm.bwd_launches,
+                "loss_partials_fwd": cfl.fwd_launches,
+                "loss_partials_bwd": cfl.bwd_launches}
+
+    seconds = {}
+    t0 = time.perf_counter()
+    zero()
+    front = run_cli(bench_cli.main, ["--frontend", "--device", "cuda"])
+    launches = counts()
+    seconds["frontend_s"] = time.perf_counter() - t0
+    print("bench --frontend launches: " + json.dumps(launches))
+    # one warm-up, 100 timed calls and one for the error, each front end
+    check(launches["stft_magnitude"] == 102
+          and launches["stft_magphase"] == 102,
+          "bench --frontend launched each front-end kernel 102 times")
+    check(front["mag_max_abs_err"] < ATOL
+          and front["magphase_max_abs_err"] < ATOL,
+          "bench --frontend: kernels agree with torch.stft within the "
+          "kernel tolerance")
+
+    t0 = time.perf_counter()
+    zero()
+    line = run_cli(bench_cli.main, ["--device", "cuda"])
+    seconds["default_line_s"] = time.perf_counter() - t0
+    print("bench default line launches: " + json.dumps(counts()))
+    errors = [k for k in line if k.endswith("_error")]
+    check(not errors, f"bench default line: no sub-bench failed {errors}")
+    numbers = {k: v for k, v in line.items()
+               if isinstance(v, (int, float)) and not isinstance(v, bool)}
+    check(all(math.isfinite(v) and v > 0 for v in numbers.values()),
+          f"bench default line: every number finite and positive {numbers}")
+    for key in ("decode_device_ms_per_song", "stream_frames_per_sec",
+                "train_step_ms", "train_patches_per_sec",
+                "train_patches_per_sec_device", "train_flops_per_step",
+                "train_mfu_pct"):
+        check(key in numbers, f"bench default line has {key}")
+    check(line["train_mr_mag_impl"] == "matmul_bf16"
+          and line["train_dtype"] == "bfloat16",
+          "bench default line: the shipped default preset")
+
+    # the PCM16 stream (two songs, so one's copies overlap the other's
+    # decode) against separate_wav on the first, same card and weights
+    t0 = time.perf_counter()
+    cfg = get_config("default")
+    model = UNet(cfg, generator=torch.Generator().manual_seed(0))
+    model = model.cuda().eval()
+    songs = [_music_fixture(n * SR, SR, seed=s, pcm16=True)
+             for s, n in ((3, SONG_SECONDS), (4, 30))]
+    outs = separate.separate_wav_stream(model, songs, pcm16=True,
+                                        device="cuda")
+    check([o.dtype for o in outs] == [np.int16] * 2
+          and [o.shape for o in outs] == [y.shape for y in songs],
+          "PCM16 stream: int16 outputs of the songs' lengths")
+    want = separate.separate_wav(model, songs[0].astype(np.float32) / 32768,
+                                 device="cuda")
+    lsb = np.abs(outs[0].astype(np.float64) - want * 32768.0).max()
+    f32 = separate.separate_wav_stream(
+        model, [s.astype(np.float32) / 32768 for s in songs], device="cuda")
+    f32_err = float(np.abs(f32[0] - want).max())
+    print(f"bench: PCM16 stream vs separate_wav, 60-s song: max {lsb:.3f} "
+          f"LSB (bound 2); f32 stream vs separate_wav: max_abs_err "
+          f"{f32_err:.3e}")
+    check(lsb <= 2.0, "PCM16 stream within 2 LSB of separate_wav")
+    check(f32_err <= 1e-5, "f32 stream matches separate_wav")
+
+    # the device-resident dataset on the card against the host sampler
+    ds = PatchDataset(spec, samples_per_song=64, input_len=128)
+    dev = DeviceDataset(ds, device="cuda")
+    n_batches = 0
+    for kw in (dict(seed=5, n_steps=3), dict(seed=6, drop_last=True)):
+        for hb, db in zip(ds.batches(TRAIN_B, **kw),
+                          dev.batches(TRAIN_B, **kw)):
+            for k, v in hb.items():
+                check(torch.equal(db[k].cpu(), torch.from_numpy(v)),
+                      f"DeviceDataset batch {k} equals the host's")
+            n_batches += 1
+    print(f"bench: DeviceDataset on the card, {n_batches} batches of "
+          f"{TRAIN_B} bitwise equal to the host PatchDataset's "
+          f"({dev.nbytes / 2**20:.1f} MiB resident)")
+    seconds["stream_and_data_checks_s"] = time.perf_counter() - t0
+    print("bench seconds: " + json.dumps(seconds))
+    return launches
+
+
 # kernel-name fragments -> the layer they belong to (profiler breakdowns)
 FAMILIES = (("conv", ("conv", "cudnn", "xmma", "implicit", "gemm", "dgrad",
                       "wgrad", "nchw", "nhwc")),
@@ -725,22 +885,41 @@ def main() -> int:
     print(f"device: {name}; nvidia-smi: {smi}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}; tf32 off for cudnn and matmul")
 
+    seconds = {}
+    t0 = time.perf_counter()
     build_phase(build, [cdsp.KERNEL, cdm.KERNEL, cfl.KERNEL])
+    seconds["build"] = time.perf_counter() - t0
 
-    entries = [kernel_phase(torch, np, cdsp)] + loss_kernel_phase(torch, np)
+    t0 = time.perf_counter()
+    entries = [frontend_phase(torch, np, cdsp, phase=True),
+               frontend_phase(torch, np, cdsp, phase=False)]
+    entries += loss_kernel_phase(torch, np)
+    seconds["kernels"] = time.perf_counter() - t0
 
     with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=ROOT) as work:
+        t0 = time.perf_counter()
         launches = slice_phase(torch, np, work)
+        seconds["slice"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         train_launches, batch = train_phase(torch, np,
                                             os.path.join(work, "spec"))
+        seconds["train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bench_launches = bench_phase(torch, np, os.path.join(work, "spec"))
+        seconds["bench"] = time.perf_counter() - t0
     launches.update(train_launches)
+    launches["stft_magnitude"] = bench_launches["stft_magnitude"]
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
         check(entry["launches"] > 0,
               f"{entry['name']} launched on its main path")
 
+    t0 = time.perf_counter()
     parity_phase(torch)
     step_parity_phase(torch, np, batch)
+    seconds["parity"] = time.perf_counter() - t0
+    print("phase seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in seconds.items()}))
 
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -1,9 +1,14 @@
-// Fused STFT + magphase front end for Hopper (sm_90a), true float32.
+// Fused STFT front end for Hopper (sm_90a), true float32: magnitude and
+// phase, or magnitude alone.
 //
-// Replaces the TPU kernel svs_tpu/ops/pallas/dsp.py::stft_magphase
-// (_stft_magphase_kernel): centre constant pad, periodic-hann windowed real
-// DFT, magnitude, and the unit-phase real/imag planes with 1+0j where
-// mag <= 1e-30 (librosa.magphase contract, reference data.py:80).
+// Replaces two TPU kernels of svs_tpu/ops/pallas/dsp.py:
+// - stft_magphase (_stft_magphase_kernel): centre constant pad,
+//   periodic-hann windowed real DFT, magnitude, and the unit-phase real/imag
+//   planes with 1+0j where mag <= 1e-30 (librosa.magphase contract,
+//   reference data.py:80);
+// - stft_magnitude (_stft_mag_kernel): the same front end, magnitude only.
+// One kernel template serves both: kPhase says whether the epilogue also
+// writes the two phase planes.
 //
 // Formulation: an implicit-framing GEMM.  With y the unpadded signal and
 // p = n_fft/2 the centre pad,
@@ -24,7 +29,9 @@
 // the kernel does 2 * 2731 * 1024 * 1024 = 5.7 GFLOP of f32 FMA work and
 // must move ~29 MB (signal, basis, three output planes), so it is bound by
 // operations: ~86 us at the H100 SXM's 67 TFLOP/s of non-tensor f32 against
-// ~9 us for the bytes at 3.35 TB/s.  It stays FFMA (Precision.HIGHEST on
+// ~9 us for the bytes at 3.35 TB/s.  The magnitude-only instance does the
+// same GEMM and writes one plane (~18 MB with the basis), so the same FFMA
+// bound sets its time.  It stays FFMA (Precision.HIGHEST on
 // the TPU, dsp.py:72-79: no TF32) and goes after that bound as an SGEMM
 // does: each thread keeps an 8 frames x 8 columns tile of accumulators and
 // reads its operands as float4 (4 shared loads per 64 FMAs); the stages are
@@ -75,9 +82,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+template <bool kPhase>
 __device__ __forceinline__ void store_bin(float* mag, float* pre, float* pim,
                                           long long o, float r, float q) {
   const float m = sqrtf(r * r + q * q);
+  if constexpr (!kPhase) {
+    mag[o] = m;
+    return;
+  }
   // the threshold (not > 0) keeps subnormal magnitudes in the 1+0j branch,
   // where 1/mag would overflow (as dsp.py:166-174)
   const bool nz = m > 1e-30f;
@@ -88,9 +100,11 @@ __device__ __forceinline__ void store_bin(float* mag, float* pre, float* pim,
 }
 
 // at least 3 blocks per SM: that leaves a thread up to 168 registers (it
-// takes ~150); asking for 4 caps it at 128, and the tile spills
+// takes ~150); asking for 4 caps it at 128, and the tile spills.  Without
+// kPhase, pre and pim are not touched (null).
+template <bool kPhase>
 __global__ void __launch_bounds__(kThreads, 3)
-stft_magphase_kernel(const float* __restrict__ y, long long n_samples,
+stft_frontend_kernel(const float* __restrict__ y, long long n_samples,
                      const float* __restrict__ basis, int n_taps, int n_cols,
                      int hop, int pad, int n_bins, int n_frames,
                      float* __restrict__ mag, float* __restrict__ pre,
@@ -174,33 +188,55 @@ stft_magphase_kernel(const float* __restrict__ y, long long n_samples,
       const float r = acc[i][2 * q];
       const float im = acc[i][2 * q + 1];
       if (b == 0) {  // the shared pair: bin 0 and the Nyquist bin, both real
-        store_bin(mag, pre, pim, f, r, 0.f);
-        store_bin(mag, pre, pim, (long long)nyquist * n_frames + f, im, 0.f);
+        store_bin<kPhase>(mag, pre, pim, f, r, 0.f);
+        store_bin<kPhase>(mag, pre, pim, (long long)nyquist * n_frames + f,
+                          im, 0.f);
       } else {
-        store_bin(mag, pre, pim, (long long)b * n_frames + f, r, im);
+        store_bin<kPhase>(mag, pre, pim, (long long)b * n_frames + f, r, im);
       }
     }
   }
 }
 
+bool bad_geometry(int n_taps, int n_cols, int n_bins, int n_frames) {
+  return n_taps % kBK != 0 || n_cols % kBN != 0 || n_frames <= 0 ||
+         n_bins < 2 || 2 * (n_bins - 1) > n_cols;
+}
+
 }  // namespace
 
-// C entry point for ctypes.  All pointers are device pointers; ``phase`` is
-// the (2, n_bins, n_frames) output (real plane, then imaginary plane);
-// ``basis`` is (n_taps, n_cols) in the paired layout above, with n_taps a
-// multiple of 16, n_cols a multiple of 128 and at least 2 * (n_bins - 1).
-// Launches on ``stream`` and returns cudaGetLastError() (0 on success).
+// C entry points for ctypes.  All pointers are device pointers; ``basis`` is
+// (n_taps, n_cols) in the paired layout above, with n_taps a multiple of 16,
+// n_cols a multiple of 128 and at least 2 * (n_bins - 1); ``mag`` is the
+// (n_bins, n_frames) output.  Each launches on ``stream`` and returns
+// cudaGetLastError() (0 on success).
+
+// ``phase`` is the (2, n_bins, n_frames) output (real plane, then imaginary
+// plane).
 extern "C" int svs_stft_magphase(const float* y, long long n_samples,
                                  const float* basis, int n_taps, int n_cols,
                                  int hop, int pad, int n_bins, int n_frames,
                                  float* mag, float* phase, void* stream) {
-  if (n_taps % kBK != 0 || n_cols % kBN != 0 || n_frames <= 0 ||
-      n_bins < 2 || 2 * (n_bins - 1) > n_cols)
+  if (bad_geometry(n_taps, n_cols, n_bins, n_frames))
     return (int)cudaErrorInvalidValue;
   dim3 grid((n_frames + kBM - 1) / kBM, n_cols / kBN);
   const long long plane = (long long)n_bins * n_frames;
-  stft_magphase_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  stft_frontend_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       y, n_samples, basis, n_taps, n_cols, hop, pad, n_bins, n_frames, mag,
       phase, phase + plane);
+  return (int)cudaGetLastError();
+}
+
+// The magnitude alone (TPU kernel stft_magnitude).
+extern "C" int svs_stft_magnitude(const float* y, long long n_samples,
+                                  const float* basis, int n_taps, int n_cols,
+                                  int hop, int pad, int n_bins, int n_frames,
+                                  float* mag, void* stream) {
+  if (bad_geometry(n_taps, n_cols, n_bins, n_frames))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((n_frames + kBM - 1) / kBM, n_cols / kBN);
+  stft_frontend_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      y, n_samples, basis, n_taps, n_cols, hop, pad, n_bins, n_frames, mag,
+      nullptr, nullptr);
   return (int)cudaGetLastError();
 }

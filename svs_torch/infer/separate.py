@@ -17,11 +17,16 @@ Shapes are padded exactly as svs_tpu pads them (segments rounded up to a
 multiple of 8, samples to 2^18): in the ``whole`` and ``overlap`` modes the
 zero padding reaches the model's receptive field near the song's end, so the
 same padding is what keeps the two packages' outputs equal.
+
+:func:`separate_wav_stream` separates many songs in a row, optionally as
+PCM16 (int16 in and out, decoded and re-quantised on the device).  On the
+card it keeps the copies off the compute stream, so that one song's
+transfers overlap another's decode.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -181,6 +186,106 @@ def _separate_padded(model, y: torch.Tensor, n: int, cfg: SVSConfig,
     return vocal
 
 
+def _separate_padded_pcm16(model, y_i16: torch.Tensor, n: int,
+                           cfg: SVSConfig, vocal_solo: bool, mode: str
+                           ) -> torch.Tensor:
+    """PCM16 variant (separate.py:287-301): int16 in, int16 out; the decode
+    (x / 32768) and the re-quantisation run on the device, halving the
+    bytes that cross the host link.  ``torch.round`` rounds half to even,
+    as ``jnp.round`` does."""
+    y = y_i16.to(torch.float32) / 32768.0
+    out = _separate_padded(model, y, n, cfg, vocal_solo, False, mode)
+    return torch.clamp(torch.round(out * 32768.0), -32768,
+                       32767).to(torch.int16)
+
+
+def _padded_len(n: int, cfg: SVSConfig) -> int:
+    return _cdiv(max(n, cfg.window_size), _SAMPLE_BUCKET) * _SAMPLE_BUCKET
+
+
+@torch.inference_mode()
+def separate_wav_stream(
+    model: nn.Module,
+    songs: Sequence[np.ndarray],
+    *,
+    vocal_solo: bool = True,
+    pcm16: bool = False,
+    mode: str = "segments",
+    device: DeviceLike = None,
+) -> List[np.ndarray]:
+    """Sustained separation of many songs, with the transfers overlapped
+    (separate.py:304-348).
+
+    songs: 1-D float32 arrays (int16 with ``pcm16``; they cross the host
+    link as int16, half the bytes, and are decoded on the device).  Returns
+    the vocal estimates as numpy arrays of the input's dtype, cut to each
+    song's length.
+
+    On the card, song i+1's host-to-device copy and decode are enqueued
+    before song i's result is read back: the copies run from pinned host
+    buffers on two side streams (one each way), ordered against the compute
+    stream by events, so the card's steady cost per song is
+    max(H2D, decode, D2H) rather than their sum.  Every buffer of a song is
+    held until its result is read, so no stream reads freed memory.
+    """
+    cfg = model.cfg
+    _check(model, mode)
+    dev = _model_device(model, device)
+    np_dtype = np.int16 if pcm16 else np.float32
+
+    def run(y_dev: torch.Tensor, n: int) -> torch.Tensor:
+        if pcm16:
+            return _separate_padded_pcm16(model, y_dev, n, cfg, vocal_solo,
+                                          mode)
+        return _separate_padded(model, y_dev, n, cfg, vocal_solo, False,
+                                mode)
+
+    if dev.type != "cuda":
+        outs = []
+        for y in songs:
+            y = np.asarray(y, np_dtype)
+            y_p = torch.from_numpy(np.pad(y, (0, _padded_len(len(y), cfg)
+                                              - len(y))))
+            outs.append(run(y_p.to(dev), len(y)).cpu().numpy())
+        return outs
+
+    compute = torch.cuda.current_stream(dev)
+    h2d, d2h = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    t_dtype = torch.int16 if pcm16 else torch.float32
+    outs, pending = [], None
+    for y in songs:
+        y = np.asarray(y, np_dtype)
+        n = len(y)
+        host_in = torch.zeros(_padded_len(n, cfg), dtype=t_dtype,
+                              pin_memory=True)
+        host_in.numpy()[:n] = y
+        with torch.cuda.stream(h2d):
+            y_dev = host_in.to(dev, non_blocking=True)
+        compute.wait_stream(h2d)
+        out = run(y_dev, n)
+        d2h.wait_stream(compute)
+        host_out = torch.empty(n, dtype=t_dtype, pin_memory=True)
+        with torch.cuda.stream(d2h):
+            host_out.copy_(out, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(d2h)
+        if pending is not None:
+            outs.append(_collect(*pending[:2]))
+        # every buffer of the song lives until its result is read: y_dev
+        # and out are read on other streams than the ones they were made on
+        pending = (done, host_out, host_in, y_dev, out)
+    if pending is not None:
+        outs.append(_collect(*pending[:2]))
+    return outs
+
+
+def _collect(done: torch.cuda.Event, host_out: torch.Tensor) -> np.ndarray:
+    """Wait for one song's device-to-host copy; a copy out of the pinned
+    buffer, which then goes back to the allocator."""
+    done.synchronize()
+    return host_out.numpy().copy()
+
+
 @torch.inference_mode()
 def separate_wav(
     model: nn.Module,
@@ -200,8 +305,8 @@ def separate_wav(
     cfg = model.cfg
     _check(model, mode)
     n = len(y)
-    n_pad = _cdiv(max(n, cfg.window_size), _SAMPLE_BUCKET) * _SAMPLE_BUCKET
-    y_p = torch.from_numpy(np.pad(np.asarray(y, np.float32), (0, n_pad - n)))
+    y_p = torch.from_numpy(np.pad(np.asarray(y, np.float32),
+                                  (0, _padded_len(n, cfg) - n)))
     y_p = y_p.to(_model_device(model, device))
     out = _separate_padded(model, y_p, n, cfg, vocal_solo, both, mode)
     if both:

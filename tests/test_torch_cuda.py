@@ -7,9 +7,10 @@ that has only PyTorch:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 Tolerances:
-- stft_magphase, atol 2e-3 / rtol 1e-4: tests/test_pallas.py's bound for
-  the TPU kernel against the exact FFT; kernel and plain version are both
-  true f32 sums (TF32 off) in different orders.
+- stft_magphase and stft_magnitude, atol 2e-3 / rtol 1e-4:
+  tests/test_pallas.py's bound for the TPU kernel against the exact FFT;
+  kernel and plain version are both true f32 sums (TF32 off) in different
+  orders.
 - spectral_mag and loss_partials: both sides multiply the same bf16
   operands exactly and sum in f32 in different orders (the tensor cores'
   accumulators against cuBLAS's f32 GEMM), so magnitudes agree to atol
@@ -68,6 +69,34 @@ def test_stft_magphase_kernel_zero_signal(card):
     torch.cuda.synchronize()
     assert bool((mag == 0).all())
     assert bool((ri[0] == 1).all()) and bool((ri[1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_fft,hop", [
+    (1_966_080, 1024, 768),   # bench_cli --frontend's 240-s signal (K = 2)
+    (200_000, 1024, 256),     # K = 4
+    (9_001, 512, 200),        # ragged frame and bin tiles
+])
+def test_stft_magnitude_kernel_matches_plain(card, n, n_fft, hop):
+    rng = np.random.default_rng(1)
+    y = torch.from_numpy((rng.standard_normal(n) * 0.3).astype(
+        np.float32)).to(card)
+    before = (cdsp.launches, cdsp.mag_launches)
+    mag = cdsp.stft_magnitude(y, n_fft, hop)
+    torch.cuda.synchronize()
+    assert (cdsp.launches, cdsp.mag_launches) == (before[0], before[1] + 1)
+    want = cdsp.stft_magnitude_plain(y, n_fft, hop)
+    assert mag.shape == want.shape == (n_fft // 2 + 1, 1 + n // hop)
+    torch.testing.assert_close(mag, want, atol=ATOL, rtol=RTOL)
+    # the magnitude of the magphase kernel is the same sum, the same bits
+    assert torch.equal(mag, cdsp.stft_magphase(y, n_fft, hop)[0])
+
+
+@pytest.mark.cuda
+def test_stft_magnitude_kernel_zero_signal(card):
+    mag = cdsp.stft_magnitude(torch.zeros(8192, device=card), 1024, 768)
+    torch.cuda.synchronize()
+    assert mag.shape == (513, 11) and bool((mag == 0).all())
 
 
 RESOLUTIONS = [(1024, 120, 600), (2048, 240, 1200), (512, 50, 240)]

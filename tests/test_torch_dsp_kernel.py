@@ -1,9 +1,10 @@
-"""The stft_magphase front end of the port against svs_tpu's Pallas kernel.
+"""The stft_magphase and stft_magnitude front ends of the port against
+svs_tpu's Pallas kernels.
 
-On the CPU the wrapper takes its plain PyTorch version (same framing, bases
+On the CPU each wrapper takes its plain PyTorch version (same framing, bases
 and epilogue as the CUDA kernel); it is held against
-``svs_tpu.ops.pallas.dsp.stft_magphase(..., interpret=True)`` at K=2 and
-K=4 and on the zero signal.  Tolerance atol 2e-3 / rtol 1e-4, the bound
+``svs_tpu.ops.pallas.dsp.stft_magphase`` / ``stft_magnitude(...,
+interpret=True)`` at K=2, K=3 and K=4 and on the zero signal.  Tolerance atol 2e-3 / rtol 1e-4, the bound
 tests/test_pallas.py holds the Pallas kernel to against the exact FFT (both
 sides are f32 windowed-DFT sums in different orders).
 
@@ -87,3 +88,43 @@ def test_cpu_tensor_never_launches():
     before = cdsp.launches
     cdsp.stft_magphase(torch.zeros(4096))
     assert cdsp.launches == before
+
+
+SHAPES = [
+    (24_576, 1024, 768),   # K = 2, the default preset
+    (12_000, 1024, 256),   # K = 4, the hq44k geometry
+    (9_001, 512, 200),     # K = 3, a length that is no multiple of hop
+]
+
+
+@pytest.mark.parametrize("n,n_fft,hop", SHAPES)
+def test_magnitude_plain_matches_pallas(rng, n, n_fft, hop):
+    y = (rng.standard_normal(n) * 0.3).astype(np.float32)
+    want = np.asarray(pdsp.stft_magnitude(jnp.asarray(y), n_fft, hop,
+                                          interpret=True))
+    got = cdsp.stft_magnitude(torch.from_numpy(y), n_fft, hop).numpy()
+    assert got.shape == want.shape == (n_fft // 2 + 1, 1 + n // hop)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_magnitude_zero_signal_is_exactly_zero():
+    y = np.zeros(8192, np.float32)
+    want = np.asarray(pdsp.stft_magnitude(jnp.asarray(y), 1024, 768,
+                                          interpret=True))
+    got = cdsp.stft_magnitude(torch.from_numpy(y), 1024, 768).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, 0.0)
+
+
+def test_magnitude_rejects_a_2d_signal():
+    with pytest.raises(ValueError, match="1-D"):
+        pdsp.stft_magnitude(jnp.zeros((2, 100)), interpret=True)
+    with pytest.raises(ValueError, match="1-D"):
+        cdsp.stft_magnitude(torch.zeros(2, 100))
+
+
+def test_magnitude_cpu_tensor_never_launches():
+    before = (cdsp.launches, cdsp.mag_launches)
+    cdsp.stft_magnitude(torch.zeros(4096))
+    assert (cdsp.launches, cdsp.mag_launches) == before
