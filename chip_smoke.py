@@ -9,21 +9,24 @@ Phases, each printing what it found on its own line:
 2. build   — nvcc builds every hand-written kernel library from
              ``svs_torch/csrc`` (one nvcc per source, all started together);
 3. kernels — each kernel against its plain PyTorch version on the card
-             (TF32 off) at the main paths' shapes, with CUDA-event times of
-             the kernel, the plain version and a PyTorch yardstick:
-             ``stft_magphase`` at the decode shapes, ``stft_magnitude`` at
-             the same and at ``bench_cli --frontend``'s 240-s signal, and
-             the four MR-STFT
-             loss kernels (``spectral_mag`` and ``loss_partials``, forward
-             and backward) at the train step's shapes (B = 32, 97,536
-             samples, all three resolutions), a ragged shape and a weighted
-             batch;
+             (TF32 off) at the main paths' shapes.  The front ends
+             ``stft_magphase`` and ``stft_magnitude`` on both routes: the
+             fft kernel at the decode shapes, at ``bench_cli
+             --frontend``'s 240-s signal, at hop 256 and at n_fft 2048 and
+             4096, the gemm kernel at n_fft 1000, and the zero signal on
+             each; timed by device time (torch.profiler) beside their plain
+             versions, ``torch.stft`` + ``abs`` and the gemm kernel at the
+             same shapes.  The four MR-STFT loss kernels (``spectral_mag``
+             and ``loss_partials``, forward and backward) at the train
+             step's shapes (B = 32, 97,536 samples, all three resolutions),
+             a ragged shape and a weighted batch, by CUDA events;
 4. slice   — the decode path through the CLIs a user calls, at the full
              width of the ``default`` preset (bf16, seeded random weights
              saved as a reference ``.pth``): ``data_cli --direction to_spec``
              -> ``infer_cli`` -> ``data_cli --direction to_wave`` on three
              synthetic 60-s songs; the kernels' launch counts are zeroed
-             just before and read just after; one song's bf16 masks held
+             just before and read just after (every front-end launch on
+             the fft route); one song's bf16 masks held
              against the same weights and input on the CPU; then
              ``separate_wav`` timed, with one torch.profiler trace of its
              device time by family;
@@ -36,7 +39,7 @@ Phases, each printing what it found on its own line:
              torch.profiler trace;
 6. bench   — the bench entry point: ``bench_cli --frontend`` (counts
              zeroed just before and read just after: 102 launches of each
-             front-end kernel), then the full default line ``bench_cli``
+             front-end kernel, all on the fft route), then the full default line ``bench_cli``
              at the ``default`` preset (PCM16 stream, device-resident
              decode, the train step at B = 32 with its MFU, the epoch with
              the host pipeline and with the dataset on the card), every
@@ -161,9 +164,31 @@ def write_songs(np, wav, root: str, seed: int) -> None:
                       vocal.astype(np.float32), SR)
 
 
+def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device time of one ``fn()`` call: the summed duration of the kernels
+    it launched, from a torch.profiler trace of ``reps`` calls.  Unlike
+    :func:`cuda_ms` it leaves out the gaps while the host enqueues, which a
+    kernel of ~20 us a call does not cover."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.self_device_time_total for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA)
+    check(total > 0, "the profiler saw the calls' device time")
+    return total / 1e3 / reps
+
+
 def frontend_phase(torch, np, cdsp, phase: bool):
-    """The front-end kernel against its plain version: ``stft_magphase``
-    (``phase``) or ``stft_magnitude``; returns the JSON entry."""
+    """The front-end kernels against their plain versions: ``stft_magphase``
+    (``phase``) or ``stft_magnitude``, on the fft route (power-of-two n_fft)
+    and the gemm route (n_fft 1000), with the gemm kernel timed beside the
+    fft kernel at the same shapes; returns the JSON entry."""
     rng = np.random.default_rng(0)
 
     def signal(n_samples: int, bucket: int = 1 << 18):
@@ -177,32 +202,47 @@ def frontend_phase(torch, np, cdsp, phase: bool):
         ("decode 4-min song, default", signal(4 * 60 * SR), 1024, 768),
         ("main-path 60-s song, default", signal(SONG_SECONDS * SR), 1024, 768),
         ("hq44k 60-s song, hop 256 (K=4)", signal(60 * 44100), 1024, 256),
+        ("4-min song, n_fft 2048", signal(4 * 60 * SR), 2048, 512),
+        ("4-min song, n_fft 4096", signal(4 * 60 * SR), 4096, 1024),
+        ("4-min song, n_fft 1000 (gemm route)", signal(4 * 60 * SR), 1000,
+         250),
         ("zero signal", torch.zeros(1 << 18, device="cuda"), 1024, 768),
+        ("zero signal, n_fft 1000", torch.zeros(1 << 18, device="cuda"),
+         1000, 250),
     ]
     if phase:
         name, main_label = "stft_magphase", "decode 4-min song, default"
-        kernel, plain = cdsp.stft_magphase, cdsp.stft_magphase_plain
+        kernel = cdsp.stft_magphase
     else:
         # bench_cli --frontend's own signal: 240 s, not bucketed
         name, main_label = "stft_magnitude", "bench --frontend 240-s song"
-        kernel, plain = cdsp.stft_magnitude, cdsp.stft_magnitude_plain
+        kernel = cdsp.stft_magnitude
         cases.append((main_label, signal(FRONTEND_SECONDS * SR, bucket=1),
                       1024, 768))
     max_err = 0.0
     timing = {}
     for label, y, n_fft, hop in cases:
+        via = cdsp.route(n_fft)
+        plain = cdsp.plain_for(n_fft, phase)
+        routes = (cdsp.fft_launches, cdsp.gemm_launches)
         got = kernel(y, n_fft, hop)
         torch.cuda.synchronize()
+        moved = (cdsp.fft_launches - routes[0], cdsp.gemm_launches - routes[1])
+        check(moved == ((1, 0) if via == "fft" else (0, 1)),
+              f"{name} {label}: one launch on the {via} route")
         want = plain(y, n_fft, hop)
         if phase:
             (mag, ph), (ref_mag, ref_ph) = got, want
             spec, ref_spec = mag * ph, ref_mag * ref_ph
             e_spec = (spec - ref_spec).abs().max().item()
+            check(torch.equal(mag, cdsp.stft_magnitude(y, n_fft, hop)),
+                  f"{label}: stft_magnitude's magnitude is stft_magphase's, "
+                  "bit for bit")
         else:
             mag, ref_mag = got, want
         e_mag = (mag - ref_mag).abs().max().item()
         scale = max(ref_mag.abs().max().item(), 1e-30)
-        line = (f"kernel {name} {label}: samples={y.numel()} "
+        line = (f"kernel {name} {label}: route={via} samples={y.numel()} "
                 f"frames={mag.shape[1]} max_abs_err mag={e_mag:.3e} ")
         if phase:
             line += f"mag*phase={e_spec:.3e} "
@@ -213,20 +253,29 @@ def frontend_phase(torch, np, cdsp, phase: bool):
         if phase:
             torch.testing.assert_close(spec, ref_spec, atol=ATOL, rtol=0)
             max_err = max(max_err, e_spec)
-        if label == "zero signal":
-            check(bool((mag == 0).all()), f"{name} zero signal: mag is 0")
+        if label.startswith("zero signal"):
+            check(bool((mag == 0).all()), f"{name} {label}: mag is 0")
             if phase:
                 check(bool((ph[0] == 1).all() and (ph[1] == 0).all()),
-                      "zero signal: phase is exactly 1+0j")
+                      f"{label}: phase is exactly 1+0j")
             continue
         window = torch.hann_window(n_fft, device="cuda")
-        t = {
-            "ms": cuda_ms(torch, lambda: kernel(y, n_fft, hop)),
-            "plain_ms": cuda_ms(torch, lambda: plain(y, n_fft, hop)),
-            "library_ms": cuda_ms(torch, lambda: torch.stft(
+        runs = {
+            "ms": lambda: kernel(y, n_fft, hop),
+            "plain_ms": lambda: plain(y, n_fft, hop),
+            "library_ms": lambda: torch.stft(
                 y, n_fft, hop, window=window, center=True,
-                pad_mode="constant", return_complex=True).abs()),
+                pad_mode="constant", return_complex=True).abs(),
         }
+        if via == "fft":
+            # the gemm design at the same shape, through its C entry
+            runs["earlier_ms"] = lambda: cdsp.launch(y, n_fft, hop, phase,
+                                                     "gemm")
+        t = {k: device_ms(torch, fn) for k, fn in runs.items()}
+        # the same calls back to back by CUDA events: for a kernel of tens
+        # of microseconds this reads the host's enqueue, not the card
+        t["event_ms"] = cuda_ms(torch, runs["ms"])
+        t["library_event_ms"] = cuda_ms(torch, runs["library_ms"])
         n_bins, n_frames = mag.shape
         # the least work of the function: per frame the window multiply, a
         # real FFT (2.5 n log2 n operations, half a complex FFT's 5 n log2 n)
@@ -241,21 +290,35 @@ def frontend_phase(torch, np, cdsp, phase: bool):
                          >= bytes_ / PEAK_BYTES else "bytes")
         t["gflop"] = flops / 1e9
         t["mbytes"] = bytes_ / 1e6
-        # the bound of the DFT done as a GEMM, as this kernel does it: a
-        # multiply and an add per tap for each of the n_fft real values of a
-        # frame's spectrum, and the n_fft x n_fft basis read once more
-        gemm_flops = 2 * n_frames * n_fft * n_fft
-        t["formulation_bound_ms"] = max(
-            gemm_flops / PEAK_F32_FLOPS,
-            (bytes_ + 4 * n_fft * n_fft) / PEAK_BYTES) * 1e3
-        t["formulation_gflop"] = gemm_flops / 1e9
+        if via == "fft":
+            # the kernel's own work: per frame the window multiply, the
+            # n/2-point complex FFT (5 (n/2) log2(n/2)), the split step
+            # (16 a bin) and the epilogue, over the f32 peak, or its bytes
+            m = n_fft // 2
+            form = n_frames * (n_fft + 5 * m * math.log2(m) + 16 * (m - 1)
+                               + per_bin * n_bins)
+        else:
+            # the DFT as a GEMM: a multiply and an add per tap for each of
+            # the n_fft real values of a frame's spectrum, and the basis
+            form = 2 * n_frames * n_fft * n_fft
+            bytes_ += 4 * n_fft * n_fft
+        t["formulation_bound_ms"] = max(form / PEAK_F32_FLOPS,
+                                        bytes_ / PEAK_BYTES) * 1e3
+        t["formulation_gflop"] = form / 1e9
         print(f"kernel {name} {label} times: " + json.dumps(t))
-        timing[label] = dict(t, samples=y.numel(), n_fft=n_fft, hop=hop)
+        timing[label] = dict(t, samples=y.numel(), n_fft=n_fft, hop=hop,
+                             route=via)
     main = timing[main_label]
+    for label, t in timing.items():
+        if t["route"] == "fft" and t["n_fft"] == 1024:
+            print(f"kernel {name} {label}: fft {t['ms']:.5f} ms, gemm "
+                  f"{t['earlier_ms']:.5f} ms ({t['earlier_ms'] / t['ms']:.2f}x)"
+                  f", torch.stft + abs {t['library_ms']:.5f} ms "
+                  f"({t['library_ms'] / t['ms']:.2f}x)")
     return {
         "name": name,
         "route": "cuda",
-        "source": "svs_torch/csrc/stft_magphase.cu",
+        "source": "svs_torch/csrc/stft_fft.cu",
         "replaces": ("svs_tpu/ops/pallas/dsp.py:179" if phase
                      else "svs_tpu/ops/pallas/dsp.py:115"),
         "launches": None,  # filled from the main path's run
@@ -266,7 +329,12 @@ def frontend_phase(torch, np, cdsp, phase: bool):
         "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "library": "torch.stft (cuFFT) + abs",
+        "earlier_ms": main["earlier_ms"],
+        "earlier": ("the gemm design (svs_torch/csrc/stft_magphase.cu, now "
+                    "the route for n_fft that is no power of two), same "
+                    "shape, same run"),
         "formulation_bound_ms": main["formulation_bound_ms"],
+        "timing": "device time per call, torch.profiler, 20 calls",
         "shape": {"samples": main["samples"], "n_fft": 1024, "hop": 768},
         "other_shapes": {k: v for k, v in timing.items() if k != main_label},
     }
@@ -601,7 +669,7 @@ def slice_phase(torch, np, work: str):
     print(f"slice: {N_SONGS} songs x {SONG_SECONDS} s at {SR} Hz; default "
           f"preset, {param_count(model)} params, {cfg.compute_dtype}")
 
-    cdsp.launches = 0
+    cdsp.reset_counts()
     stages = {}
     t0 = time.perf_counter()
     rc = data_cli.main(["--src", songs, "--tar", spec, "--device", "cuda"])
@@ -620,11 +688,15 @@ def slice_phase(torch, np, work: str):
     stages["to_wave_s"] = time.perf_counter() - t0
     check(rc == 0, "data_cli to_wave exit code 0")
     launches = {"stft_magphase": cdsp.launches}
+    routes = {"fft": cdsp.fft_launches, "gemm": cdsp.gemm_launches}
     print("slice stages: " + json.dumps(stages))
-    print("slice launches: " + json.dumps(launches))
+    print("slice launches: " + json.dumps(launches) + ", by route "
+          + json.dumps(routes))
     check(launches["stft_magphase"] == 2 * N_SONGS,
           f"stft_magphase launched twice per song (mixture and vocals): "
           f"{launches['stft_magphase']} for {N_SONGS} songs")
+    check(routes == {"fft": 2 * N_SONGS, "gemm": 0},
+          "to_spec went through the fft route only")
 
     n_frames = 1 + SONG_SECONDS * SR // cfg.hop_size
     for i in range(N_SONGS):
@@ -719,7 +791,7 @@ def bench_phase(torch, np, spec: str):
     from svs_torch.utils.config import get_config
 
     def zero():
-        cdsp.launches = cdsp.mag_launches = 0
+        cdsp.reset_counts()
         cdm.reset_counts()
         cfl.reset_counts()
 
@@ -736,8 +808,12 @@ def bench_phase(torch, np, spec: str):
     zero()
     front = run_cli(bench_cli.main, ["--frontend", "--device", "cuda"])
     launches = counts()
+    routes = {"fft": cdsp.fft_launches, "gemm": cdsp.gemm_launches}
     seconds["frontend_s"] = time.perf_counter() - t0
-    print("bench --frontend launches: " + json.dumps(launches))
+    print("bench --frontend launches: " + json.dumps(launches)
+          + ", front ends by route " + json.dumps(routes))
+    check(routes == {"fft": 204, "gemm": 0},
+          "bench --frontend went through the fft route only")
     # one warm-up, 100 timed calls and one for the error, each front end
     check(launches["stft_magnitude"] == 102
           and launches["stft_magphase"] == 102,
@@ -887,7 +963,7 @@ def main() -> int:
 
     seconds = {}
     t0 = time.perf_counter()
-    build_phase(build, [cdsp.KERNEL, cdm.KERNEL, cfl.KERNEL])
+    build_phase(build, [*cdsp.KERNELS, cdm.KERNEL, cfl.KERNEL])
     seconds["build"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()

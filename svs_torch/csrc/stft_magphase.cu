@@ -1,5 +1,7 @@
 // Fused STFT front end for Hopper (sm_90a), true float32: magnitude and
-// phase, or magnitude alone.
+// phase, or magnitude alone.  The gemm route: the kernel for an even n_fft
+// that is no power of two in [64, 4096]; stft_fft.cu's real FFT takes
+// those (the wrapper, svs_torch/ops/cuda/dsp.py, picks by n_fft).
 //
 // Replaces two TPU kernels of svs_tpu/ops/pallas/dsp.py:
 // - stft_magphase (_stft_magphase_kernel): centre constant pad,
@@ -41,6 +43,8 @@
 
 #include <cuda_runtime.h>
 
+#include "stft_epilogue.cuh"
+
 namespace {
 
 constexpr int kBM = 64;    // frames per block
@@ -80,23 +84,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-template <bool kPhase>
-__device__ __forceinline__ void store_bin(float* mag, float* pre, float* pim,
-                                          long long o, float r, float q) {
-  const float m = sqrtf(r * r + q * q);
-  if constexpr (!kPhase) {
-    mag[o] = m;
-    return;
-  }
-  // the threshold (not > 0) keeps subnormal magnitudes in the 1+0j branch,
-  // where 1/mag would overflow (as dsp.py:166-174)
-  const bool nz = m > 1e-30f;
-  const float inv = nz ? 1.0f / m : 0.0f;
-  mag[o] = m;
-  pre[o] = nz ? r * inv : 1.0f;
-  pim[o] = q * inv;
 }
 
 // at least 3 blocks per SM: that leaves a thread up to 168 registers (it

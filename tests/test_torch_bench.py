@@ -52,12 +52,17 @@ def test_train_epoch_bench_fields(resident):
                                song_frames=150, epochs=1,
                                device_resident=resident, device="cpu")
     sfx = "_device" if resident else ""
-    assert out[f"train_epoch{sfx}_secs"] > 0
-    assert out[f"train_epoch{sfx}_patches"] == 8  # 2 songs x 4 per song
-    np.testing.assert_allclose(
-        out[f"train_patches_per_sec{sfx}"],
-        out[f"train_epoch{sfx}_patches"] / out[f"train_epoch{sfx}_secs"],
-        rtol=0.1)
+    secs = out[f"train_epoch{sfx}_secs"]
+    patches = out[f"train_epoch{sfx}_patches"]
+    rate = out[f"train_patches_per_sec{sfx}"]
+    assert patches == 8  # 2 songs x 4 per song
+    # seconds are rounded to 2 decimals (svs_tpu's format; a fast epoch
+    # reads 0.0) and the rate, from the unrounded seconds, to 1: the true
+    # seconds lie within half a hundredth of the rounded ones
+    assert secs >= 0 and rate > 0
+    assert rate >= patches / (secs + 0.005) - 0.05
+    if secs > 0.005:
+        assert rate <= patches / (secs - 0.005) + 0.05
 
 
 def test_epoch_scan_is_not_yet_ported():

@@ -10,7 +10,10 @@ Tolerances:
 - stft_magphase and stft_magnitude, atol 2e-3 / rtol 1e-4:
   tests/test_pallas.py's bound for the TPU kernel against the exact FFT;
   kernel and plain version are both true f32 sums (TF32 off) in different
-  orders.
+  orders.  The fft and gemm routes against each other at a power-of-two
+  n_fft: 4e-6 of the largest magnitude, tests/test_torch_fft_frontend.py's
+  bound between their plain versions (each is within its f32 rounding of
+  the exact DFT).
 - spectral_mag and loss_partials: both sides multiply the same bf16
   operands exactly and sum in f32 in different orders (the tensor cores'
   accumulators against cuBLAS's f32 GEMM), so magnitudes agree to atol
@@ -42,21 +45,39 @@ def card():
     torch.backends.cuda.matmul.allow_tf32 = allow
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,n_fft,hop", [
+def _route_counts():
+    return cdsp.fft_launches, cdsp.gemm_launches
+
+
+def _moved(before, n_fft):
+    """The route counters after one launch at ``n_fft``: its route's moved
+    by one, the other's not at all."""
+    fft, gemm = before
+    return (fft + 1, gemm) if cdsp.route(n_fft) == "fft" else (fft, gemm + 1)
+
+
+FRONTEND_SHAPES = [
     (2_097_152, 1024, 768),   # 4-minute song at 8192 Hz, bucket-padded
     (200_000, 1024, 256),     # K = 4
     (9_001, 512, 200),        # ragged frame and bin tiles
-])
+    (300_000, 2048, 512),     # fft route, n_fft 2048
+    (300_000, 4096, 1024),    # fft route, n_fft 4096
+    (100_000, 1000, 250),     # gemm route: no power of two
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_fft,hop", FRONTEND_SHAPES)
 def test_stft_magphase_kernel_matches_plain(card, n, n_fft, hop):
     rng = np.random.default_rng(0)
     y = torch.from_numpy((rng.standard_normal(n) * 0.3).astype(
         np.float32)).to(card)
-    before = cdsp.launches
+    before, routes = cdsp.launches, _route_counts()
     mag, ri = cdsp.stft_magphase(y, n_fft, hop)
     torch.cuda.synchronize()
     assert cdsp.launches == before + 1
-    want_mag, want_ri = cdsp.stft_magphase_plain(y, n_fft, hop)
+    assert _route_counts() == _moved(routes, n_fft)
+    want_mag, want_ri = cdsp.plain_for(n_fft, True)(y, n_fft, hop)
     assert mag.shape == want_mag.shape and ri.shape == want_ri.shape
     torch.testing.assert_close(mag, want_mag, atol=ATOL, rtol=RTOL)
     torch.testing.assert_close(mag * ri, want_mag * want_ri, atol=ATOL,
@@ -64,8 +85,9 @@ def test_stft_magphase_kernel_matches_plain(card, n, n_fft, hop):
 
 
 @pytest.mark.cuda
-def test_stft_magphase_kernel_zero_signal(card):
-    mag, ri = cdsp.stft_magphase(torch.zeros(8192, device=card), 1024, 768)
+@pytest.mark.parametrize("n_fft,hop", [(1024, 768), (1000, 250)])
+def test_stft_magphase_kernel_zero_signal(card, n_fft, hop):
+    mag, ri = cdsp.stft_magphase(torch.zeros(8192, device=card), n_fft, hop)
     torch.cuda.synchronize()
     assert bool((mag == 0).all())
     assert bool((ri[0] == 1).all()) and bool((ri[1] == 0).all())
@@ -76,16 +98,20 @@ def test_stft_magphase_kernel_zero_signal(card):
     (1_966_080, 1024, 768),   # bench_cli --frontend's 240-s signal (K = 2)
     (200_000, 1024, 256),     # K = 4
     (9_001, 512, 200),        # ragged frame and bin tiles
+    (300_000, 2048, 512),     # fft route, n_fft 2048
+    (300_000, 4096, 1024),    # fft route, n_fft 4096
+    (100_000, 1000, 250),     # gemm route
 ])
 def test_stft_magnitude_kernel_matches_plain(card, n, n_fft, hop):
     rng = np.random.default_rng(1)
     y = torch.from_numpy((rng.standard_normal(n) * 0.3).astype(
         np.float32)).to(card)
-    before = (cdsp.launches, cdsp.mag_launches)
+    before, routes = (cdsp.launches, cdsp.mag_launches), _route_counts()
     mag = cdsp.stft_magnitude(y, n_fft, hop)
     torch.cuda.synchronize()
     assert (cdsp.launches, cdsp.mag_launches) == (before[0], before[1] + 1)
-    want = cdsp.stft_magnitude_plain(y, n_fft, hop)
+    assert _route_counts() == _moved(routes, n_fft)
+    want = cdsp.plain_for(n_fft, False)(y, n_fft, hop)
     assert mag.shape == want.shape == (n_fft // 2 + 1, 1 + n // hop)
     torch.testing.assert_close(mag, want, atol=ATOL, rtol=RTOL)
     # the magnitude of the magphase kernel is the same sum, the same bits
@@ -93,10 +119,54 @@ def test_stft_magnitude_kernel_matches_plain(card, n, n_fft, hop):
 
 
 @pytest.mark.cuda
-def test_stft_magnitude_kernel_zero_signal(card):
-    mag = cdsp.stft_magnitude(torch.zeros(8192, device=card), 1024, 768)
+@pytest.mark.parametrize("n_fft,hop", [(1024, 768), (1000, 250)])
+def test_stft_magnitude_kernel_zero_signal(card, n_fft, hop):
+    mag = cdsp.stft_magnitude(torch.zeros(8192, device=card), n_fft, hop)
     torch.cuda.synchronize()
-    assert mag.shape == (513, 11) and bool((mag == 0).all())
+    assert mag.shape == (n_fft // 2 + 1, 1 + 8192 // hop)
+    assert bool((mag == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase", [True, False])
+def test_fft_and_gemm_routes_agree(card, phase):
+    """The gemm kernel also takes a power-of-two n_fft (which is how the
+    redesign is timed against it): both routes give the same spectrum."""
+    rng = np.random.default_rng(2)
+    y = torch.from_numpy((rng.standard_normal(500_000) * 0.3).astype(
+        np.float32)).to(card)
+    fft = cdsp.launch(y, 1024, 768, phase, "fft")
+    gemm = cdsp.launch(y, 1024, 768, phase, "gemm")
+    torch.cuda.synchronize()
+    mag, ref = (fft[0], gemm[0]) if phase else (fft, gemm)
+    bound = 4e-6 * ref.abs().max().item()
+    torch.testing.assert_close(mag, ref, atol=bound, rtol=0)
+    if phase:
+        torch.testing.assert_close(fft[0] * fft[1], gemm[0] * gemm[1],
+                                   atol=bound, rtol=0)
+
+
+@pytest.mark.cuda
+def test_fft_route_returns_views_of_padded_rows(card):
+    """The fft route pads its output rows to a multiple of 8 frames and
+    returns strided views; after ``.contiguous()`` they hold what the CPU
+    wrappers return for the same signal (the route's plain version)."""
+    rng = np.random.default_rng(3)
+    y = (rng.standard_normal(100_001) * 0.3).astype(np.float32)
+    mag, ri = cdsp.stft_magphase(torch.from_numpy(y).to(card), 1024, 768)
+    only = cdsp.stft_magnitude(torch.from_numpy(y).to(card), 1024, 768)
+    torch.cuda.synchronize()
+    assert mag.shape == only.shape == (513, 131)      # 131 frames: odd
+    assert mag.stride(0) == only.stride(0) == ri.stride(1) == 136
+    assert not mag.is_contiguous() and not ri.is_contiguous()
+    cpu_mag, cpu_ri = cdsp.stft_magphase(torch.from_numpy(y), 1024, 768)
+    assert cpu_mag.is_contiguous() and cpu_ri.is_contiguous()
+    dense_mag, dense_ri = mag.contiguous(), ri.contiguous()
+    assert torch.equal(dense_mag, mag) and torch.equal(only.contiguous(), mag)
+    torch.testing.assert_close(dense_mag.cpu(), cpu_mag, atol=ATOL,
+                               rtol=RTOL)
+    torch.testing.assert_close((dense_mag * dense_ri).cpu(),
+                               cpu_mag * cpu_ri, atol=ATOL, rtol=0)
 
 
 RESOLUTIONS = [(1024, 120, 600), (2048, 240, 1200), (512, 50, 240)]

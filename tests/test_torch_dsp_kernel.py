@@ -1,10 +1,13 @@
 """The stft_magphase and stft_magnitude front ends of the port against
 svs_tpu's Pallas kernels.
 
-On the CPU each wrapper takes its plain PyTorch version (same framing, bases
-and epilogue as the CUDA kernel); it is held against
+On the CPU each wrapper takes the plain PyTorch version of the route its
+n_fft selects (the fft route at these power-of-two sizes: the kernel's
+packing, radix passes, split step and epilogue; the gemm basis is checked
+below); it is held against
 ``svs_tpu.ops.pallas.dsp.stft_magphase`` / ``stft_magnitude(...,
-interpret=True)`` at K=2, K=3 and K=4 and on the zero signal.  Tolerance atol 2e-3 / rtol 1e-4, the bound
+interpret=True)`` at K=2, K=3 and K=4, at n_fft 2048 and on the zero
+signal.  Tolerance atol 2e-3 / rtol 1e-4, the bound
 tests/test_pallas.py holds the Pallas kernel to against the exact FFT (both
 sides are f32 windowed-DFT sums in different orders).
 
@@ -33,6 +36,7 @@ def _pallas(y, n_fft, hop):
     (24_576, 1024, 768),   # K = 2, the default preset
     (12_000, 1024, 256),   # K = 4, the hq44k geometry
     (9_001, 512, 200),     # K = 3, a length that is no multiple of hop
+    (20_000, 2048, 512),   # K = 4, n_fft 2048 (a radix-2 last pass)
 ])
 def test_plain_matches_pallas(rng, n, n_fft, hop):
     y = (rng.standard_normal(n) * 0.3).astype(np.float32)
@@ -94,6 +98,7 @@ SHAPES = [
     (24_576, 1024, 768),   # K = 2, the default preset
     (12_000, 1024, 256),   # K = 4, the hq44k geometry
     (9_001, 512, 200),     # K = 3, a length that is no multiple of hop
+    (20_000, 2048, 512),   # K = 4, n_fft 2048
 ]
 
 
