@@ -2,6 +2,7 @@
 """Drive the PyTorch port (``svs_torch``) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --loss-times TREE   # loss kernels of TREE only
 
 Phases, each printing what it found on its own line:
 
@@ -19,7 +20,10 @@ Phases, each printing what it found on its own line:
              same shapes.  The four MR-STFT loss kernels (``spectral_mag``
              and ``loss_partials``, forward and backward) at the train
              step's shapes (B = 32, 97,536 samples, all three resolutions),
-             a ragged shape and a weighted batch, by CUDA events;
+             a ragged shape and a weighted batch; timed by device time
+             (torch.profiler) summed over their own ``spec::`` kernels,
+             each backward's two launches apart, and by CUDA events
+             (``event_ms``); ``ptxas -v`` of the loss kernels printed once;
 4. slice   — the decode path through the CLIs a user calls, at the full
              width of the ``default`` preset (bf16, seeded random weights
              saved as a reference ``.pth``): ``data_cli --direction to_spec``
@@ -39,7 +43,8 @@ Phases, each printing what it found on its own line:
              torch.profiler trace;
 6. bench   — the bench entry point: ``bench_cli --frontend`` (counts
              zeroed just before and read just after: 102 launches of each
-             front-end kernel, all on the fft route), then the full default line ``bench_cli``
+             front-end kernel, all on the fft route), then the full
+             default line ``bench_cli``
              at the ``default`` preset (PCM16 stream, device-resident
              decode, the train step at B = 32 with its MFU, the epoch with
              the host pipeline and with the dataset on the card), every
@@ -113,6 +118,13 @@ IMPLS = ("matmul_bf16", "pallas_fused", "pallas_fused_wide", "pallas_bf16")
 # matmul_bf16's, same card, weights, batch and dropout masks:
 # tests/test_fused_loss.py:95's bound between these paths
 MR_RTOL = 5e-3
+# first-step grad_norm of each kernel implementation against matmul_bf16's:
+# the loss kernels' backward rounds the scaled re/im cotangents to bf16 at
+# other points than the bf16 matmul path, a 2^-8 relative change per
+# element with no common sign over ~10^7 elements, so the norm of the
+# U-Net's gradient moves far less (8.5e-6 relative observed on the H100);
+# 1e-3 leaves two orders of room and still catches a wrong adjoint
+GN_RTOL = 1e-3
 # float32 train step, card (cuDNN and cuFFT, TF32 off) against the CPU:
 # __graft_entry__.py's envelope for one step against another
 # implementation of it, except the loss, whose 3 FFT resolutions and 12
@@ -164,24 +176,97 @@ def write_songs(np, wav, root: str, seed: int) -> None:
                       vocal.astype(np.float32), SR)
 
 
+def device_events(torch, fn, reps: int = 1, cpu: bool = False):
+    """The kernels that ``reps`` calls of ``fn`` launched, as (name, device
+    ms, launches), from a torch.profiler trace (``cpu``: the host's
+    activity traced too).  A trace without device time is taken again, up
+    to three times: on the H100 one trace of work that ran held no kernel
+    records (once in PR 5's runs), and a measurement, not the kernel, was
+    at fault."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
+                                            if cpu else [])
+    for _ in range(3):
+        with profile(activities=activities) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [(ev.key, ev.self_device_time_total / 1e3, ev.count)
+                  for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(ms for _, ms, _ in events) > 0:
+            return events
+    check(False, "the profiler saw the calls' device time")
+
+
 def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     """Device time of one ``fn()`` call: the summed duration of the kernels
     it launched, from a torch.profiler trace of ``reps`` calls.  Unlike
     :func:`cuda_ms` it leaves out the gaps while the host enqueues, which a
     kernel of ~20 us a call does not cover."""
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(ev.self_device_time_total for ev in prof.key_averages()
-                if ev.device_type == torch.autograd.DeviceType.CUDA)
-    check(total > 0, "the profiler saw the calls' device time")
-    return total / 1e3 / reps
+    return sum(ms for _, ms, _ in device_events(torch, fn, reps)) / reps
+
+
+def spec_kernel_ms(torch, fn, reps: int = 10, warmup: int = 3):
+    """Device time of one ``fn()`` call summed over the hand-written loss
+    kernels it launched (names in namespace ``spec::``), and that time by
+    kernel, from a torch.profiler trace of ``reps`` calls; the padding,
+    casts and fold around them are left out."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    by = {}
+    for key, ms, _ in device_events(torch, fn, reps):
+        if "spec::" in key:
+            name = key.split("(")[0].replace("void ", "")
+            by[name] = by.get(name, 0.0) + ms / reps
+    check(sum(by.values()) > 0, "the profiler saw the loss kernels")
+    return sum(by.values()), by
+
+
+def loss_inputs(torch, np, n_fft: int):
+    """The train step's shapes at one resolution, seeded by it: x, y
+    (B, T), a magnitude cotangent and a partials cotangent."""
+    rng = np.random.default_rng(n_fft)
+    x, y = (torch.from_numpy((rng.standard_normal((TRAIN_B, TRAIN_T)) * 0.3)
+                             .astype(np.float32)).cuda() for _ in range(2))
+    n_frames = 1 + TRAIN_T // dict((r[0], r[1]) for r in RESOLUTIONS)[n_fft]
+    g_mag = torch.from_numpy(rng.standard_normal(
+        (TRAIN_B, n_fft // 2 + 1, n_frames)).astype(np.float32)).cuda()
+    g_part = torch.from_numpy(rng.uniform(0.5, 1.5, (TRAIN_B, 3)).astype(
+        np.float32)).cuda()
+    return x, y, g_mag, g_part
+
+
+def loss_times(torch, np, cdm, cfl) -> dict:
+    """Device time (``spec_kernel_ms``) and CUDA-event time of the four
+    loss kernels at each train resolution, through the wrappers of the
+    ``diff_mag`` and ``fused_loss`` modules given (this tree's or an
+    earlier one's)."""
+    out = {}
+    for n_fft, hop, win in RESOLUTIONS:
+        geo = (n_fft, hop, win)
+        x, y, g_mag, g_part = loss_inputs(torch, np, n_fft)
+        calls = {
+            "spectral_mag_fwd": lambda: cdm.spectral_mag_fwd(x, *geo),
+            "spectral_mag_bwd": lambda: cdm.spectral_mag_bwd(x, g_mag, *geo),
+            "loss_partials_fwd": lambda: cfl.loss_partials_fwd(x, y, *geo),
+            "loss_partials_bwd": lambda: cfl.loss_partials_bwd(x, y, g_part,
+                                                               *geo),
+        }
+        for name, fn in calls.items():
+            ms, by = spec_kernel_ms(torch, fn)
+            out.setdefault(name, {})[f"{n_fft}/{hop}/{win}"] = {
+                "ms": ms, "by_kernel": by,
+                "event_ms": cuda_ms(torch, fn, reps=10)}
+    for name, shapes in out.items():
+        shapes["sum"] = {k: sum(t[k] for t in shapes.values())
+                         for k in ("ms", "event_ms")}
+    return out
 
 
 def frontend_phase(torch, np, cdsp, phase: bool):
@@ -340,12 +425,23 @@ def frontend_phase(torch, np, cdsp, phase: bool):
     }
 
 
-def build_phase(build, names) -> None:
-    """Build every kernel library at once, one nvcc each; print seconds."""
+def build_phase(build, names, reported) -> None:
+    """Build every kernel library at once, one nvcc each; print seconds,
+    then what ptxas says of the kernels of the libraries ``reported``
+    (registers, shared memory, spills), both reports built together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
     build.load_all(names)
     print(f"build {', '.join(names)} (one nvcc each, all started "
           f"together): {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(len(reported)) as pool:
+        reports = list(pool.map(build.ptxas_report, reported))
+    for name, report in zip(reported, reports):
+        for line in report.splitlines():
+            if any(k in line for k in ("Compiling entry", "spill", "Used",
+                                       "Performance")):
+                print(f"ptxas {name}.cu: {line.strip()}")
 
 
 def _rel_err(got, want):
@@ -363,30 +459,38 @@ def _fft_ops(n_fft: int, win: int) -> float:
     return win + 2.5 * n_fft * math.log2(n_fft)
 
 
-def loss_bounds(name: str, b: int, t: int, n_fft: int, hop: int, win: int,
-                n_taps: int):
-    """(bound_ms, bound_by, formulation_bound_ms) of one call.
+def loss_bounds(name: str, geo):
+    """(bound_ms, bound_by, formulation_bound_ms) of one call at the
+    ``spectral.Geometry`` geo.
 
     bound: the function's least work, the larger of its bytes (inputs read
     once, outputs written once) over HBM and its operations (real FFTs of
     the frames, inverse FFTs in a backward, and the per-cell arithmetic)
-    over the f32 peak.  formulation: the kernel's own GEMMs, a multiply
-    and an add per tap of the window-deep contraction, on the bf16 tensor
-    cores, or its bytes, whichever is larger."""
-    n_frames = 1 + (t + 2 * (n_fft // 2) - n_fft) // hop
+    over the f32 peak.  formulation: the kernels' own GEMMs on the bf16
+    tensor cores, a multiply and an add per term, or the bytes, whichever
+    is larger: a forward's window-deep DFT of each signal (``n_taps``); a
+    backward's DFT of each signal over its own taps (``bwd_n_taps``) and
+    its adjoint, hop-wide rows times the shifts that meet the window."""
+    b, t, n_fft, win = geo.batch, geo.t, geo.n_fft, geo.win
     n_bins = n_fft // 2 + 1
-    frames, cells = b * n_frames, b * n_frames * n_bins
+    frames, cells = b * geo.n_frames, b * geo.n_frames * n_bins
     fft = frames * _fft_ops(n_fft, win)
-    gemm = 2.0 * frames * n_fft * n_taps   # one signal's DFT (or adjoint)
+    fwd = 2.0 * frames * n_fft * geo.n_taps           # one signal's DFT
+    grad = 2.0 * frames * n_fft * geo.bwd_n_taps      # the backward's DFT
+    adjoint = (2.0 * b * geo.rows * geo.hop_width * geo.hop_tiles * n_fft
+               * geo.n_shifts)
     sig, mag = 4 * b * t, 4 * cells
-    flops, bytes_, gemms = {
-        "spectral_mag_fwd": (fft + 4 * cells, sig + mag, 1),
-        "spectral_mag_bwd": (2 * fft + 8 * cells, 2 * sig + mag, 2),
-        "loss_partials_fwd": (2 * fft + 14 * cells, 2 * sig + 12 * b, 2),
-        "loss_partials_bwd": (3 * fft + 20 * cells, 3 * sig + 12 * b, 3),
+    flops, bytes_, gemm = {
+        "spectral_mag_fwd": (fft + 4 * cells, sig + mag, fwd),
+        "spectral_mag_bwd": (2 * fft + 8 * cells, 2 * sig + mag,
+                             grad + adjoint),
+        "loss_partials_fwd": (2 * fft + 14 * cells, 2 * sig + 12 * b,
+                              2 * fwd),
+        "loss_partials_bwd": (3 * fft + 20 * cells, 3 * sig + 12 * b,
+                              2 * grad + adjoint),
     }[name]
     f_ms, b_ms = flops / PEAK_F32_FLOPS * 1e3, bytes_ / PEAK_BYTES * 1e3
-    form_ms = max(gemms * gemm / PEAK_BF16_FLOPS * 1e3, b_ms)
+    form_ms = max(gemm / PEAK_BF16_FLOPS * 1e3, b_ms)
     return (max(f_ms, b_ms), "operations" if f_ms >= b_ms else "bytes",
             form_ms)
 
@@ -420,8 +524,8 @@ def loss_kernel_phase(torch, np):
 
     names = ("spectral_mag_fwd", "spectral_mag_bwd", "loss_partials_fwd",
              "loss_partials_bwd")
-    totals = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                      formulation_bound_ms=0.0, max_abs_err=0.0,
+    totals = {n: dict(ms=0.0, event_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                      bound_ms=0.0, formulation_bound_ms=0.0, max_abs_err=0.0,
                       shapes={}) for n in names}
     cdm.reset_counts()
     cfl.reset_counts()
@@ -483,19 +587,26 @@ def loss_kernel_phase(torch, np):
                 if label != "step":
                     print(line)
                     continue
-                n_taps = sp.Geometry(b, t, *geo).n_taps
-                bound, by, form = loss_bounds(name, b, t, *geo, n_taps)
-                times = {"ms": cuda_ms(torch, kernel, reps=10),
+                bound, by, form = loss_bounds(name, sp.Geometry(b, t, *geo))
+                ms, split = spec_kernel_ms(torch, kernel)
+                times = {"ms": ms, "by_kernel": split,
+                         "event_ms": cuda_ms(torch, kernel, reps=10),
                          "plain_ms": cuda_ms(torch, plain, reps=5),
-                         "library_ms": cuda_ms(torch, lib, reps=10),
+                         "library_ms": device_ms(torch, lib, reps=10),
                          "bound_ms": bound, "bound_by": by,
                          "formulation_bound_ms": form}
                 print(line + " times: " + json.dumps(times))
-                for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                          "formulation_bound_ms"):
+                for k in ("ms", "event_ms", "plain_ms", "library_ms",
+                          "bound_ms", "formulation_bound_ms"):
                     tot[k] += times[k]
                 tot["shapes"][f"{n_fft}/{hop}/{win}"] = times
             del lib_mag, lib_part, xg
+
+    for name in names:
+        if name.endswith("bwd"):
+            for shape, t in totals[name]["shapes"].items():
+                print(f"kernel {name} {shape} launches: " + ", ".join(
+                    f"{k} {v:.5f} ms" for k, v in t["by_kernel"].items()))
 
     # a weighted batch: weight [1, 0] drops row 1 out of all three sums
     x, y = wave(2, 20_000), wave(2, 20_000)
@@ -531,6 +642,11 @@ def loss_kernel_phase(torch, np):
                 t["bound_ms"] for t in tot["shapes"].values()
                 if t["bound_by"] == by)),
             "library_ms": tot["library_ms"],
+            "event_ms": tot["event_ms"],
+            "timing": ("ms: device time per call summed over the spec:: "
+                       "kernels (torch.profiler, 10 calls); library_ms: "
+                       "device time of all its kernels; event_ms and "
+                       "plain_ms: CUDA events over back-to-back calls"),
             "library": "composition: torch.stft (cuFFT) magnitudes"
                        + (", the three sums" if "partials" in name else "")
                        + (", autograd backward" if name.endswith("bwd")
@@ -560,7 +676,7 @@ def train_phase(torch, np, spec: str):
                 "pallas_fused_wide": (0, 0, 3, 3),
                 "pallas_bf16": (6, 3, 0, 0)}
     total = [0, 0, 0, 0]
-    first_mr = {}
+    first_mr, first_gn = {}, {}
     for impl in IMPLS:
         cfg = dataclasses.replace(get_config("default"), mr_mag_impl=impl)
         state = tstep.create_train_state(0, cfg, device="cuda")
@@ -588,6 +704,7 @@ def train_phase(torch, np, spec: str):
             check(all(math.isfinite(v) for v in m.values()),
                   f"{impl}: finite losses and grad_norm")
         first_mr[impl] = metrics[0]["mr"]
+        first_gn[impl] = metrics[0]["grad_norm"]
         busy = device_breakdown(
             torch, lambda: step(state, batches[3], gen), f"train {impl} step",
             (("loss_kernels", ("spec::",)),) + FAMILIES)
@@ -605,6 +722,12 @@ def train_phase(torch, np, spec: str):
               f"matmul_bf16 {first_mr['matmul_bf16']:.7f}, rel {rel:.2e} "
               f"(bound {MR_RTOL:g})")
         check(rel < MR_RTOL, f"{impl}: first-step mr near matmul_bf16's")
+        gn = abs(first_gn[impl] - first_gn["matmul_bf16"]) / first_gn[
+            "matmul_bf16"]
+        print(f"train {impl}: first-step grad_norm {first_gn[impl]:.7f} vs "
+              f"matmul_bf16 {first_gn['matmul_bf16']:.7f}, rel {gn:.2e} "
+              f"(bound {GN_RTOL:g})")
+        check(gn < GN_RTOL, f"{impl}: first-step grad_norm near matmul_bf16's")
     names = ("spectral_mag_fwd", "spectral_mag_bwd", "loss_partials_fwd",
              "loss_partials_bwd")
     return dict(zip(names, total)), host[0]
@@ -897,22 +1020,13 @@ FAMILIES = (("conv", ("conv", "cudnn", "xmma", "implicit", "gemm", "dgrad",
 def device_breakdown(torch, fn, label: str, families=FAMILIES) -> float:
     """Device time of one ``fn()`` call by kernel family, from a
     torch.profiler trace; returns the summed device milliseconds."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     by_family, n_kernels = {}, 0
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = ev.key.lower()
+    for key, ms, count in device_events(torch, fn, cpu=True):
+        name = key.lower()
         family = next((f for f, keys in families
                        if any(k in name for k in keys)), "elementwise")
-        by_family[family] = (by_family.get(family, 0.0)
-                             + ev.self_device_time_total / 1e3)
-        n_kernels += ev.count
+        by_family[family] = by_family.get(family, 0.0) + ms
+        n_kernels += count
     busy = sum(by_family.values())
     check(busy > 0, f"the profiler saw device time in {label}")
     print(f"{label} device ms by family: "
@@ -938,10 +1052,37 @@ def parity_phase(torch):
     check(err < UNET_F32_ATOL, "U-Net float32 on the card matches the CPU")
 
 
-def main() -> int:
+def loss_times_main(tree: str) -> int:
+    """``--loss-times TREE``: only the loss kernels' times (``loss_times``)
+    through the ``svs_torch`` of the source tree TREE (an earlier version
+    unpacked beside this one, or this one), as one JSON line; for timing
+    two designs in one run on one card."""
     import numpy as np
     import torch
 
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    from svs_torch.ops.cuda import diff_mag as cdm
+    from svs_torch.ops.cuda import fused_loss as cfl
+    check(cdm.__file__.startswith(tree + os.sep), f"svs_torch from {tree}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    times = loss_times(torch, np, cdm, cfl)
+    print(json.dumps({"tree": tree, "device": nvidia_smi_line(),
+                      "loss_times": times}))
+    return 0
+
+
+def main(argv=None) -> int:
+    import numpy as np
+    import torch
+
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--loss-times"] and len(argv) == 2:
+        return loss_times_main(argv[1])
+    check(not argv, f"unknown arguments {argv}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -963,7 +1104,8 @@ def main() -> int:
 
     seconds = {}
     t0 = time.perf_counter()
-    build_phase(build, [*cdsp.KERNELS, cdm.KERNEL, cfl.KERNEL])
+    build_phase(build, [*cdsp.KERNELS, cdm.KERNEL, cfl.KERNEL],
+                [cdm.KERNEL, cfl.KERNEL])
     seconds["build"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()

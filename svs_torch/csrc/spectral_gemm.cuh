@@ -1,12 +1,13 @@
-// The implicit-framing windowed-DFT GEMM on the bf16 tensor cores, and its
-// adjoint, shared by the MR-STFT loss kernels for Hopper (sm_90a):
-// diff_mag.cu (spectral_mag) and fused_loss.cu (loss_partials).
+// The implicit-framing windowed-DFT GEMM on the bf16 tensor cores: the
+// forward of the MR-STFT loss kernels for Hopper (sm_90a), shared by
+// diff_mag.cu (spectral_mag) and fused_loss.cu (loss_partials).  Their
+// backward is in spectral_bwd.cuh.
 //
-// Replaces the GEMMs of the TPU kernels svs_tpu/ops/pallas/diff_mag.py and
-// svs_tpu/ops/pallas/fused_loss.py.  Those cut the reflect-padded signal
-// into K hop-shifted row views, pad the bins to 128 lanes and take K MXU
-// dots of depth hop per 256-frame block, then fold K per-shift gradient
-// planes in XLA.  None of that layout is carried over:
+// Replaces the forward GEMMs of the TPU kernels
+// svs_tpu/ops/pallas/diff_mag.py and svs_tpu/ops/pallas/fused_loss.py.
+// Those cut the reflect-padded signal into K hop-shifted row views, pad the
+// bins to 128 lanes and take K MXU dots of depth hop per 256-frame block.
+// None of that layout is carried over:
 //
 // Forward (fwd_kernel).  With xp the reflect-padded bf16 signal of one
 // example, the frames are an implicit operand,
@@ -25,19 +26,8 @@
 // tile and issue mma.sync m16n8k16 bf16 -> f32 from ldmatrix fragments.
 // The epilogue is the kernel's own (template parameter EPI):
 //   kMag      |X| = sqrt(max(re^2 + im^2, 1e-8)) into (B, n_bins, n_frames)
-//   kGradMag  the bf16 column cotangent of spectral_mag (diff_mag.py:107-113)
 //   kPartials per-block sums of (|Y|-|X|)^2, |Y|^2, |log|X| - log|Y||
 //             (fused_loss.py:175-191), x and y sharing each basis tile
-//   kGradLoss the bf16 column cotangent of loss_partials
-//             (fused_loss.py:243-264)
-//
-// Adjoint (adjoint_kernel).  The column cotangent G (B, n_frames, n_fft,
-// bf16) goes back to hop-wide rows r of the padded signal's cotangent:
-//     out[r, c] = sum_j sum_col G[r - j, col] * basis[j*hop + c, col]
-// one GEMM whose A operand is G shifted by j rows, again implicit.  That is
-// the overlap-add of G @ basis^T done in the accumulators: no K planes in
-// memory, no atomics, the same result on every run.  Shifts whose taps miss
-// the window are skipped.
 //
 // Bound of this formulation at the train step's shapes (B = 32, 97,536
 // samples): a forward call's GEMM does 16-65 GFLOP per signal
@@ -62,11 +52,9 @@ constexpr int kBK = 32;        // contraction per shared-memory stage
 // +8 bf16 of row pitch (80 B): the 8 rows one ldmatrix phase reads land in
 // 8 distinct 16-byte bank groups, and rows stay 16-byte aligned
 constexpr int kPitch = kBK + 8;
-constexpr int kAdjBM = 128;  // adjoint: hop rows per block
-constexpr int kAdjBN = 64;   // adjoint: hop columns per block
 constexpr float kEps = 1e-8f;  // power clip (auraloss)
 
-enum Epilogue { kMag = 0, kGradMag = 1, kPartials = 2, kGradLoss = 3 };
+enum Epilogue { kMag = 0, kPartials = 1 };
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -150,13 +138,11 @@ __device__ __forceinline__ float clipped_mag(float p) {
 struct FwdArgs {
   // signal at its first kernel tap: (b, f, i) at x[b*stride + f*hop + i]
   const bf16* x;
-  const bf16* y;  // second signal, same layout (kPartials, kGradLoss)
+  const bf16* y;  // second signal, same layout (kPartials)
   long long stride;
   const bf16* taps;  // (n_cols, n_taps) basis, taps contiguous
   int n_taps, n_cols, hop, n_frames, n_bins;
   float* mag;        // kMag: (B, n_bins, n_frames)
-  const float* g;    // kGradMag: (B, n_bins, n_frames); kGradLoss: (B, 3)
-  bf16* g_cols;      // kGrad*: (B, n_frames, n_cols)
   float* partials;   // kPartials: (B, gridDim.x, gridDim.y, 3)
 };
 
@@ -252,11 +238,6 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_kernel(FwdArgs a) {
   const int t = lane & 3;
   const int nyquist = a.n_bins - 1;
   float s_diff = 0.f, s_ref = 0.f, s_log = 0.f;
-  float c_diff = 0.f, c_log = 0.f;
-  if (EPI == kGradLoss) {
-    c_diff = a.g[b * 3 + 0];
-    c_log = a.g[b * 3 + 2];
-  }
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -278,7 +259,7 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_kernel(FwdArgs a) {
           } else {
             out[(long long)q * a.n_frames] = clipped_mag(power(xr, xi));
           }
-        } else if constexpr (EPI == kPartials) {
+        } else {
           auto cell = [&](float rx, float ix, float ry, float iy) {
             const float mx = clipped_mag(power(rx, ix));
             const float my = clipped_mag(power(ry, iy));
@@ -293,38 +274,6 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_kernel(FwdArgs a) {
           } else {
             cell(xr, xi, yr, yi);
           }
-        } else {
-          // d|X|/dre = re/|X| where the clip is inactive; the scaled re/im
-          // cotangents are rounded to bf16 (diff_mag.py:109-113)
-          auto scale_of = [&](float rx, float ix, float ry, float iy,
-                              int bin) {
-            const float p = power(rx, ix);
-            const float mx = clipped_mag(p);
-            float gm;
-            if constexpr (EPI == kGradMag) {
-              gm = a.g[((long long)b * a.n_bins + bin) * a.n_frames + f];
-            } else {
-              // d s_diff/d mx = -2 (my - mx); d s_log/d mx = sign(mx-my)/mx
-              const float my = clipped_mag(power(ry, iy));
-              const float sg = (float)((mx > my) - (mx < my));
-              gm = __fadd_rn(__fmul_rn(c_diff * -2.0f, my - mx),
-                             __fdiv_rn(__fmul_rn(c_log, sg), mx));
-            }
-            const float live = p >= kEps ? 1.f : 0.f;
-            return __fdiv_rn(__fmul_rn(gm, live), mx);
-          };
-          float2 v;
-          if (q == 0) {
-            v.x = __fmul_rn(scale_of(xr, 0.f, yr, 0.f, 0), xr);
-            v.y = __fmul_rn(scale_of(xi, 0.f, yi, 0.f, nyquist), xi);
-          } else {
-            const float s = scale_of(xr, xi, yr, yi, q);
-            v.x = __fmul_rn(s, xr);
-            v.y = __fmul_rn(s, xi);
-          }
-          *reinterpret_cast<__nv_bfloat162*>(
-              a.g_cols + ((long long)b * a.n_frames + f) * a.n_cols + 2 * q) =
-              __floats2bfloat162_rn(v.x, v.y);
         }
       }
     }
@@ -354,117 +303,6 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_kernel(FwdArgs a) {
   }
 }
 
-struct AdjArgs {
-  const bf16* g_cols;  // (B, n_frames, n_cols) column cotangent
-  const bf16* shifts;  // (k, hop_pad, n_cols): row c of shift j = tap j*hop+c
-  float* out;          // (B, rows, hop) cotangent of the padded signal
-  int n_frames, n_cols, hop, hop_pad, k, rows, left, win;
-};
-
-__global__ void __launch_bounds__(kThreads, 2) adjoint_kernel(AdjArgs a) {
-  __shared__ __align__(16) bf16 a_s[2][kAdjBM][kPitch];
-  __shared__ __align__(16) bf16 b_s[2][kAdjBN][kPitch];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1;  // rows wm*32 ..
-  const int wn = warp & 1;   // hop columns wn*32 ..
-  const int r0 = blockIdx.x * kAdjBM;
-  const int c0 = blockIdx.y * kAdjBN;
-  const int b = blockIdx.z;
-
-  // the shifts j whose taps j*hop + [c0, c_hi) meet the window: a
-  // contiguous run, since the window is one interval
-  const int c_hi = min(c0 + kAdjBN, a.hop);
-  int j_lo = a.k, j_hi = -1;
-  for (int j = 0; j < a.k; ++j) {
-    if (j * a.hop + c0 < a.left + a.win && j * a.hop + c_hi > a.left) {
-      j_lo = min(j_lo, j);
-      j_hi = j;
-    }
-  }
-  const int n_kc = a.n_cols / kBK;
-  const int n_stages = j_hi >= j_lo ? (j_hi - j_lo + 1) * n_kc : 0;
-  const bf16* gb = a.g_cols + (long long)b * a.n_frames * a.n_cols;
-
-  auto load_stage = [&](int buf, int st) {
-    const int j = j_lo + st / n_kc;
-    const int k0 = (st % n_kc) * kBK;
-    // cotangent rows r0 + m - j (zero outside the frames), 16-byte chunks
-#pragma unroll
-    for (int r = 0; r < kAdjBM * (kBK / 8) / kThreads; ++r) {
-      const int e = tid + r * kThreads;
-      const int m = e / (kBK / 8);
-      const int ch = e % (kBK / 8);
-      const int f = r0 + m - j;
-      const bool ok = f >= 0 && f < a.n_frames;
-      cp_async16(&a_s[buf][m][ch * 8],
-                 gb + (long long)(ok ? f : 0) * a.n_cols + k0 + ch * 8, ok);
-    }
-    // kAdjBN hop columns of shift j (one 16-byte chunk per thread)
-    const int n = tid / (kBK / 8);
-    const int ch = tid % (kBK / 8);
-    cp_async16(&b_s[buf][n][ch * 8],
-               a.shifts + ((long long)j * a.hop_pad + c0 + n) * a.n_cols + k0 +
-                   ch * 8,
-               true);
-    cp_async_commit();
-  };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
-
-  if (n_stages > 0) load_stage(0, 0);
-  for (int st = 0; st < n_stages; ++st) {
-    const int buf = st & 1;
-    if (st + 1 < n_stages) {
-      load_stage(buf ^ 1, st + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      unsigned bf[4][2];
-      load_b_frags(bf, b_s[buf], wn * 32, kk, lane);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        unsigned af[4];
-        load_a_frag(af, a_s[buf], wm * 32 + mt * 16, kk, lane);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_bf16(acc[mt][nt], af, bf[nt][0], bf[nt][1]);
-      }
-    }
-    __syncthreads();
-  }
-
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + wm * 32 + mt * 16 + g + 8 * h;
-      if (r >= a.rows) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int c = c0 + wn * 32 + nt * 8 + 2 * t;  // even; hop is even
-        if (c >= a.hop) continue;
-        float* dst = a.out + ((long long)b * a.rows + r) * a.hop + c;
-        *reinterpret_cast<float2*>(dst) =
-            make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-      }
-    }
-}
-
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // the shapes every entry point needs (see the Python wrappers)
@@ -479,15 +317,6 @@ template <int NSIG, int EPI>
 inline int launch_fwd(const FwdArgs& a, int batch, cudaStream_t stream) {
   dim3 grid(cdiv(a.n_frames, kRows / NSIG), a.n_cols / kBN, batch);
   fwd_kernel<NSIG, EPI><<<grid, kThreads, 0, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-inline int launch_adjoint(const AdjArgs& a, int batch, cudaStream_t stream) {
-  if (a.hop_pad % kAdjBN != 0 || a.hop > a.hop_pad || a.k < 1 ||
-      a.rows != a.n_frames + a.k - 1)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid(cdiv(a.rows, kAdjBM), a.hop_pad / kAdjBN, batch);
-  adjoint_kernel<<<grid, kThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

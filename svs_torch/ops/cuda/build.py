@@ -31,8 +31,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+CODE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
+NVCC_FLAGS = CODE_FLAGS + ("-shared", "-Xcompiler", "-fPIC")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -102,6 +102,22 @@ def load_all(names: Sequence[str]) -> List[ctypes.CDLL]:
             if name not in _libs:
                 _libs[name] = ctypes.CDLL(_lib_path(name))
         return [_libs[name] for name in names]
+
+
+def ptxas_report(name: str) -> str:
+    """What ``ptxas -v`` says of library ``name``'s kernels (registers,
+    shared memory, spills), from a throwaway cubin in the build directory."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".cubin", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        out = subprocess.run(
+            [_nvcc(), *CODE_FLAGS, "-Xptxas", "-v", "-cubin", "-o", tmp,
+             os.path.join(SRC_DIR, f"{name}.cu")],
+            capture_output=True, text=True, check=True)
+    finally:
+        os.remove(tmp)
+    return out.stderr
 
 
 def load(name: str) -> ctypes.CDLL:

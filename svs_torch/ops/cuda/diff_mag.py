@@ -11,11 +11,12 @@ The backward recomputes re/im, zeroes the gradient where power < 1e-8,
 rounds the scaled re/im cotangents to bf16 and contracts them with the
 transposed basis.
 
-On Hopper (``svs_torch/csrc/diff_mag.cu`` on ``spectral_gemm.cuh``) the
-forward is one implicit-framing GEMM on the bf16 tensor cores
-(``mma.sync`` m16n8k16, f32 accumulators) whose epilogue writes the
-magnitude; the backward is two launches, the same GEMM with an epilogue
-that writes the bf16 column cotangent, then the adjoint GEMM that
+On Hopper (``svs_torch/csrc/diff_mag.cu``) the forward is one
+implicit-framing GEMM on the bf16 tensor cores (``spectral_gemm.cuh``,
+``mma.sync`` m16n8k16, f32 accumulators) whose epilogue writes the
+magnitude; the backward (``spectral_bwd.cuh``, ``wgmma`` fed by bulk
+async copies on mbarriers) is two launches, the GEMM again with an
+epilogue that writes the bf16 column cotangent, then the adjoint GEMM that
 overlap-adds it straight into hop-wide rows of the padded signal (no
 per-shift planes, no atomics: the result does not vary from run to run).
 Bounds on an H100 SXM at the train step's shapes (B = 32, 97,536
@@ -26,7 +27,9 @@ in PERF.md):
   than its real FFT at the 67 TFLOP/s float32 rate (float32 for the
   reason given in fused_loss.py); a backward 23-27 us;
 - this formulation, the window-deep DFT-as-GEMM on the bf16 tensor cores
-  (989 TFLOP/s dense): 23-66 us a forward call, 33-131 us a backward.
+  (989 TFLOP/s dense): 23-66 us a forward call; 38-145 us a backward,
+  its DFT over 64-tap stages and the adjoint over the hop shifts that meet
+  the window.
 
 :func:`spectral_mag` launches the kernels for a CUDA tensor and takes the
 plain version only for a tensor on the CPU; a build or launch error raises.
@@ -90,7 +93,10 @@ def _fns():
         gemm = [p, ll, i, p, i, i, i, i]
         fwd.restype = bwd.restype = ctypes.c_int
         fwd.argtypes = gemm + [i, p, p]
-        bwd.argtypes = gemm + [i, p, p, p, i, i, i, i, p, p]
+        # signal, pitch, batch, row length, tiles, the shape, then the
+        # cotangents, the shift tiles and their range, the output
+        bwd.argtypes = ([p, ll, i, i, p, i, i, i, i, i, p, p]
+                        + [p, i, i, i, p, p])
     return fwd, bwd
 
 
@@ -122,14 +128,13 @@ def _launch_bwd(x: torch.Tensor, g: torch.Tensor,
     _, bwd = _fns()
     xp = sp.padded_signal(x, geo)
     g = g.to(torch.float32).contiguous()
-    g_cols = torch.empty((geo.batch, geo.n_frames, geo.n_fft),
-                         dtype=torch.bfloat16, device=x.device)
+    g_cols = sp.empty_g_cols(geo, x.device)
     rows = torch.empty((geo.batch, geo.rows, geo.hop), dtype=torch.float32,
                        device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        rc = bwd(*sp.kernel_args(geo, xp, x.device), geo.n_bins,
-                 g.data_ptr(), g_cols.data_ptr(),
+        rc = bwd(sp.bwd_base(geo, xp), *sp.bwd_args(geo, x.device),
+                 geo.n_bins, g.data_ptr(), g_cols.data_ptr(),
                  *sp.adjoint_args(geo, x.device), rows.data_ptr(), stream)
     _raise_on(rc, "spectral_mag backward")
     bwd_launches += 1

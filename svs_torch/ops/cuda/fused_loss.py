@@ -16,9 +16,11 @@ forward runs the implicit-framing GEMM for x and for y in one block, the two
 sharing each basis tile, and its epilogue reduces the block's cells to three
 sums written to a small per-(example, frame tile, column tile) buffer that
 ``torch.sum`` reduces: no atomics, so the result is deterministic.  The
-backward is two launches: the same GEMM with an epilogue that turns the
-cotangents of sums 0 and 2 into the bf16 column cotangent of x, then the
-adjoint GEMM of ``spectral.py`` that overlap-adds it into the waveform.
+backward (``spectral_bwd.cuh``, ``wgmma`` fed by bulk async copies on
+mbarriers) is two launches: the GEMM again, for x and y, with an epilogue
+that turns the cotangents of sums 0 and 2 into the bf16 column cotangent
+of x, then the adjoint GEMM of ``spectral.py`` that overlap-adds it into
+the waveform.
 ``wide`` is a TPU lane-layout variant of the same numbers: on Hopper both
 names are one contraction of depth n_taps and run the same kernels.
 Bounds on an H100 SXM at the train step's shapes (B = 32, 97,536
@@ -32,7 +34,9 @@ in PERF.md):
   first butterflies multiply bf16 operands, every later one combines
   float32 sums, which the bf16 tensor-core rate does not cover;
 - this formulation, the window-deep DFT-as-GEMM on the bf16 tensor cores
-  (989 TFLOP/s dense): 33-131 us a forward call, 50-197 us a backward.
+  (989 TFLOP/s dense): 33-131 us a forward call; 55-210 us a backward,
+  the DFTs of x and y over 64-tap stages and the adjoint over the hop
+  shifts that meet the window.
 
 :func:`loss_partials` launches the kernels for CUDA tensors and takes the
 plain version only for tensors on the CPU; a build or launch error raises.
@@ -112,7 +116,10 @@ def _fns():
         gemm = [p, p, ll, i, p, i, i, i, i]
         fwd.restype = bwd.restype = ctypes.c_int
         fwd.argtypes = gemm + [p, p]
-        bwd.argtypes = gemm + [p, p, p, i, i, i, i, p, p]
+        # x, y, pitch, batch, row length, tiles, the shape, then the
+        # cotangents, the shift tiles and their range, the output
+        bwd.argtypes = ([p, p, ll, i, i, p, i, i, i, i, p, p]
+                        + [p, i, i, i, p, p])
     return fwd, bwd
 
 
@@ -152,15 +159,15 @@ def _launch_bwd(x, y, g, geo):
     global bwd_launches
     _check(x, y, geo)
     _, bwd = _fns()
-    signals, args = _gemm_args(x, y, geo)  # alive until the launch
+    xp, yp = sp.padded_signal(x, geo), sp.padded_signal(y, geo)
     g = g.to(torch.float32).contiguous()
-    g_cols = torch.empty((geo.batch, geo.n_frames, geo.n_fft),
-                         dtype=torch.bfloat16, device=x.device)
+    g_cols = sp.empty_g_cols(geo, x.device)
     rows = torch.empty((geo.batch, geo.rows, geo.hop), dtype=torch.float32,
                        device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        rc = bwd(*args, g.data_ptr(), g_cols.data_ptr(),
+        rc = bwd(sp.bwd_base(geo, xp), sp.bwd_base(geo, yp),
+                 *sp.bwd_args(geo, x.device), g.data_ptr(), g_cols.data_ptr(),
                  *sp.adjoint_args(geo, x.device), rows.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"loss_partials backward kernel launch failed: "

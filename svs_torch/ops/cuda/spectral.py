@@ -17,16 +17,20 @@ is the windowed cosine of bin q and 2q+1 its sine, for 1 <= q < n_fft/2;
 bin 0 and the Nyquist bin, whose sines are zero, share the first pair
 (column 0 and column 1), so the n_fft/2 + 1 bins fill exactly n_fft columns.
 
-The backward's transposed product goes back to the waveform without
+The backward (``svs_torch/csrc/spectral_bwd.cuh``, on wgmma) recomputes
+the spectrum over its own tap range (``bwd_tap_lo``, aligned to 8 samples,
+``bwd_n_taps`` in 64-tap stages) and goes back to the waveform without
 per-shift planes: the adjoint kernel computes, for hop-wide rows r of the
 padded signal,
 
     dxp[b, r*hop + c] = sum_j sum_col G[b, r - j, col] * basis[j*hop + c, col]
 
-which is the overlap-add of ``G @ basis^T`` done inside the GEMM's
-accumulators: deterministic, no atomics, no (K, B, rows, hop) planes in
-memory.  The reflect pad's mirror-add stays plain tensor code here, as it
-was XLA code outside the TPU kernel.
+over the shifts j whose taps meet the window, which is the overlap-add of
+``G @ basis^T`` done inside the GEMM's accumulators: deterministic, no
+atomics, no (K, B, rows, hop) planes in memory.  Its bases are stored
+pre-tiled in the order and the 128-byte swizzled layout its stages consume
+(:func:`grad_tiles`, :func:`shift_tiles`).  The reflect pad's mirror-add
+stays plain tensor code here, as it was XLA code outside the TPU kernel.
 
 Every function here runs on the CPU and on the card; the plain versions use
 float32 products of the bfloat16-rounded operands (on the card with
@@ -46,7 +50,11 @@ from svs_torch.ops import stft as dsp
 
 EPS = 1e-8        # power clip (auraloss; svs_tpu losses/mrstft.py)
 TAP_TILE = 32     # kBK in spectral_gemm.cuh: taps per shared-memory stage
-HOP_TILE = 64     # kAdjBN in spectral_gemm.cuh: hop columns per block
+STAGE = 64        # kStageK in spectral_bwd.cuh: taps or columns per stage
+GRAD_COLS = 128   # kGradN in spectral_bwd.cuh: columns per gradient block
+# adjoint hop tiles with a wgmma instance (spectral_bwd.cuh); other hops
+# take tiles of 64
+HOP_WIDTHS = (56, 120, 240)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -99,10 +107,20 @@ class Geometry:
         return _cdiv(self.left + self.win - self.tap_lo, TAP_TILE) * TAP_TILE
 
     @property
+    def bwd_tap_lo(self) -> int:
+        """First tap the backward reads (a multiple of 8: 16-byte aligned)."""
+        return self.left - self.left % 8
+
+    @property
+    def bwd_n_taps(self) -> int:
+        """Taps the backward contracts over, a multiple of STAGE."""
+        return _cdiv(self.left + self.win - self.bwd_tap_lo, STAGE) * STAGE
+
+    @property
     def stride(self) -> int:
         """Row pitch of the kernels' padded bf16 signal: room for the last
-        frame's read past the window, a multiple of 8."""
-        return _cdiv(self.t_padded + TAP_TILE, 8) * 8
+        frame's read past the window (either tap range), a multiple of 8."""
+        return _cdiv(self.t_padded + 2 * STAGE, 8) * 8
 
     @property
     def rows(self) -> int:
@@ -110,8 +128,25 @@ class Geometry:
         return self.n_frames + self.k - 1
 
     @property
-    def hop_pad(self) -> int:
-        return _cdiv(self.hop, HOP_TILE) * HOP_TILE
+    def shift_lo(self) -> int:
+        """First hop shift whose taps meet the window."""
+        return self.left // self.hop
+
+    @property
+    def n_shifts(self) -> int:
+        """Hop shifts the adjoint contracts (those meeting the window)."""
+        return (self.left + self.win - 1) // self.hop - self.shift_lo + 1
+
+    @property
+    def hop_width(self) -> int:
+        """The adjoint's tile of hop columns (wgmma's N): the hop rounded
+        up to 8 where a kernel instance has that width, else 64."""
+        n = _cdiv(self.hop, 8) * 8
+        return n if n in HOP_WIDTHS else 64
+
+    @property
+    def hop_tiles(self) -> int:
+        return _cdiv(self.hop, self.hop_width)
 
 
 def geometry(x: torch.Tensor, n_fft: int, hop: int, win: int) -> Geometry:
@@ -185,17 +220,49 @@ def basis_taps(geo: Geometry, device) -> torch.Tensor:
                     torch.device(device)), make)
 
 
-def basis_shifts(geo: Geometry, device) -> torch.Tensor:
-    """(k, hop_pad, n_fft columns) bf16: the adjoint's operand, row c of
-    shift j being tap j*hop + c (zero for c >= hop or past n_fft)."""
+def swizzle128(t: torch.Tensor) -> torch.Tensor:
+    """(..., rows, 64) bf16 -> the 128-byte swizzled layout of wgmma's
+    K-major operand: row r's 16-byte chunk c stored at chunk c ^ (r % 8).
+    Its own inverse."""
+    rows = t.shape[-2]
+    chunks = t.unflatten(-1, (8, 8))
+    r = torch.arange(rows)[:, None]
+    return chunks[..., r, torch.arange(8)[None, :] ^ (r % 8), :].flatten(-2)
+
+
+def grad_tiles(geo: Geometry, device) -> torch.Tensor:
+    """(n_fft/128, bwd_n_taps/64, 128, 64) bf16: the backward gradient
+    GEMM's basis, taps ``bwd_tap_lo`` onwards of each column (zero past
+    n_fft), one (column tile, stage) block per bulk copy, swizzled."""
     def make():
         b = basis_bf16(geo.n_fft, geo.win, "cpu")
-        out = torch.zeros((geo.k, geo.hop_pad, geo.n_fft),
-                          dtype=torch.bfloat16)
-        for j in range(geo.k):
-            n = min(geo.hop, geo.n_fft - j * geo.hop)
-            out[j, :n] = b[j * geo.hop:j * geo.hop + n]
-        return out.to(device)
+        taps = torch.zeros((geo.bwd_n_taps, geo.n_fft), dtype=torch.bfloat16)
+        n = min(geo.bwd_n_taps, geo.n_fft - geo.bwd_tap_lo)
+        taps[:n] = b[geo.bwd_tap_lo:geo.bwd_tap_lo + n]
+        t = taps.T.reshape(geo.n_fft // GRAD_COLS, GRAD_COLS,
+                           geo.bwd_n_taps // STAGE, STAGE).transpose(1, 2)
+        return swizzle128(t).contiguous().to(device)
+    return _cached(("grad", geo.n_fft, geo.win, torch.device(device)), make)
+
+
+def shift_tiles(geo: Geometry, device) -> torch.Tensor:
+    """(hop_tiles, n_fft/64, n_shifts, hop_width, 64) bf16: the adjoint's
+    basis; row c of hop tile h and shift ``shift_lo + j`` is tap
+    (shift_lo + j)*hop + h*hop_width + c (zero past the hop or n_fft), its
+    64 columns of one chunk swizzled, one block per bulk copy."""
+    def make():
+        b = basis_bf16(geo.n_fft, geo.win, "cpu")
+        width = geo.hop_width
+        rows = torch.zeros((geo.hop_tiles, geo.n_shifts, width, geo.n_fft),
+                           dtype=torch.bfloat16)
+        for h in range(geo.hop_tiles):
+            for j in range(geo.n_shifts):
+                lo = (geo.shift_lo + j) * geo.hop + h * width
+                n = max(0, min(width, geo.hop - h * width, geo.n_fft - lo))
+                rows[h, j, :n] = b[lo:lo + n]
+        t = rows.unflatten(-1, (geo.n_fft // STAGE, STAGE)).permute(
+            0, 3, 1, 2, 4)
+        return swizzle128(t).contiguous().to(device)
     return _cached(("shifts", geo.n_fft, geo.hop, geo.win,
                     torch.device(device)), make)
 
@@ -282,9 +349,32 @@ def kernel_args(geo: Geometry, xp: torch.Tensor, device) -> tuple:
             taps.data_ptr(), geo.n_taps, geo.n_fft, geo.hop, geo.n_frames)
 
 
+def bwd_args(geo: Geometry, device) -> tuple:
+    """The backward's arguments after its signal pointers: pitch, batch,
+    readable row length, gradient tiles and shape."""
+    tiles = grad_tiles(geo, device)
+    return (geo.stride, geo.batch, geo.stride - geo.bwd_tap_lo,
+            tiles.data_ptr(), geo.bwd_n_taps, geo.n_fft, geo.hop,
+            geo.n_frames)
+
+
+def bwd_base(geo: Geometry, xp: torch.Tensor) -> int:
+    """Pointer to a padded signal's first backward tap."""
+    return xp.data_ptr() + 2 * geo.bwd_tap_lo
+
+
+def empty_g_cols(geo: Geometry, device) -> torch.Tensor:
+    """The backward's bf16 column cotangent between its two launches:
+    (B, n_fft/64, n_frames, 64), column chunk major, each frame's 64
+    columns 128-byte swizzled by frame % 8 (``g_col_offset`` in
+    spectral_bwd.cuh)."""
+    return torch.empty((geo.batch, geo.n_fft // STAGE, geo.n_frames, STAGE),
+                       dtype=torch.bfloat16, device=device)
+
+
 def adjoint_args(geo: Geometry, device) -> tuple:
-    shifts = basis_shifts(geo, device)
-    return (shifts.data_ptr(), geo.k, geo.hop_pad, geo.left, geo.win)
+    shifts = shift_tiles(geo, device)
+    return (shifts.data_ptr(), geo.n_shifts, geo.shift_lo, geo.hop_width)
 
 
 def fold_rows(rows: torch.Tensor, geo: Geometry) -> torch.Tensor:

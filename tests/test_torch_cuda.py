@@ -226,6 +226,53 @@ def test_loss_partials_kernels_match_plain(card, n_fft, hop, win):
     assert torch.equal(dx, cfl.loss_partials_bwd(x, y, g, n_fft, hop, win))
 
 
+# the geometries that stress the wgmma backward's tiling beyond the train
+# resolutions, which the two tests above hold (hop 50 there takes the
+# 32-bit fragment loads and N = 56)
+BWD_CASES = [
+    # (batch, samples, n_fft, hop, win)
+    (2, 9_001, 1024, 120, 598),    # odd ``left``: taps from 208, not 213
+    (2, 9_001, 512, 120, 512),     # win == n_fft: the whole frame
+    (1, 20_000, 2048, 240, 1200),  # B = 1; 84 frames, no whole 64-frame tile
+    (2, 1_100, 1024, 120, 600),    # 10 frames: the span meets both pads
+    (2, 9_001, 512, 100, 300),     # hop 100: two 64-wide adjoint tiles
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["spectral_mag", "loss_partials"])
+@pytest.mark.parametrize("b,t,n_fft,hop,win", BWD_CASES)
+def test_backward_kernels_match_plain(card, kind, b, t, n_fft, hop, win):
+    """The wgmma backward (gradient GEMM and adjoint) against the plain
+    backward at geometries that stress its tiling: one launch each time,
+    and the same bits on a repeat."""
+    x, y = _waves(card, 6, shape=(b, t))
+    geo = (n_fft, hop, win)
+    if kind == "spectral_mag":
+        n_frames = 1 + t // hop
+        g = torch.randn((b, n_fft // 2 + 1, n_frames),
+                        generator=torch.Generator(card).manual_seed(7),
+                        device=card)
+        run = lambda: cdm.spectral_mag_bwd(x, g, *geo)  # noqa: E731
+        want = cdm.spectral_mag_bwd_plain(x, g, *geo)
+        counts = lambda: (cdm.fwd_launches, cdm.bwd_launches)  # noqa: E731
+    else:
+        g = torch.tensor([[0.7, 0.0, 1.3], [1.0, 2.0, -0.5],
+                          [0.0, 0.0, 1.0]], device=card)[:b]
+        run = lambda: cfl.loss_partials_bwd(x, y, g, *geo)  # noqa: E731
+        want = cfl.loss_partials_bwd_plain(x, y, g, *geo)
+        counts = lambda: (cfl.fwd_launches, cfl.bwd_launches)  # noqa: E731
+    before = counts()
+    dx = run()
+    torch.cuda.synchronize()
+    assert counts() == (before[0], before[1] + 1)
+    assert dx.shape == (b, t) and bool(torch.isfinite(dx).all())
+    _close_grads(dx, want)
+    again = run()
+    assert counts() == (before[0], before[1] + 2)
+    assert torch.equal(dx, again)
+
+
 @pytest.mark.cuda
 def test_loss_kernels_through_autograd(card):
     """The autograd Functions launch the kernels, and the target of the
