@@ -215,15 +215,25 @@ def spec_kernel_ms(torch, fn, reps: int = 10, warmup: int = 3):
     """Device time of one ``fn()`` call summed over the hand-written loss
     kernels it launched (names in namespace ``spec::``), and that time by
     kernel, from a torch.profiler trace of ``reps`` calls; the padding,
-    casts and fold around them are left out."""
+    casts and fold around them are left out.
+
+    The mean is taken over the launches the trace holds, not over
+    ``reps``, and a trace that holds fewer is reported: on the H100 two
+    traces of 10 calls read a kernel 1.5x faster than the six others of
+    the same code while the CUDA events of the same calls did not move,
+    as a trace missing about a third of its records would."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     by = {}
-    for key, ms, _ in device_events(torch, fn, reps):
+    for key, ms, count in device_events(torch, fn, reps):
         if "spec::" in key:
             name = key.split("(")[0].replace("void ", "")
-            by[name] = by.get(name, 0.0) + ms / reps
+            per_call = max(1, round(count / reps))  # launches in one call
+            if count != per_call * reps:
+                print(f"profiler: {count} records of {name} for {reps} "
+                      f"calls; the mean is taken over the {count}")
+            by[name] = by.get(name, 0.0) + ms / count * per_call
     check(sum(by.values()) > 0, "the profiler saw the loss kernels")
     return sum(by.values()), by
 
@@ -468,26 +478,26 @@ def loss_bounds(name: str, geo):
     the frames, inverse FFTs in a backward, and the per-cell arithmetic)
     over the f32 peak.  formulation: the kernels' own GEMMs on the bf16
     tensor cores, a multiply and an add per term, or the bytes, whichever
-    is larger: a forward's window-deep DFT of each signal (``n_taps``); a
-    backward's DFT of each signal over its own taps (``bwd_n_taps``) and
-    its adjoint, hop-wide rows times the shifts that meet the window."""
+    is larger: the window-deep DFT of each signal over the taps the kernels
+    contract (``n_taps``, whole 64-tap stages, the same in both
+    directions), and in a backward its adjoint, hop-wide rows times the
+    shifts that meet the window."""
     b, t, n_fft, win = geo.batch, geo.t, geo.n_fft, geo.win
     n_bins = n_fft // 2 + 1
     frames, cells = b * geo.n_frames, b * geo.n_frames * n_bins
     fft = frames * _fft_ops(n_fft, win)
-    fwd = 2.0 * frames * n_fft * geo.n_taps           # one signal's DFT
-    grad = 2.0 * frames * n_fft * geo.bwd_n_taps      # the backward's DFT
+    dft = 2.0 * frames * n_fft * geo.n_taps           # one signal's DFT
     adjoint = (2.0 * b * geo.rows * geo.hop_width * geo.hop_tiles * n_fft
                * geo.n_shifts)
     sig, mag = 4 * b * t, 4 * cells
     flops, bytes_, gemm = {
-        "spectral_mag_fwd": (fft + 4 * cells, sig + mag, fwd),
+        "spectral_mag_fwd": (fft + 4 * cells, sig + mag, dft),
         "spectral_mag_bwd": (2 * fft + 8 * cells, 2 * sig + mag,
-                             grad + adjoint),
+                             dft + adjoint),
         "loss_partials_fwd": (2 * fft + 14 * cells, 2 * sig + 12 * b,
-                              2 * fwd),
+                              2 * dft),
         "loss_partials_bwd": (3 * fft + 20 * cells, 3 * sig + 12 * b,
-                              2 * grad + adjoint),
+                              2 * dft + adjoint),
     }[name]
     f_ms, b_ms = flops / PEAK_F32_FLOPS * 1e3, bytes_ / PEAK_BYTES * 1e3
     form_ms = max(gemm / PEAK_BF16_FLOPS * 1e3, b_ms)

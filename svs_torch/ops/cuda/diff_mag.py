@@ -11,14 +11,15 @@ The backward recomputes re/im, zeroes the gradient where power < 1e-8,
 rounds the scaled re/im cotangents to bf16 and contracts them with the
 transposed basis.
 
-On Hopper (``svs_torch/csrc/diff_mag.cu``) the forward is one
-implicit-framing GEMM on the bf16 tensor cores (``spectral_gemm.cuh``,
-``mma.sync`` m16n8k16, f32 accumulators) whose epilogue writes the
-magnitude; the backward (``spectral_bwd.cuh``, ``wgmma`` fed by bulk
-async copies on mbarriers) is two launches, the GEMM again with an
-epilogue that writes the bf16 column cotangent, then the adjoint GEMM that
-overlap-adds it straight into hop-wide rows of the padded signal (no
-per-shift planes, no atomics: the result does not vary from run to run).
+On Hopper (``svs_torch/csrc/diff_mag.cu`` on ``spectral.cuh``) both
+directions run one implicit-framing DFT GEMM on the bf16 tensor cores
+(``wgmma``, f32 accumulators, fed by bulk async copies on mbarriers): the
+forward is that GEMM with an epilogue that writes the magnitude through
+shared memory as whole rows of frames; the backward is two launches, the
+GEMM again with an epilogue that writes the bf16 column cotangent, then the
+adjoint GEMM that overlap-adds it straight into hop-wide rows of the padded
+signal (no per-shift planes, no atomics: the result does not vary from run
+to run).
 Bounds on an H100 SXM at the train step's shapes (B = 32, 97,536
 samples, one call per resolution; chip_smoke.py's ``loss_bounds``, tabled
 in PERF.md):
@@ -27,12 +28,14 @@ in PERF.md):
   than its real FFT at the 67 TFLOP/s float32 rate (float32 for the
   reason given in fused_loss.py); a backward 23-27 us;
 - this formulation, the window-deep DFT-as-GEMM on the bf16 tensor cores
-  (989 TFLOP/s dense): 23-66 us a forward call; 38-145 us a backward,
-  its DFT over 64-tap stages and the adjoint over the hop shifts that meet
-  the window.
+  (989 TFLOP/s dense) over 64-tap stages: 23-66 us a forward call; 38-145
+  us a backward, the DFT and the adjoint over the hop shifts that meet the
+  window.
 
 :func:`spectral_mag` launches the kernels for a CUDA tensor and takes the
-plain version only for a tensor on the CPU; a build or launch error raises.
+plain version only for a tensor on the CPU; a geometry the kernels do not
+take raises ``ValueError`` before anything is launched
+(``spectral.check_card``), and a build or launch error raises.
 """
 
 from __future__ import annotations
@@ -90,13 +93,12 @@ def _fns():
     fwd, bwd = lib.svs_spectral_mag_fwd, lib.svs_spectral_mag_bwd
     if fwd.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        gemm = [p, ll, i, p, i, i, i, i]
+        # signal, pitch, batch, row length, tiles, the shape
+        dft = [p, ll, i, i, p, i, i, i, i, i]
         fwd.restype = bwd.restype = ctypes.c_int
-        fwd.argtypes = gemm + [i, p, p]
-        # signal, pitch, batch, row length, tiles, the shape, then the
-        # cotangents, the shift tiles and their range, the output
-        bwd.argtypes = ([p, ll, i, i, p, i, i, i, i, i, p, p]
-                        + [p, i, i, i, p, p])
+        fwd.argtypes = dft + [p, p]
+        # then the cotangents, the shift tiles and their range, the output
+        bwd.argtypes = dft + [p, p, p, i, i, i, p, p]
     return fwd, bwd
 
 
@@ -107,15 +109,15 @@ def _raise_on(rc: int, what: str) -> None:
 
 def _launch_fwd(x: torch.Tensor, geo: sp.Geometry) -> torch.Tensor:
     global fwd_launches
-    sp.check_card(x, geo, "spectral_mag")
+    sp.check_card(x, geo, "spectral_mag", 1)
     fwd, _ = _fns()
     xp = sp.padded_signal(x, geo)
     mag = torch.empty((geo.batch, geo.n_bins, geo.n_frames),
                       dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        rc = fwd(*sp.kernel_args(geo, xp, x.device), geo.n_bins,
-                 mag.data_ptr(), stream)
+        rc = fwd(sp.tap_base(geo, xp), *sp.dft_args(geo, x.device),
+                 geo.n_bins, mag.data_ptr(), stream)
     _raise_on(rc, "spectral_mag forward")
     fwd_launches += 1
     return mag
@@ -124,7 +126,7 @@ def _launch_fwd(x: torch.Tensor, geo: sp.Geometry) -> torch.Tensor:
 def _launch_bwd(x: torch.Tensor, g: torch.Tensor,
                 geo: sp.Geometry) -> torch.Tensor:
     global bwd_launches
-    sp.check_card(x, geo, "spectral_mag")
+    sp.check_card(x, geo, "spectral_mag", 1)
     _, bwd = _fns()
     xp = sp.padded_signal(x, geo)
     g = g.to(torch.float32).contiguous()
@@ -133,7 +135,7 @@ def _launch_bwd(x: torch.Tensor, g: torch.Tensor,
                        device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        rc = bwd(sp.bwd_base(geo, xp), *sp.bwd_args(geo, x.device),
+        rc = bwd(sp.tap_base(geo, xp), *sp.dft_args(geo, x.device),
                  geo.n_bins, g.data_ptr(), g_cols.data_ptr(),
                  *sp.adjoint_args(geo, x.device), rows.data_ptr(), stream)
     _raise_on(rc, "spectral_mag backward")

@@ -11,16 +11,16 @@ sum |log|X| - log|Y||] over the (frame, bin) cells of the magnitudes of x
 (prediction) and y (target), both (B, T) float32; bf16 operands, f32
 accumulation, power clipped at 1e-8.  Differentiable in x only.
 
-On Hopper (``svs_torch/csrc/fused_loss.cu`` on ``spectral_gemm.cuh``) the
-forward runs the implicit-framing GEMM for x and for y in one block, the two
-sharing each basis tile, and its epilogue reduces the block's cells to three
-sums written to a small per-(example, frame tile, column tile) buffer that
-``torch.sum`` reduces: no atomics, so the result is deterministic.  The
-backward (``spectral_bwd.cuh``, ``wgmma`` fed by bulk async copies on
-mbarriers) is two launches: the GEMM again, for x and y, with an epilogue
-that turns the cotangents of sums 0 and 2 into the bf16 column cotangent
-of x, then the adjoint GEMM of ``spectral.py`` that overlap-adds it into
-the waveform.
+On Hopper (``svs_torch/csrc/fused_loss.cu`` on ``spectral.cuh``) both
+directions run the implicit-framing DFT GEMM for x and for y in one block
+(``wgmma`` fed by bulk async copies on mbarriers), the two sharing each
+basis stage.  The forward's epilogue reduces the block's cells to three
+sums in a fixed order, written to a small per-(example, frame tile, column
+tile) buffer that ``torch.sum`` reduces: no atomics, so the result is the
+same bits from call to call.  The backward is two launches: the GEMM
+again with an epilogue that turns the cotangents of sums 0 and 2 into the
+bf16 column cotangent of x, then the adjoint GEMM of ``spectral.py`` that
+overlap-adds it into the waveform.
 ``wide`` is a TPU lane-layout variant of the same numbers: on Hopper both
 names are one contraction of depth n_taps and run the same kernels.
 Bounds on an H100 SXM at the train step's shapes (B = 32, 97,536
@@ -34,12 +34,14 @@ in PERF.md):
   first butterflies multiply bf16 operands, every later one combines
   float32 sums, which the bf16 tensor-core rate does not cover;
 - this formulation, the window-deep DFT-as-GEMM on the bf16 tensor cores
-  (989 TFLOP/s dense): 33-131 us a forward call; 55-210 us a backward,
-  the DFTs of x and y over 64-tap stages and the adjoint over the hop
-  shifts that meet the window.
+  (989 TFLOP/s dense) over 64-tap stages: 33-131 us a forward call; 55-210
+  us a backward, the DFTs of x and y and the adjoint over the hop shifts
+  that meet the window.
 
 :func:`loss_partials` launches the kernels for CUDA tensors and takes the
-plain version only for tensors on the CPU; a build or launch error raises.
+plain version only for tensors on the CPU; a geometry the kernels do not
+take raises ``ValueError`` before anything is launched
+(``spectral.check_card``), and a build or launch error raises.
 """
 
 from __future__ import annotations
@@ -53,8 +55,6 @@ from svs_torch.ops.cuda import build
 from svs_torch.ops.cuda import spectral as sp
 
 KERNEL = "fused_loss"
-_FWD_FRAMES = 64    # kBM of the two-signal forward GEMM in the .cu
-_COL_TILE = 128     # kBN in spectral_gemm.cuh
 
 fwd_launches = 0
 bwd_launches = 0
@@ -112,26 +112,17 @@ def _fns():
     fwd, bwd = lib.svs_loss_partials_fwd, lib.svs_loss_partials_bwd
     if fwd.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # the x signal, then the y signal's base, then the shared GEMM shape
-        gemm = [p, p, ll, i, p, i, i, i, i]
+        # x, y, pitch, batch, row length, tiles, the shape
+        dft = [p, p, ll, i, i, p, i, i, i, i]
         fwd.restype = bwd.restype = ctypes.c_int
-        fwd.argtypes = gemm + [p, p]
-        # x, y, pitch, batch, row length, tiles, the shape, then the
-        # cotangents, the shift tiles and their range, the output
-        bwd.argtypes = ([p, p, ll, i, i, p, i, i, i, i, p, p]
-                        + [p, i, i, i, p, p])
+        fwd.argtypes = dft + [p, p]
+        # then the cotangents, the shift tiles and their range, the output
+        bwd.argtypes = dft + [p, p, p, i, i, i, p, p]
     return fwd, bwd
 
 
-def _gemm_args(x, y, geo):
-    xp = sp.padded_signal(x, geo)
-    yp = sp.padded_signal(y, geo)
-    args = sp.kernel_args(geo, xp, x.device)
-    return (xp, yp), (args[0], yp.data_ptr() + 2 * geo.tap_lo) + args[1:]
-
-
 def _check(x, y, geo):
-    sp.check_card(x, geo, "loss_partials")
+    sp.check_card(x, geo, "loss_partials", 2)
     if y.shape != x.shape or y.device != x.device or not y.is_contiguous():
         raise ValueError("loss_partials expects x and y of one shape, on one "
                          "device, contiguous")
@@ -141,13 +132,15 @@ def _launch_fwd(x, y, geo):
     global fwd_launches
     _check(x, y, geo)
     fwd, _ = _fns()
-    signals, args = _gemm_args(x, y, geo)  # alive until the launch
-    tiles = (-(-geo.n_frames // _FWD_FRAMES), geo.n_fft // _COL_TILE)
+    xp, yp = sp.padded_signal(x, geo), sp.padded_signal(y, geo)
+    # one row of three sums per (example, frame tile, column tile) block
+    tiles = (-(-geo.n_frames // sp.DFT_FRAMES), geo.n_fft // sp.DFT_COLS)
     part = torch.empty((geo.batch, *tiles, 3), dtype=torch.float32,
                        device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        rc = fwd(*args, part.data_ptr(), stream)
+        rc = fwd(sp.tap_base(geo, xp), sp.tap_base(geo, yp),
+                 *sp.dft_args(geo, x.device), part.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"loss_partials forward kernel launch failed: "
                            f"CUDA error {rc}")
@@ -166,8 +159,8 @@ def _launch_bwd(x, y, g, geo):
                        device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        rc = bwd(sp.bwd_base(geo, xp), sp.bwd_base(geo, yp),
-                 *sp.bwd_args(geo, x.device), g.data_ptr(), g_cols.data_ptr(),
+        rc = bwd(sp.tap_base(geo, xp), sp.tap_base(geo, yp),
+                 *sp.dft_args(geo, x.device), g.data_ptr(), g_cols.data_ptr(),
                  *sp.adjoint_args(geo, x.device), rows.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"loss_partials backward kernel launch failed: "

@@ -1,25 +1,25 @@
 """What the two MR-STFT loss kernels share: geometry, bases, padding, the
-plain versions of their GEMMs, and the fold back to the waveform.
+limits of the CUDA kernels, the plain versions of their GEMMs, and the fold
+back to the waveform.
 
 Both ``diff_mag.spectral_mag`` and ``fused_loss.loss_partials`` compute the
 reflect-padded, centred-hann windowed real DFT of (B, T) waveforms with
 bfloat16 operands and float32 accumulation (the numerics of svs_tpu's
 Pallas kernels ``ops/pallas/diff_mag.py`` and ``ops/pallas/fused_loss.py``).
 On Hopper that is one implicit GEMM per signal (``svs_torch/csrc/
-spectral_gemm.cuh``):
+spectral.cuh``, on wgmma), in the forward and again in the backward:
 
     cols[b, f, c] = sum_i  xp[b, f*hop + tap_lo + i] * basis[tap_lo + i, c]
 
 with the frames an implicit operand (never written), ``i`` running only
-over the taps where the centred window is non-zero (``tap_lo`` to
-``tap_lo + n_taps``), and the columns of one bin side by side: column 2q
-is the windowed cosine of bin q and 2q+1 its sine, for 1 <= q < n_fft/2;
-bin 0 and the Nyquist bin, whose sines are zero, share the first pair
-(column 0 and column 1), so the n_fft/2 + 1 bins fill exactly n_fft columns.
+over the taps where the centred window is non-zero (``tap_lo``, aligned
+down to 8 samples, to ``tap_lo + n_taps``, in 64-tap stages), and the
+columns of one bin side by side: column 2q is the windowed cosine of bin q
+and 2q+1 its sine, for 1 <= q < n_fft/2; bin 0 and the Nyquist bin, whose
+sines are zero, share the first pair (column 0 and column 1), so the
+n_fft/2 + 1 bins fill exactly n_fft columns.
 
-The backward (``svs_torch/csrc/spectral_bwd.cuh``, on wgmma) recomputes
-the spectrum over its own tap range (``bwd_tap_lo``, aligned to 8 samples,
-``bwd_n_taps`` in 64-tap stages) and goes back to the waveform without
+The backward recomputes the spectrum and goes back to the waveform without
 per-shift planes: the adjoint kernel computes, for hop-wide rows r of the
 padded signal,
 
@@ -27,10 +27,18 @@ padded signal,
 
 over the shifts j whose taps meet the window, which is the overlap-add of
 ``G @ basis^T`` done inside the GEMM's accumulators: deterministic, no
-atomics, no (K, B, rows, hop) planes in memory.  Its bases are stored
-pre-tiled in the order and the 128-byte swizzled layout its stages consume
-(:func:`grad_tiles`, :func:`shift_tiles`).  The reflect pad's mirror-add
-stays plain tensor code here, as it was XLA code outside the TPU kernel.
+atomics, no (K, B, rows, hop) planes in memory.  The bases are stored
+pre-tiled in the order and the 128-byte swizzled layout the kernels' stages
+consume (:func:`dft_tiles`, :func:`shift_tiles`).  The reflect pad's
+mirror-add stays plain tensor code here, as it was XLA code outside the TPU
+kernel.
+
+The CUDA kernels take fewer geometries than the Pallas kernels: an even hop,
+n_fft a multiple of 128, at most 65,535 examples, and a block's shared
+memory (which grows with the hop, and with the shifts that meet the
+window) within the 227 KB an H100 block may have.  :func:`check_card`
+refuses any other geometry before a kernel is built or launched, from a
+mirror of the C++ sizes (:func:`dft_smem`, :func:`adj_smem`).
 
 Every function here runs on the CPU and on the card; the plain versions use
 float32 products of the bfloat16-rounded operands (on the card with
@@ -49,11 +57,11 @@ import torch.nn.functional as F
 from svs_torch.ops import stft as dsp
 
 EPS = 1e-8        # power clip (auraloss; svs_tpu losses/mrstft.py)
-TAP_TILE = 32     # kBK in spectral_gemm.cuh: taps per shared-memory stage
-STAGE = 64        # kStageK in spectral_bwd.cuh: taps or columns per stage
-GRAD_COLS = 128   # kGradN in spectral_bwd.cuh: columns per gradient block
-# adjoint hop tiles with a wgmma instance (spectral_bwd.cuh); other hops
-# take tiles of 64
+# the kernels' tiling (svs_torch/csrc/spectral.cuh)
+STAGE = 64        # kStageK: taps or columns per stage
+DFT_FRAMES = 64   # kDftBM: frames per DFT block
+DFT_COLS = 128    # kDftN: columns per DFT block
+# adjoint hop tiles with a wgmma instance; other hops take tiles of 64
 HOP_WIDTHS = (56, 120, 240)
 
 
@@ -98,28 +106,18 @@ class Geometry:
 
     @property
     def tap_lo(self) -> int:
-        """First tap the kernels read (even: 4-byte aligned bf16 pairs)."""
-        return self.left - self.left % 2
-
-    @property
-    def n_taps(self) -> int:
-        """Taps the kernels contract over, a multiple of TAP_TILE."""
-        return _cdiv(self.left + self.win - self.tap_lo, TAP_TILE) * TAP_TILE
-
-    @property
-    def bwd_tap_lo(self) -> int:
-        """First tap the backward reads (a multiple of 8: 16-byte aligned)."""
+        """First tap the kernels read (a multiple of 8: 16-byte aligned)."""
         return self.left - self.left % 8
 
     @property
-    def bwd_n_taps(self) -> int:
-        """Taps the backward contracts over, a multiple of STAGE."""
-        return _cdiv(self.left + self.win - self.bwd_tap_lo, STAGE) * STAGE
+    def n_taps(self) -> int:
+        """Taps the kernels contract over, a multiple of STAGE."""
+        return _cdiv(self.left + self.win - self.tap_lo, STAGE) * STAGE
 
     @property
     def stride(self) -> int:
         """Row pitch of the kernels' padded bf16 signal: room for the last
-        frame's read past the window (either tap range), a multiple of 8."""
+        frame's read past the window, a multiple of 8."""
         return _cdiv(self.t_padded + 2 * STAGE, 8) * 8
 
     @property
@@ -207,19 +205,6 @@ def basis_bf16(n_fft: int, win: int, device) -> torch.Tensor:
         .to(device)))
 
 
-def basis_taps(geo: Geometry, device) -> torch.Tensor:
-    """(n_fft columns, n_taps) bf16: the forward GEMM's operand, taps
-    ``tap_lo`` onwards of each column, zero past n_fft."""
-    def make():
-        b = basis_bf16(geo.n_fft, geo.win, "cpu")
-        out = torch.zeros((geo.n_taps, geo.n_fft), dtype=torch.bfloat16)
-        n = min(geo.n_taps, geo.n_fft - geo.tap_lo)
-        out[:n] = b[geo.tap_lo:geo.tap_lo + n]
-        return out.T.contiguous().to(device)
-    return _cached(("taps", geo.n_fft, geo.hop, geo.win,
-                    torch.device(device)), make)
-
-
 def swizzle128(t: torch.Tensor) -> torch.Tensor:
     """(..., rows, 64) bf16 -> the 128-byte swizzled layout of wgmma's
     K-major operand: row r's 16-byte chunk c stored at chunk c ^ (r % 8).
@@ -230,19 +215,19 @@ def swizzle128(t: torch.Tensor) -> torch.Tensor:
     return chunks[..., r, torch.arange(8)[None, :] ^ (r % 8), :].flatten(-2)
 
 
-def grad_tiles(geo: Geometry, device) -> torch.Tensor:
-    """(n_fft/128, bwd_n_taps/64, 128, 64) bf16: the backward gradient
-    GEMM's basis, taps ``bwd_tap_lo`` onwards of each column (zero past
-    n_fft), one (column tile, stage) block per bulk copy, swizzled."""
+def dft_tiles(geo: Geometry, device) -> torch.Tensor:
+    """(n_fft/128, n_taps/64, 128, 64) bf16: the DFT GEMM's basis, forward
+    and backward, taps ``tap_lo`` onwards of each column (zero past n_fft),
+    one (column tile, stage) block per bulk copy, swizzled."""
     def make():
         b = basis_bf16(geo.n_fft, geo.win, "cpu")
-        taps = torch.zeros((geo.bwd_n_taps, geo.n_fft), dtype=torch.bfloat16)
-        n = min(geo.bwd_n_taps, geo.n_fft - geo.bwd_tap_lo)
-        taps[:n] = b[geo.bwd_tap_lo:geo.bwd_tap_lo + n]
-        t = taps.T.reshape(geo.n_fft // GRAD_COLS, GRAD_COLS,
-                           geo.bwd_n_taps // STAGE, STAGE).transpose(1, 2)
+        taps = torch.zeros((geo.n_taps, geo.n_fft), dtype=torch.bfloat16)
+        n = min(geo.n_taps, geo.n_fft - geo.tap_lo)
+        taps[:n] = b[geo.tap_lo:geo.tap_lo + n]
+        t = taps.T.reshape(geo.n_fft // DFT_COLS, DFT_COLS,
+                           geo.n_taps // STAGE, STAGE).transpose(1, 2)
         return swizzle128(t).contiguous().to(device)
-    return _cached(("grad", geo.n_fft, geo.win, torch.device(device)), make)
+    return _cached(("dft", geo.n_fft, geo.win, torch.device(device)), make)
 
 
 def shift_tiles(geo: Geometry, device) -> torch.Tensor:
@@ -329,45 +314,94 @@ def adjoint_plain(g_cols: torch.Tensor, geo: Geometry) -> torch.Tensor:
 
 # ---------------------------------------------------------------- kernels
 
+SMEM_LIMIT = 232_448  # shared memory an H100 block may have (227 KB)
+MAX_BATCH = 65_535    # the grids' z dimension: one example a slice
+# the other terms of a block's shared memory in spectral.cuh: the DFT
+# GEMM's ring of 4 basis stages and its gradient epilogue's staging of 64
+# bf16 rows of 136 columns; the adjoint's 128-row tiles, its ring of 4
+# shift tiles and 3 cotangent chunks; in both, 1 KB of alignment slack and
+# the mbarriers
+_DFT_STAGES, _OUT_PITCH = 4, DFT_COLS + 8
+_ADJ_ROWS, _ADJ_STAGES, _G_STAGES = 128, 4, 3
 
-def check_card(x: torch.Tensor, geo: Geometry, name: str) -> None:
+
+def dft_span(hop: int, n_taps: int) -> int:
+    """Signal samples a DFT block stages per signal: its 64 frames'
+    (64 - 1)*hop + n_taps from an offset aligned down to 8, in whole 64s
+    (``dft_span`` in spectral.cuh)."""
+    return _cdiv(7 + (DFT_FRAMES - 1) * hop + n_taps, 64) * 64
+
+
+def dft_smem(nsig: int, span: int) -> int:
+    """Bytes of shared memory a DFT block asks for with ``nsig`` signal
+    spans of ``span`` samples (``dft_smem`` in spectral.cuh)."""
+    staged = DFT_FRAMES * _OUT_PITCH * 2
+    return (1024 + _DFT_STAGES * DFT_COLS * STAGE * 2
+            + max(nsig * span * 2, staged) + 8 * (2 * _DFT_STAGES + 1))
+
+
+def adj_smem(width: int, k: int) -> int:
+    """Bytes of shared memory an adjoint block asks for with hop tiles of
+    ``width`` and ``k`` shifts (``adj_smem`` in spectral.cuh)."""
+    return (1024 + _ADJ_STAGES * width * 128
+            + _G_STAGES * (_ADJ_ROWS + k - 1) * 128 + 128
+            + 8 * 2 * (_ADJ_STAGES + _G_STAGES))
+
+
+def check_card(x: torch.Tensor, geo: Geometry, name: str, nsig: int) -> None:
+    """Raise ``ValueError`` for what the CUDA kernels of ``name`` (with
+    ``nsig`` signals: 1 for spectral_mag, 2 for loss_partials) do not take:
+    a waveform that is not contiguous, or a geometry past one of their
+    limits, named in the message with its numbers.  The wrappers call it
+    before any build, allocation or launch, forward and backward alike, so
+    that neither runs when the other cannot."""
     if not x.is_contiguous():
         raise ValueError(f"{name} expects a contiguous waveform")
+    at = f"(hop {geo.hop}, n_fft {geo.n_fft}, win {geo.win})"
     if geo.hop % 2:
-        raise ValueError(f"{name}: the CUDA kernel reads bf16 pairs and "
-                         f"needs an even hop, got {geo.hop}")
-    if geo.n_fft % 128:
-        raise ValueError(f"{name}: the CUDA kernel tiles 128 columns and "
-                         f"needs n_fft % 128 == 0, got {geo.n_fft}")
+        raise ValueError(f"{name}: the kernels load the signal in 4-byte "
+                         f"bf16 pairs and need an even hop {at}")
+    if geo.n_fft % DFT_COLS:
+        raise ValueError(f"{name}: the kernels tile {DFT_COLS} columns and "
+                         f"need n_fft % {DFT_COLS} == 0 {at}")
+    if geo.batch > MAX_BATCH:
+        raise ValueError(f"{name}: the kernels' grids take at most "
+                         f"{MAX_BATCH:,} examples, got {geo.batch:,}")
+    need = dft_smem(nsig, dft_span(geo.hop, geo.n_taps))
+    if need > SMEM_LIMIT:
+        spans = "two signal spans" if nsig == 2 else "one signal span"
+        raise ValueError(
+            f"{name}: {spans} of 63*hop + n_taps samples need {need:,} bytes "
+            f"of shared memory a block, more than the {SMEM_LIMIT:,} an H100 "
+            f"block may have {at}")
+    need = adj_smem(geo.hop_width, geo.n_shifts)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"{name}: the adjoint's {geo.n_shifts} hop shifts that meet the "
+            f"window need {need:,} bytes of shared memory a block (tiles "
+            f"{geo.hop_width} wide, cotangent chunks of "
+            f"{_ADJ_ROWS + geo.n_shifts - 1} rows), more than the "
+            f"{SMEM_LIMIT:,} an H100 block may have {at}")
 
 
-def kernel_args(geo: Geometry, xp: torch.Tensor, device) -> tuple:
-    """The forward GEMM's arguments common to every entry point: the
-    signal's base at ``tap_lo``, its pitch, the tap basis and the shape."""
-    taps = basis_taps(geo, device)
-    return (xp.data_ptr() + 2 * geo.tap_lo, geo.stride, geo.batch,
-            taps.data_ptr(), geo.n_taps, geo.n_fft, geo.hop, geo.n_frames)
+def dft_args(geo: Geometry, device) -> tuple:
+    """The DFT GEMM's arguments after its signal pointers (forward and
+    backward): pitch, batch, readable row length, basis tiles and shape."""
+    tiles = dft_tiles(geo, device)
+    return (geo.stride, geo.batch, geo.stride - geo.tap_lo,
+            tiles.data_ptr(), geo.n_taps, geo.n_fft, geo.hop, geo.n_frames)
 
 
-def bwd_args(geo: Geometry, device) -> tuple:
-    """The backward's arguments after its signal pointers: pitch, batch,
-    readable row length, gradient tiles and shape."""
-    tiles = grad_tiles(geo, device)
-    return (geo.stride, geo.batch, geo.stride - geo.bwd_tap_lo,
-            tiles.data_ptr(), geo.bwd_n_taps, geo.n_fft, geo.hop,
-            geo.n_frames)
-
-
-def bwd_base(geo: Geometry, xp: torch.Tensor) -> int:
-    """Pointer to a padded signal's first backward tap."""
-    return xp.data_ptr() + 2 * geo.bwd_tap_lo
+def tap_base(geo: Geometry, xp: torch.Tensor) -> int:
+    """Pointer to a padded signal's first tap."""
+    return xp.data_ptr() + 2 * geo.tap_lo
 
 
 def empty_g_cols(geo: Geometry, device) -> torch.Tensor:
     """The backward's bf16 column cotangent between its two launches:
     (B, n_fft/64, n_frames, 64), column chunk major, each frame's 64
     columns 128-byte swizzled by frame % 8 (``g_col_offset`` in
-    spectral_bwd.cuh)."""
+    spectral.cuh)."""
     return torch.empty((geo.batch, geo.n_fft // STAGE, geo.n_frames, STAGE),
                        dtype=torch.bfloat16, device=device)
 

@@ -17,20 +17,25 @@ Tolerances:
 - spectral_mag and loss_partials: both sides multiply the same bf16
   operands exactly and sum in f32 in different orders (the tensor cores'
   accumulators against cuBLAS's f32 GEMM), so magnitudes agree to atol
-  2e-3 / rtol 1e-3 and partial sums to rtol 1e-4; the backward rounds the
-  scaled re/im cotangents to bf16 on both sides, where one f32 ulp of
-  difference moves a value by a bf16 ulp, so gradients are held to
+  2e-3 / rtol 1e-3 and partial sums to rtol 1e-4 (the kernel's log is
+  lg2.approx, whose error of ~2^-22 is far inside that); the backward
+  rounds the scaled re/im cotangents to bf16 on both sides, where one f32
+  ulp of difference moves a value by a bf16 ulp, so gradients are held to
   max|d|/max|g| < 2e-2 and cosine > 0.9999 (tests/test_fused_loss.py's
   bounds between two bf16 paths).
 """
+
+import ctypes
 
 import numpy as np
 import pytest
 import torch
 
+from svs_torch.ops.cuda import build
 from svs_torch.ops.cuda import diff_mag as cdm
 from svs_torch.ops.cuda import dsp as cdsp
 from svs_torch.ops.cuda import fused_loss as cfl
+from svs_torch.ops.cuda import spectral as sp
 
 ATOL, RTOL = 2e-3, 1e-4
 
@@ -202,8 +207,9 @@ def test_spectral_mag_kernels_match_plain(card, n_fft, hop, win):
     assert (cdm.fwd_launches, cdm.bwd_launches) == (before[0] + 1,
                                                    before[1] + 1)
     _close_grads(dx, cdm.spectral_mag_bwd_plain(x, g, n_fft, hop, win))
-    # no atomics: the backward gives the same bits on every run
+    # no atomics: both directions give the same bits on every run
     assert torch.equal(dx, cdm.spectral_mag_bwd(x, g, n_fft, hop, win))
+    assert torch.equal(mag, cdm.spectral_mag_fwd(x, n_fft, hop, win))
 
 
 @pytest.mark.cuda
@@ -224,12 +230,14 @@ def test_loss_partials_kernels_match_plain(card, n_fft, hop, win):
                                                    before[1] + 1)
     _close_grads(dx, cfl.loss_partials_bwd_plain(x, y, g, n_fft, hop, win))
     assert torch.equal(dx, cfl.loss_partials_bwd(x, y, g, n_fft, hop, win))
+    # the partial sums in a fixed order: the same bits from call to call
+    assert torch.equal(p, cfl.loss_partials_fwd(x, y, n_fft, hop, win))
 
 
-# the geometries that stress the wgmma backward's tiling beyond the train
+# the geometries that stress the wgmma kernels' tiling beyond the train
 # resolutions, which the two tests above hold (hop 50 there takes the
-# 32-bit fragment loads and N = 56)
-BWD_CASES = [
+# 32-bit fragment loads and the adjoint's N = 56)
+TILING_CASES = [
     # (batch, samples, n_fft, hop, win)
     (2, 9_001, 1024, 120, 598),    # odd ``left``: taps from 208, not 213
     (2, 9_001, 512, 120, 512),     # win == n_fft: the whole frame
@@ -241,7 +249,7 @@ BWD_CASES = [
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["spectral_mag", "loss_partials"])
-@pytest.mark.parametrize("b,t,n_fft,hop,win", BWD_CASES)
+@pytest.mark.parametrize("b,t,n_fft,hop,win", TILING_CASES)
 def test_backward_kernels_match_plain(card, kind, b, t, n_fft, hop, win):
     """The wgmma backward (gradient GEMM and adjoint) against the plain
     backward at geometries that stress its tiling: one launch each time,
@@ -271,6 +279,89 @@ def test_backward_kernels_match_plain(card, kind, b, t, n_fft, hop, win):
     again = run()
     assert counts() == (before[0], before[1] + 2)
     assert torch.equal(dx, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["spectral_mag", "loss_partials"])
+@pytest.mark.parametrize("b,t,n_fft,hop,win", TILING_CASES)
+def test_forward_kernels_match_plain(card, kind, b, t, n_fft, hop, win):
+    """The wgmma forward (the DFT GEMM under the magnitude or the partial
+    sums epilogue) against the plain forward at the same geometries: one
+    launch each time, and the same bits on a repeat."""
+    x, y = _waves(card, 8, shape=(b, t))
+    geo = (n_fft, hop, win)
+    if kind == "spectral_mag":
+        run = lambda: cdm.spectral_mag_fwd(x, *geo)  # noqa: E731
+        want = cdm.spectral_mag_plain(x, *geo)
+        counts = lambda: (cdm.fwd_launches, cdm.bwd_launches)  # noqa: E731
+    else:
+        run = lambda: cfl.loss_partials_fwd(x, y, *geo)  # noqa: E731
+        want = cfl.loss_partials_plain(x, y, *geo)
+        counts = lambda: (cfl.fwd_launches, cfl.bwd_launches)  # noqa: E731
+    before = counts()
+    got = run()
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1])
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    if kind == "spectral_mag":
+        torch.testing.assert_close(got, want, atol=2e-3, rtol=1e-3)
+    else:
+        torch.testing.assert_close(got, want, atol=0, rtol=1e-4)
+    assert torch.equal(got, run())
+    assert counts() == (before[0] + 2, before[1])
+
+
+# the first geometry past each limit of the loss kernels
+# (tests/test_torch_loss_limits.py holds the last one inside it too)
+PAST_LIMITS = [
+    (1, (1024, 121, 600), "even hop"),
+    (2, (1026, 120, 600), "n_fft % 128 == 0"),
+    (2, (2048, 638, 1200), "two signal spans"),
+    (1, (2048, 1298, 1200), "one signal span"),
+    (1, (2048, 2, 1200), "the adjoint's 600 hop shifts"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nsig,geo,message", PAST_LIMITS)
+def test_past_a_limit_raises_before_any_launch(card, nsig, geo, message):
+    """Forward and backward refuse the geometry with the limit's
+    ``ValueError`` (spectral.check_card) and launch nothing."""
+    x, y = _waves(card, 9, shape=(2, 5_000))
+    n_frames = 1 + 5_000 // geo[1]
+    if nsig == 1:
+        g = torch.zeros((2, geo[0] // 2 + 1, n_frames), device=card)
+        calls = [lambda: cdm.spectral_mag_fwd(x, *geo),
+                 lambda: cdm.spectral_mag_bwd(x, g, *geo)]
+        counts = lambda: (cdm.fwd_launches, cdm.bwd_launches)  # noqa: E731
+    else:
+        g = torch.ones((2, 3), device=card)
+        calls = [lambda: cfl.loss_partials_fwd(x, y, *geo),
+                 lambda: cfl.loss_partials_bwd(x, y, g, *geo)]
+        counts = lambda: (cfl.fwd_launches, cfl.bwd_launches)  # noqa: E731
+    before = counts()
+    for call in calls:
+        with pytest.raises(ValueError, match=message):
+            call()
+    torch.cuda.synchronize()
+    assert counts() == before
+
+
+@pytest.mark.cuda
+def test_shared_memory_mirror_matches_the_cuda_formulas(card):
+    """spectral.py's dft_smem / adj_smem, which check_card reads, give the
+    bytes the C++ launches ask for (svs_dft_smem, svs_adj_smem)."""
+    lib = build.load(cdm.KERNEL)
+    for fn in (lib.svs_dft_smem, lib.svs_adj_smem):
+        fn.restype = ctypes.c_int
+    for n_taps in (256, 640, 1216, 2048):
+        for hop in range(2, 1400, 2):
+            for nsig in (1, 2):
+                assert lib.svs_dft_smem(nsig, hop, n_taps) == sp.dft_smem(
+                    nsig, sp.dft_span(hop, n_taps)), (nsig, hop, n_taps)
+    for width in (56, 64, 120, 240):
+        for k in range(1, 700):
+            assert lib.svs_adj_smem(width, k) == sp.adj_smem(width, k)
 
 
 @pytest.mark.cuda

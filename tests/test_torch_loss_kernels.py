@@ -157,10 +157,13 @@ def test_geometry_matches_pallas_geometry():
             geo = sp.Geometry(3, t, n_fft, hop, win)
             k, n_frames, _, _, n_bins, _ = jdm._geometry(t, n_fft, hop)
             assert (geo.k, geo.n_frames, geo.n_bins) == (k, n_frames, n_bins)
-            # the kernels' tap range covers the window, in whole stages
+            # the kernels' one tap range (forward and backward) covers the
+            # window, in whole 64-tap stages from a 16-byte aligned tap
             assert geo.tap_lo <= geo.left
             assert geo.tap_lo + geo.n_taps >= geo.left + win
-            assert geo.n_taps % sp.TAP_TILE == 0 and geo.tap_lo % 2 == 0
+            assert geo.n_taps % sp.STAGE == 0 and geo.tap_lo % 8 == 0
+            # at most one stage deeper than the window needs
+            assert geo.n_taps - sp.STAGE < geo.left + win - geo.tap_lo
             # the last frame's read stays inside the padded row
             assert ((geo.n_frames - 1) * hop + geo.tap_lo + geo.n_taps
                     <= geo.stride)

@@ -1,9 +1,10 @@
-"""The host-side layouts of the MR-STFT loss kernels' backward (CPU).
+"""The host-side layouts of the MR-STFT loss kernels (CPU).
 
-``svs_torch/csrc/spectral_bwd.cuh`` reads its bases pre-tiled, in the order
+``svs_torch/csrc/spectral.cuh`` reads its bases pre-tiled, in the order
 and the 128-byte swizzled layout its stages consume
-(``spectral.grad_tiles``, ``spectral.shift_tiles``), and stages signal
-spans sized from ``spectral.Geometry``.  These tests undo the tiling and
+(``spectral.dft_tiles`` in both directions, ``spectral.shift_tiles`` in the
+backward's adjoint), and stages signal spans sized from
+``spectral.Geometry``.  These tests undo the tiling and
 check it against the plain bases, rebuild the adjoint's shift formulation
 from the tiles and hold it against ``spectral.adjoint_plain``, and check
 the geometry's bounds on what the kernels read.  The kernels themselves run
@@ -34,20 +35,20 @@ def _unswizzle(t):
 @pytest.mark.parametrize("n_fft,hop,win", GEOMETRIES)
 def test_grad_tiles_untile_to_the_basis_taps(n_fft, hop, win):
     geo = sp.Geometry(2, 4000, n_fft, hop, win)
-    tiles = sp.grad_tiles(geo, "cpu")
-    assert tiles.shape == (n_fft // 128, geo.bwd_n_taps // 64, 128, 64)
+    tiles = sp.dft_tiles(geo, "cpu")
+    assert tiles.shape == (n_fft // 128, geo.n_taps // 64, 128, 64)
     # (col tile, stage, col, tap) -> (col, tap)
-    cols = _unswizzle(tiles).transpose(1, 2).reshape(n_fft, geo.bwd_n_taps)
+    cols = _unswizzle(tiles).transpose(1, 2).reshape(n_fft, geo.n_taps)
     basis = sp.basis_bf16(n_fft, win, "cpu")
-    want = torch.zeros((geo.bwd_n_taps, n_fft), dtype=torch.bfloat16)
-    n = min(geo.bwd_n_taps, n_fft - geo.bwd_tap_lo)
-    want[:n] = basis[geo.bwd_tap_lo:geo.bwd_tap_lo + n]
+    want = torch.zeros((geo.n_taps, n_fft), dtype=torch.bfloat16)
+    n = min(geo.n_taps, n_fft - geo.tap_lo)
+    want[:n] = basis[geo.tap_lo:geo.tap_lo + n]
     assert torch.equal(cols, want.T)
     # the taps cover the window, and the basis is zero outside it
-    assert geo.bwd_tap_lo % 8 == 0 and geo.bwd_tap_lo <= geo.left
-    assert geo.bwd_tap_lo + geo.bwd_n_taps >= geo.left + win
-    assert float(basis.float()[:geo.bwd_tap_lo].abs().sum()) == 0.0
-    assert float(basis.float()[geo.bwd_tap_lo + n:].abs().sum()) == 0.0
+    assert geo.tap_lo % 8 == 0 and geo.tap_lo <= geo.left
+    assert geo.tap_lo + geo.n_taps >= geo.left + win
+    assert float(basis.float()[:geo.tap_lo].abs().sum()) == 0.0
+    assert float(basis.float()[geo.tap_lo + n:].abs().sum()) == 0.0
 
 
 def test_swizzle_moves_16_byte_chunks_by_row():
@@ -91,15 +92,22 @@ def test_shift_tiles_give_the_plain_adjoint(n_fft, hop, win):
 
 @pytest.mark.parametrize("n_fft,hop,win", GEOMETRIES)
 def test_backward_reads_stay_inside_the_padded_row(n_fft, hop, win):
+    """Forward and backward read one tap range; the DFT GEMM's reads of it,
+    and the adjoint's rows, stay inside what the wrappers allocate."""
     for t in (n_fft // 2 + 1, 1000, 9001, 97_536):
         geo = sp.Geometry(1, t, n_fft, hop, win)
-        # the last frame's backward taps stay inside the row, from the base
-        # the kernel gets (bwd_tap_lo) to the row length it is told
-        assert ((geo.n_frames - 1) * hop + geo.bwd_n_taps
-                <= geo.stride - geo.bwd_tap_lo)
-        assert geo.stride % 8 == 0
-        # and the forward's taps too
-        assert (geo.n_frames - 1) * hop + geo.tap_lo + geo.n_taps <= geo.stride
+        # the last frame's taps stay inside the row, from the base the
+        # kernels get (tap_base: tap_lo, 16-byte aligned) to the row length
+        # they are told (the arguments of dft_args)
+        row_len = sp.dft_args(geo, "cpu")[2]
+        assert row_len == geo.stride - geo.tap_lo and row_len % 8 == 0
+        assert (geo.n_frames - 1) * hop + geo.n_taps <= row_len
+        assert geo.stride % 8 == 0 and geo.tap_lo % 8 == 0
+        assert geo.n_taps % sp.STAGE == 0
+        # a block's staged span covers its 64 frames' taps from its
+        # offset aligned down to 8
+        assert (sp.dft_span(hop, geo.n_taps)
+                >= 7 + (sp.DFT_FRAMES - 1) * hop + geo.n_taps)
         # the adjoint's rows cover the frames' span (the padded signal's
         # last t_padded % hop samples, if any, lie in no frame)
         assert geo.rows * hop >= (geo.n_frames - 1) * hop + n_fft
@@ -115,16 +123,20 @@ def test_adjoint_widths():
 
 
 def test_train_shapes_fit_the_kernels_shared_memory():
-    """The gradient GEMM stages one signal span (two for loss_partials) of
+    """The DFT GEMM stages one signal span (two for loss_partials) of
     (64 - 1)*hop + n_taps samples beside a 4-stage ring of 16 KB; the
     adjoint a ring of 4 shift tiles and three cotangent chunks of 128 rows:
-    all within the H100's 227 KB a block (the C side refuses a launch
-    otherwise)."""
+    all within the H100's 227 KB a block (spectral.check_card refuses a
+    geometry otherwise), by spectral.py's mirror of the C++ sizes, which
+    is held here against the sizes worked out by hand."""
     for n_fft, hop, win in [(1024, 120, 600), (2048, 240, 1200),
                             (512, 50, 240)]:
         geo = sp.Geometry(32, 97_536, n_fft, hop, win)
-        span = -(-(7 + 63 * hop + geo.bwd_n_taps) // 64) * 64
-        grad = 1024 + 4 * 16384 + max(2 * span * 2, 64 * 136 * 2) + 72
+        span = -(-(7 + 63 * hop + geo.n_taps) // 64) * 64
+        assert sp.dft_span(hop, geo.n_taps) == span
+        dft = 1024 + 4 * 16384 + max(2 * span * 2, 64 * 136 * 2) + 72
         adj = (1024 + 4 * geo.hop_width * 128
                + 3 * (128 + geo.n_shifts - 1) * 128 + 128 + 112)
-        assert grad <= 232_448 and adj <= 232_448
+        assert sp.dft_smem(2, span) == dft
+        assert sp.adj_smem(geo.hop_width, geo.n_shifts) == adj
+        assert dft <= sp.SMEM_LIMIT == 232_448 and adj <= 232_448
