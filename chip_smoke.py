@@ -24,6 +24,10 @@ Phases, each printing what it found on its own line:
              (torch.profiler) summed over their own ``spec::`` kernels,
              each backward's two launches apart, and by CUDA events
              (``event_ms``); ``ptxas -v`` of the loss kernels printed once;
+             then the four loss kernels at a geometry past each limit they
+             once had (n_fft % 128, an odd hop, an odd n_fft, signal spans
+             past a block's shared memory, the adjoint's 600 shifts at hop
+             2), against their plain versions, timed by CUDA events;
 4. slice   — the decode path through the CLIs a user calls, at the full
              width of the ``default`` preset (bf16, seeded random weights
              saved as a reference ``.pth``): ``data_cli --direction to_spec``
@@ -52,7 +56,18 @@ Phases, each printing what it found on its own line:
              against ``separate_wav`` (2 LSB), and ``DeviceDataset``
              batches on the card against the host ``PatchDataset``'s
              (bitwise);
-7. parity  — the U-Net at float32 on the card (cuDNN, TF32 off) against the
+7. fit     — the training entry point at the full ``default`` preset
+             (B = 32, bf16 convs, seeded weights): ``train_cli`` for two
+             epochs with validation on the slice's spectra (log, metrics and
+             checkpoints checked), a resume from its ``.ckpt`` for a third,
+             ``infer_cli`` separating a song from that ``.ckpt``, one epoch of
+             ``fit`` under each of ``matmul_bf16``, ``pallas_fused`` and
+             ``pallas_bf16`` without dropout (the loss kernels' counts zeroed
+             just before each and read just after; the kernel paths' mean
+             loss against ``matmul_bf16``'s), one epoch traced for the
+             device's idle share, and one ``fine_tune`` step with remat
+             against the same step without it;
+8. parity  — the U-Net at float32 on the card (cuDNN, TF32 off) against the
              same weights and input on the CPU, and one float32 ``fft``
              train step (B = 4, no dropout) on the card against the CPU.
 
@@ -505,6 +520,75 @@ def loss_bounds(name: str, geo):
             form_ms)
 
 
+# geometries past the loss kernels' old limits, which the Pallas kernels
+# always took: (B, T, n_fft, hop, win, what it exercises)
+WIDENED = (
+    (TRAIN_B, TRAIN_T, 64, 16, 64, "n_fft % 128: DDSP's smallest scale"),
+    (TRAIN_B, TRAIN_T, 1000, 125, 600, "odd hop, n_fft % 128"),
+    (TRAIN_B, TRAIN_T, 129, 33, 100, "odd n_fft (no Nyquist), odd hop"),
+    (TRAIN_B, TRAIN_T, 1024, 700, 1024, "loss_partials' spans in pieces"),
+    (TRAIN_B, TRAIN_T, 2048, 1298, 1200, "both kernels' spans in pieces"),
+    (4, 4_000, 2048, 2, 1200, "600 adjoint shifts in groups"),
+)
+
+
+def widened_phase(torch, np, cdm, cfl, sp) -> dict:
+    """The four loss kernels at each geometry of ``WIDENED`` against their
+    plain versions, within the train shapes' tolerances, timed by CUDA
+    events; returns {kernel name: {geometry: numbers}}."""
+    rng = np.random.default_rng(4)
+    out = {}
+    for b, t, n_fft, hop, win, what in WIDENED:
+        geo = (n_fft, hop, win)
+        g = sp.Geometry(b, t, *geo)
+        x, y = (torch.from_numpy((rng.standard_normal((b, t)) * 0.3).astype(
+            np.float32)).cuda() for _ in range(2))
+        g_mag = torch.from_numpy(rng.standard_normal(
+            (b, g.n_bins, g.n_frames)).astype(np.float32)).cuda()
+        g_part = torch.from_numpy(rng.uniform(0.5, 1.5, (b, 3)).astype(
+            np.float32)).cuda()
+        runs = {
+            "spectral_mag_fwd": (lambda: cdm.spectral_mag_fwd(x, *geo),
+                                 lambda: cdm.spectral_mag_plain(x, *geo)),
+            "spectral_mag_bwd": (
+                lambda: cdm.spectral_mag_bwd(x, g_mag, *geo),
+                lambda: cdm.spectral_mag_bwd_plain(x, g_mag, *geo)),
+            "loss_partials_fwd": (
+                lambda: cfl.loss_partials_fwd(x, y, *geo),
+                lambda: cfl.loss_partials_plain(x, y, *geo)),
+            "loss_partials_bwd": (
+                lambda: cfl.loss_partials_bwd(x, y, g_part, *geo),
+                lambda: cfl.loss_partials_bwd_plain(x, y, g_part, *geo)),
+        }
+        staging = {n: sp.dft_staging(n, hop, g.n_taps)[0] for n in (1, 2)}
+        for name, (kernel, plain) in runs.items():
+            got = kernel()
+            torch.cuda.synchronize()
+            want = plain()
+            abs_err, rel_err = _rel_err(got, want)
+            check(bool(torch.isfinite(got).all()), f"{name} {geo} finite")
+            if name.endswith("bwd"):
+                cos = _cosine(got, want)
+                check(rel_err < GRAD_MAX and cos > GRAD_COS,
+                      f"{name} {geo}: gradient agrees")
+            elif name == "loss_partials_fwd":
+                torch.testing.assert_close(got, want, atol=0,
+                                           rtol=PARTIALS_RTOL)
+            else:
+                torch.testing.assert_close(got, want, atol=MAG_ATOL,
+                                           rtol=MAG_RTOL)
+            ms = cuda_ms(torch, kernel, reps=5, warmup=1)
+            numbers = {"B": b, "T": t, "ms": ms, "max_abs_err": abs_err,
+                       "max_rel_err": rel_err, "exercises": what,
+                       "staging": staging[2 if "partials" in name else 1],
+                       "n_cols": g.n_cols, "n_shifts": g.n_shifts,
+                       "shift_group": sp.adj_group(g.hop_width, g.n_shifts)}
+            print(f"kernel {name} widened {n_fft}/{hop}/{win} B={b} T={t} "
+                  f"({what}): " + json.dumps(numbers))
+            out.setdefault(name, {})[f"{n_fft}/{hop}/{win}"] = numbers
+    return out
+
+
 def loss_kernel_phase(torch, np):
     """spectral_mag and loss_partials, forward and backward, against their
     plain versions at the train step's shapes; returns the JSON entries."""
@@ -630,6 +714,7 @@ def loss_kernel_phase(torch, np):
     print(f"kernel check launches: spectral_mag {cdm.fwd_launches} fwd "
           f"{cdm.bwd_launches} bwd, loss_partials {cfl.fwd_launches} fwd "
           f"{cfl.bwd_launches} bwd")
+    widened = widened_phase(torch, np, cdm, cfl, sp)
 
     sources = {"spectral_mag": ("svs_torch/csrc/diff_mag.cu",
                                 ("svs_tpu/ops/pallas/diff_mag.py:130",
@@ -665,6 +750,7 @@ def loss_kernel_phase(torch, np):
             "shape": {"B": TRAIN_B, "T": TRAIN_T,
                       "per": "one call at each of the three resolutions"},
             "shapes": tot["shapes"],
+            "widened": widened[name],
         })
     return entries
 
@@ -741,6 +827,184 @@ def train_phase(torch, np, spec: str):
     names = ("spectral_mag_fwd", "spectral_mag_bwd", "loss_partials_fwd",
              "loss_partials_bwd")
     return dict(zip(names, total)), host[0]
+
+
+# fit: patches a song at B = 32 (3 songs: 3 steps an epoch)
+FIT_SAMPLES = 32
+
+
+def _read_lines(path: str):
+    with open(path) as f:
+        return f.read().splitlines()
+
+
+def fit_phase(torch, np, work: str):
+    """The training entry point at the full default preset on the slice's
+    spectra; returns the loss kernels' launch counts of the two ``fit``
+    runs under the kernel paths (each zeroed just before and read just
+    after) and the numbers of the phase."""
+    from svs_torch.cli import infer_cli, train_cli
+    from svs_torch.ops.cuda import diff_mag as cdm
+    from svs_torch.ops.cuda import fused_loss as cfl
+    from svs_torch.train import checkpoint as ckpt
+    from svs_torch.train import flax_msgpack
+    from svs_torch.train import loop
+    from svs_torch.train import step as tstep
+    from svs_torch.models.unet import param_count
+    from svs_torch.utils.config import get_config
+
+    spec = os.path.join(work, "spec")
+    ckpt_dir, log_dir = os.path.join(work, "CKPT"), os.path.join(work, "LOG")
+    numbers = {}
+    common = ["--train_folder", spec, "--valid_folder", spec,
+              "--batch_size", str(TRAIN_B), "--samples_per_song",
+              str(FIT_SAMPLES), "--val_interval", "1", "--label", "smoke",
+              "--ckpt_dir", ckpt_dir, "--log_dir", log_dir,
+              "--device", "cuda", "--preset", "default"]
+    steps = -(-N_SONGS * FIT_SAMPLES // TRAIN_B)
+
+    t0 = time.perf_counter()
+    rc = train_cli.main(common + ["--epoch", "2", "--load_path",
+                                  os.path.join(work, "none.ckpt")])
+    numbers["train_cli_2_epochs_s"] = time.perf_counter() - t0
+    check(rc == 0, "train_cli exit code 0")
+    log = _read_lines(os.path.join(log_dir, "log_smoke.txt"))
+    print("fit: train_cli log " + json.dumps(log))
+    check(len(log) == 4 and [x.startswith("Val ") for x in log]
+          == [False, True, False, True]
+          and all(math.isfinite(float(x.split()[-1])) for x in log),
+          "train_cli log: a finite loss per epoch, each with a Val line")
+    metrics = [json.loads(x) for x in _read_lines(
+        os.path.join(log_dir, "metrics_smoke.jsonl"))]
+    check(all(math.isfinite(v) for r in metrics for v in r.values()),
+          "metrics lines finite")
+    numbers["epoch_s"] = [r["secs"] for r in metrics if "secs" in r]
+    latest = os.path.join(ckpt_dir, "svs_smoke.ckpt")
+    check(os.path.exists(latest) and os.path.exists(
+        os.path.join(ckpt_dir, "svs_best_smoke.ckpt")),
+        "svs_best_smoke.ckpt and svs_smoke.ckpt written")
+
+    def saved(path):
+        with open(path, "rb") as f:
+            raw = flax_msgpack.unpackb(f.read())
+        return raw["epoch"], raw["step"]
+
+    check(saved(latest) == (2, 2 * steps), f"latest ckpt at epoch 2, step "
+          f"{2 * steps}: {saved(latest)}")
+    t0 = time.perf_counter()
+    rc = train_cli.main(common + ["--epoch", "3", "--load_path", latest])
+    numbers["resume_1_epoch_s"] = time.perf_counter() - t0
+    check(rc == 0 and saved(latest) == (3, 3 * steps),
+          f"resume carried on to epoch 3, step {3 * steps}: {saved(latest)}")
+    print(f"fit: resumed from epoch 2 to {saved(latest)}")
+
+    masked = os.path.join(work, "masked_ckpt")
+    rc = infer_cli.main(["--model_path", latest, "--tar", masked,
+                         "--mixture_folder", os.path.join(spec, "mixture"),
+                         "--preset", "default", "--limit", "1",
+                         "--device", "cuda"])
+    check(rc == 0, "infer_cli from the .ckpt exit code 0")
+    out = np.load(os.path.join(masked, "0000_song0_spec.npy"))
+    mix = np.load(os.path.join(spec, "mixture", "0000_song0_spec.npy"))
+    check(out.shape == mix.shape and np.isfinite(out).all()
+          and (out[1:] <= mix[1:] + 1e-6).all(),
+          "infer_cli from the .ckpt: shape, finite, |mask| <= 1")
+
+    # fit under each loss path, one epoch, no dropout, one seeded state
+    per_step = {"matmul_bf16": (0, 0, 0, 0), "pallas_fused": (0, 0, 3, 3),
+                "pallas_bf16": (6, 3, 0, 0)}
+    launches = [0, 0, 0, 0]
+    means = {}
+    for impl in per_step:
+        cfg = dataclasses.replace(get_config("default"), mr_mag_impl=impl,
+                                  dropout_rate=0.0,
+                                  samples_per_song=FIT_SAMPLES)
+        opts = loop.TrainOptions(
+            train_folder=spec, valid_folder="none", label=f"fit_{impl}",
+            epoch=1, batch_size=TRAIN_B, load_path="none",
+            ckpt_dir=ckpt_dir, log_dir=log_dir, progress=False,
+            device="cuda")
+        cdm.reset_counts()
+        cfl.reset_counts()
+        state = loop.fit(opts, cfg)
+        counts = (cdm.fwd_launches, cdm.bwd_launches, cfl.fwd_launches,
+                  cfl.bwd_launches)
+        want = tuple(steps * n for n in per_step[impl])
+        check(counts == want, f"fit {impl}: kernel launches {counts} == "
+              f"{want} (spectral_mag fwd/bwd, loss_partials fwd/bwd)")
+        launches = [a + c for a, c in zip(launches, counts)]
+        log = _read_lines(os.path.join(log_dir, f"log_fit_{impl}.txt"))
+        means[impl] = float(log[0])
+        print(f"fit {impl}: epoch mean loss {means[impl]:.7f}, launches "
+              f"{list(counts)}, params {param_count(state.model)}")
+        check(param_count(state.model) == 9_823_313, "full-width default")
+        del state
+    for impl in ("pallas_fused", "pallas_bf16"):
+        rel = abs(means[impl] - means["matmul_bf16"]) / abs(
+            means["matmul_bf16"])
+        print(f"fit {impl}: epoch mean loss vs matmul_bf16 rel {rel:.2e} "
+              f"(bound {MR_RTOL:g})")
+        check(rel < MR_RTOL, f"fit {impl}: mean loss near matmul_bf16's")
+
+    # the device's busy share of an epoch: two fit calls traced, one
+    # epoch and none (the same set-up: the dataset's upload, the state),
+    # the difference of their device time over the epoch's seconds
+    cfg = dataclasses.replace(get_config("default"),
+                              samples_per_song=FIT_SAMPLES)
+    busy = {}
+    for epochs in (1, 0):
+        opts = loop.TrainOptions(
+            train_folder=spec, valid_folder="none",
+            label=f"fit_traced{epochs}", epoch=epochs, batch_size=TRAIN_B,
+            load_path="none", ckpt_dir=ckpt_dir, log_dir=log_dir,
+            progress=False, device="cuda")
+        busy[epochs] = sum(ms for _, ms, _ in device_events(
+            torch, lambda: loop.fit(opts, cfg)))
+    traced = [json.loads(x) for x in _read_lines(
+        os.path.join(log_dir, "metrics_fit_traced1.jsonl"))][0]["secs"]
+    epoch_busy = busy[1] - busy[0]
+    numbers.update(traced_epoch_s=traced, traced_epoch_busy_ms=epoch_busy,
+                   traced_setup_busy_ms=busy[0],
+                   traced_idle_share=1.0 - epoch_busy / (traced * 1e3))
+    print(f"fit: one traced epoch of {steps} steps at B={TRAIN_B}: "
+          f"{traced:.3f} s, device busy {epoch_busy:.3f} ms (fit calls of "
+          f"one epoch and none: {busy[1]:.3f} - {busy[0]:.3f}), idle share "
+          f"{numbers['traced_idle_share']:.3f}")
+
+    # remat: one fine_tune step with and without, same state and masks
+    cfg = get_config("fine_tune")
+    rng = np.random.default_rng(8)
+    b = 4
+    mix = rng.random((b, 512, cfg.input_len)).astype(np.float32)
+    batch = {"mix": mix, "voc": (mix * rng.random(mix.shape)).astype(
+        np.float32)}
+    for k in ("mix_angle", "voc_angle"):
+        batch[k] = rng.uniform(-np.pi, np.pi, mix.shape).astype(np.float32)
+    batch = tstep.batch_to_device(batch, "cuda")
+    res = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        state = tstep.create_train_state(0, c, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        _, m = tstep.make_train_step(c)(
+            state, batch, torch.Generator("cuda").manual_seed(1))
+        res[remat] = ({k: float(v) for k, v in m.items()},
+                      torch.cuda.max_memory_allocated() / 2**20)
+        del state
+    (m0, mem0), (m1, mem1) = res[False], res[True]
+    loss_rel = abs(m1["total"] - m0["total"]) / abs(m0["total"])
+    gn_rel = abs(m1["grad_norm"] - m0["grad_norm"]) / m0["grad_norm"]
+    print(f"fit: fine_tune step B={b} x {cfg.input_len} frames, remat vs "
+          f"not: total {m1['total']:.7f} vs {m0['total']:.7f} (rel "
+          f"{loss_rel:.2e}), grad_norm rel {gn_rel:.2e}; peak memory "
+          f"{mem1:.0f} vs {mem0:.0f} MiB")
+    check(loss_rel <= 1e-6, "remat: the same loss")
+    check(gn_rel < GN_RTOL, "remat: the same grad_norm")
+    numbers.update(remat_peak_mib=mem1, no_remat_peak_mib=mem0)
+    print("fit numbers: " + json.dumps(numbers))
+    names = ("spectral_mag_fwd", "spectral_mag_bwd", "loss_partials_fwd",
+             "loss_partials_bwd")
+    return dict(zip(names, launches))
 
 
 def step_parity_phase(torch, np, host_batch) -> None:
@@ -1135,7 +1399,13 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         bench_launches = bench_phase(torch, np, os.path.join(work, "spec"))
         seconds["bench"] = time.perf_counter() - t0
-    launches.update(train_launches)
+        t0 = time.perf_counter()
+        fit_launches = fit_phase(torch, np, work)
+        seconds["fit"] = time.perf_counter() - t0
+    print("train phase launches: " + json.dumps(train_launches))
+    # the loss kernels' launches on this slice's path: fit under the
+    # kernel loss paths
+    launches.update(fit_launches)
     launches["stft_magnitude"] = bench_launches["stft_magnitude"]
     for entry in entries:
         entry["launches"] = launches[entry["name"]]

@@ -5,8 +5,9 @@ Flag surface preserved from reference inference.py:29-34:
   --model_path --tar --mixture_folder --vocal_solo
 plus svs_tpu's --limit, --mode, --preset and --dtype, and --device (default
 cuda).  svs_tpu's mesh decodes (--sp / --cp) wait for the port's parallel
-slice.  Reference ``.pth`` checkpoints load directly; svs_tpu's native
-``.ckpt`` (flax msgpack) waits for the port's checkpoint slice.
+slice.  Reference ``.pth`` checkpoints and the native ``.ckpt`` (written by
+svs_torch's or svs_tpu's training) load through
+``svs_torch.train.checkpoint.resume``, weights and BN statistics only.
 
 Run as ``python -m svs_torch.cli.infer_cli``.
 """
@@ -21,7 +22,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Separate vocal magnitude from mixture spectrograms.")
     p.add_argument("--model_path", type=str, required=True,
-                   help=".pth (reference format) checkpoint")
+                   help="native .ckpt or reference-format .pth checkpoint")
     p.add_argument("--tar", type=str, required=True)
     p.add_argument("--mixture_folder", type=str, required=True)
     p.add_argument("--vocal_solo", type=int, default=1,
@@ -46,20 +47,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def load_model(model_path: str, cfg, device):
-    """The U-Net for ``cfg`` with a reference ``.pth`` checkpoint's weights,
-    in eval mode on ``device``."""
-    from svs_torch.models import torch_import
-    from svs_torch.models.unet import UNet
+    """The U-Net for ``cfg`` with a checkpoint's weights (a native ``.ckpt``
+    or a reference ``.pth``), in eval mode on ``device``."""
+    from svs_torch.train import checkpoint
+    from svs_torch.train.step import create_train_state
 
-    if not model_path.endswith(".pth"):
-        raise NotImplementedError(
-            f"{model_path}: only reference .pth checkpoints load in the "
-            "PyTorch port; svs_tpu's native .ckpt (flax msgpack) format is "
-            "not yet ported")
-    sd, _ = torch_import.load_pth(model_path)
-    model = UNet(cfg)
-    model.load_state_dict(sd)
-    return model.to(device).eval()
+    state = create_train_state(0, cfg, device="cpu")
+    state, _, _ = checkpoint.resume(model_path, state, restore_opt=False)
+    return state.model.to(device).eval()
 
 
 def main(argv=None) -> int:
@@ -80,7 +75,7 @@ def main(argv=None) -> int:
 
     try:
         model = load_model(args.model_path, cfg, device)
-    except (OSError, RuntimeError, KeyError, NotImplementedError) as e:
+    except (OSError, RuntimeError, KeyError, ValueError) as e:
         print(f"Failed to load model: {e}")
         return 1
 

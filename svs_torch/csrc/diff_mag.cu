@@ -25,16 +25,17 @@ using namespace spec;
 // C entry points for ctypes.  Pointers are device pointers; ``x`` points at
 // the padded bf16 signal's first tap (see spectral.py), ``row_len`` samples
 // readable from there in each row; ``tiles`` is the pre-tiled basis
-// (spectral.dft_tiles).  Each launches on ``stream`` and returns
+// (spectral.dft_tiles), ``n_cols`` columns: the bins' pairs of ``n_fft``
+// padded to whole 128-column tiles.  Each launches on ``stream`` and returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a shape
 // the kernels do not take.
 extern "C" int svs_spectral_mag_fwd(const void* x, long long stride,
                                     int batch, int row_len, const void* tiles,
-                                    int n_taps, int n_cols, int hop,
+                                    int n_taps, int n_cols, int n_fft, int hop,
                                     int n_frames, int n_bins, void* mag,
                                     void* stream) {
-  DftArgs a = dft_args(x, x, stride, row_len, tiles, n_taps, n_cols, hop,
-                       n_frames);
+  DftArgs a = dft_args(x, x, stride, row_len, tiles, n_taps, n_cols, n_fft,
+                       hop, n_frames);
   if (n_bins != a.n_bins) return (int)cudaErrorInvalidValue;
   a.out = static_cast<float*>(mag);
   return launch_dft<1, kMagFwd>(a, batch, (cudaStream_t)stream);
@@ -47,13 +48,13 @@ extern "C" int svs_spectral_mag_fwd(const void* x, long long stride,
 // shifts j_lo .. j_lo + k - 1 in hop tiles of ``width``.
 extern "C" int svs_spectral_mag_bwd(const void* x, long long stride,
                                     int batch, int row_len, const void* tiles,
-                                    int n_taps, int n_cols, int hop,
+                                    int n_taps, int n_cols, int n_fft, int hop,
                                     int n_frames, int n_bins, const void* g,
                                     void* g_cols, const void* shifts, int k,
                                     int j_lo, int width, void* out,
                                     void* stream) {
-  DftArgs a = dft_args(x, x, stride, row_len, tiles, n_taps, n_cols, hop,
-                       n_frames);
+  DftArgs a = dft_args(x, x, stride, row_len, tiles, n_taps, n_cols, n_fft,
+                       hop, n_frames);
   if (n_bins != a.n_bins) return (int)cudaErrorInvalidValue;
   a.g = static_cast<const float*>(g);
   a.g_cols = static_cast<bf16*>(g_cols);
@@ -63,15 +64,25 @@ extern "C" int svs_spectral_mag_bwd(const void* x, long long stride,
                static_cast<const bf16*>(shifts),
                static_cast<float*>(out),
                n_frames, n_cols, hop, k, j_lo,
-               n_frames + cdiv(n_cols, hop) - 1};
+               n_frames + cdiv(n_fft, hop) - 1};
   return launch_adjoint(d, width, batch, (cudaStream_t)stream);
 }
 
-// The shared memory a block asks for, in bytes: the DFT GEMM's with
-// ``nsig`` signal spans, and the adjoint's with hop tiles of ``width`` and
-// ``k`` shifts; spectral.py's mirror of these sizes is held against them.
-extern "C" int svs_dft_smem(int nsig, int hop, int n_taps) {
-  return dft_smem(nsig, dft_span(hop, n_taps));
+// The staging a launch takes and the shared memory a block then asks for,
+// in bytes: the DFT GEMM's with ``nsig`` signals (1: its frames in
+// pieces, 0: in spans), and the adjoint's shifts a group and bytes with
+// hop tiles of ``width`` and ``k`` shifts; spectral.py's mirror of these is
+// held against them.
+extern "C" int svs_dft_pieces(int nsig, int hop, int n_taps) {
+  return dft_pieces(nsig, hop, n_taps) ? 1 : 0;
 }
 
-extern "C" int svs_adj_smem(int width, int k) { return adj_smem(width, k); }
+extern "C" int svs_dft_smem(int nsig, int hop, int n_taps) {
+  return dft_smem_for(nsig, hop, n_taps);
+}
+
+extern "C" int svs_adj_group(int width, int k) { return adj_group(width, k); }
+
+extern "C" int svs_adj_smem(int width, int k) {
+  return adj_smem(width, adj_group(width, k));
+}

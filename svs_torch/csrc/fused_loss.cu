@@ -27,17 +27,18 @@ using namespace spec;
 
 // C entry points for ctypes.  ``x`` and ``y`` point at the padded bf16
 // signals' first taps (see spectral.py), ``row_len`` samples readable from
-// there in each row; ``tiles`` is the pre-tiled basis (spectral.dft_tiles);
-// ``partials`` is (B, ceil(n_frames / 64), n_cols / 128, 3).  Each launches
+// there in each row; ``tiles`` is the pre-tiled basis (spectral.dft_tiles),
+// ``n_cols`` columns: the bins' pairs of ``n_fft`` padded to whole 128-column
+// tiles; ``partials`` is (B, ceil(n_frames / 64), n_cols / 128, 3).  Each launches
 // on ``stream`` and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for a shape the kernels do not take.
 extern "C" int svs_loss_partials_fwd(const void* x, const void* y,
                                      long long stride, int batch, int row_len,
                                      const void* tiles, int n_taps, int n_cols,
-                                     int hop, int n_frames, void* partials,
-                                     void* stream) {
-  DftArgs a = dft_args(x, y, stride, row_len, tiles, n_taps, n_cols, hop,
-                       n_frames);
+                                     int n_fft, int hop, int n_frames,
+                                     void* partials, void* stream) {
+  DftArgs a = dft_args(x, y, stride, row_len, tiles, n_taps, n_cols, n_fft,
+                       hop, n_frames);
   a.out = static_cast<float*>(partials);
   return launch_dft<2, kLossFwd>(a, batch, (cudaStream_t)stream);
 }
@@ -49,12 +50,12 @@ extern "C" int svs_loss_partials_fwd(const void* x, const void* y,
 extern "C" int svs_loss_partials_bwd(const void* x, const void* y,
                                      long long stride, int batch, int row_len,
                                      const void* tiles, int n_taps, int n_cols,
-                                     int hop, int n_frames, const void* g,
-                                     void* g_cols, const void* shifts, int k,
+                                     int n_fft, int hop, int n_frames,
+                                     const void* g, void* g_cols, const void* shifts, int k,
                                      int j_lo, int width, void* out,
                                      void* stream) {
-  DftArgs a = dft_args(x, y, stride, row_len, tiles, n_taps, n_cols, hop,
-                       n_frames);
+  DftArgs a = dft_args(x, y, stride, row_len, tiles, n_taps, n_cols, n_fft,
+                       hop, n_frames);
   a.g = static_cast<const float*>(g);
   a.g_cols = static_cast<bf16*>(g_cols);
   const int rc = launch_dft<2, kLossGrad>(a, batch, (cudaStream_t)stream);
@@ -63,6 +64,6 @@ extern "C" int svs_loss_partials_bwd(const void* x, const void* y,
                static_cast<const bf16*>(shifts),
                static_cast<float*>(out),
                n_frames, n_cols, hop, k, j_lo,
-               n_frames + cdiv(n_cols, hop) - 1};
+               n_frames + cdiv(n_fft, hop) - 1};
   return launch_adjoint(d, width, batch, (cudaStream_t)stream);
 }

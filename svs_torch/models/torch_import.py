@@ -22,7 +22,8 @@ Layouts:
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+import re
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -76,6 +77,54 @@ def state_dict_from_jax(params: Mapping[str, Any],
     return sd
 
 
+def jax_path(name: str) -> Optional[Tuple[str, str, int, str]]:
+    """Where a state-dict entry lives in svs_tpu's pytrees: ``(tree, side,
+    level, field)``, tree ``"params"`` or ``"bn_state"``, side ``"enc"`` or
+    ``"dec"``, the level counted from 0; ``None`` for what svs_tpu does not
+    keep (``num_batches_tracked``)."""
+    m = re.fullmatch(r"conv(\d+)\.([01])\.(weight|bias|running_mean|"
+                     r"running_var)", name)
+    if m:
+        i, mod, kind = int(m[1]) - 1, m[2], m[3]
+        if mod == "0":
+            return "params", "enc", i, {"weight": "w", "bias": "b"}[kind]
+        if kind.startswith("running"):
+            return "bn_state", "enc", i, kind[len("running_"):]
+        return "params", "enc", i, {"weight": "scale", "bias": "bias"}[kind]
+    m = re.fullmatch(r"deconv(\d+)\.(weight|bias)", name)
+    if m:
+        return "params", "dec", int(m[1]) - 1, {"weight": "w",
+                                                 "bias": "b"}[m[2]]
+    m = re.fullmatch(r"deconv(\d+)_BAD\.0\.(weight|bias|running_mean|"
+                     r"running_var)", name)
+    if m:
+        i, kind = int(m[1]) - 1, m[2]
+        if kind.startswith("running"):
+            return "bn_state", "dec", i, kind[len("running_"):]
+        return "params", "dec", i, {"weight": "scale", "bias": "bias"}[kind]
+    if name.endswith("num_batches_tracked"):
+        return None
+    raise KeyError(f"no svs_tpu counterpart for state-dict entry {name!r}")
+
+
+def to_jax_layout(name: str, a: np.ndarray) -> np.ndarray:
+    """A state-dict entry (or anything shaped like it: Adam's moments, an
+    accumulated gradient) in svs_tpu's layout: convs HWIO, deconvs the
+    pre-flipped conv-equivalent HWIO kernel."""
+    if name.endswith("weight") and a.ndim == 4:
+        return (deconv_weight_to_hwio(a) if name.startswith("deconv")
+                else conv_weight_to_hwio(a))
+    return a
+
+
+def from_jax_layout(name: str, a: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`to_jax_layout`."""
+    if name.endswith("weight") and a.ndim == 4:
+        return (deconv_weight_from_hwio(a) if name.startswith("deconv")
+                else conv_weight_from_hwio(a))
+    return a
+
+
 def load_pth(path: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
     """Read a reference ``.pth`` checkpoint on the CPU.
 
@@ -94,9 +143,14 @@ def load_pth(path: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
     return sd, extras
 
 
-def save_pth(path: str, model: torch.nn.Module, *, epoch: int = 0) -> None:
+def save_pth(path: str,
+             model: Union[torch.nn.Module, Mapping[str, torch.Tensor]], *,
+             epoch: int = 0) -> None:
     """Write a reference-loadable checkpoint (train.py rich-dict format,
-    reference train.py:369-382, minus optimizer internals)."""
-    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    reference train.py:369-382, minus optimizer internals) of a model or
+    of its state dict."""
+    if isinstance(model, torch.nn.Module):
+        model = model.state_dict()
+    sd = {k: v.detach().cpu() for k, v in model.items()}
     torch.save({"model_state_dict": sd, "epoch": int(epoch),
                 "scheduler": None}, path)

@@ -21,6 +21,15 @@ casts rather than autocast: conv inputs and weights are cast to the compute
 dtype, the conv output and the bias add stay in it, BatchNorm statistics
 stay float32 while the normalisation runs in the activation dtype
 (unet.py:208-210), and the sigmoid runs in float32 (unet.py:415).
+
+``cfg.remat`` recomputes each encoder and decoder level in the backward
+pass instead of keeping its activations (``torch.utils.checkpoint``,
+non-reentrant; svs_tpu's ``jax.checkpoint`` per level, unet.py:340-346).
+The levels are pure functions of their inputs for that: the BatchNorm
+running statistics a level returns are written after it (once, not again
+in the recomputation), and a decoder level's Dropout2d mask is drawn from
+the generator before the level and passed in, so the recomputation
+replays the same mask.  The numbers are those without remat.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from svs_torch.utils.config import SVSConfig
 from svs_torch.utils.device import torch_dtype
@@ -89,7 +99,8 @@ def batch_norm(
 
 class BatchNorm(nn.Module):
     """BatchNorm2d parameters and buffers under torch's names (so reference
-    state dicts load), applied by :func:`batch_norm`."""
+    state dicts load); the U-Net's levels apply them by :func:`batch_norm`
+    and write the running statistics back with :meth:`update`."""
 
     def __init__(self, channels: int, eps: float, momentum: float):
         super().__init__()
@@ -102,27 +113,29 @@ class BatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
 
-    def forward(self, x: torch.Tensor,
-                weight: Optional[torch.Tensor] = None) -> torch.Tensor:
-        y, new_mean, new_var = batch_norm(
-            x, self.weight, self.bias, self.running_mean, self.running_var,
-            train=self.training, eps=self.eps, momentum=self.momentum,
-            weight=weight)
-        if self.training:
-            with torch.no_grad():
-                self.running_mean.copy_(new_mean)
-                self.running_var.copy_(new_var)
-                self.num_batches_tracked += 1
-        return y
+    @torch.no_grad()
+    def update(self, new_mean: torch.Tensor, new_var: torch.Tensor) -> None:
+        """Write a train-mode call's new running statistics."""
+        self.running_mean.copy_(new_mean)
+        self.running_var.copy_(new_var)
+        self.num_batches_tracked += 1
+
+
+def dropout_keep(shape, rate: float, device,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Dropout2d's (B, C, 1, 1) keep mask for a (B, C, H, W) activation,
+    drawn from ``generator``."""
+    return torch.bernoulli(torch.full((shape[0], shape[1], 1, 1), 1.0 - rate,
+                                      device=device), generator=generator)
 
 
 def dropout2d(x: torch.Tensor, rate: float,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              generator: Optional[torch.Generator] = None,
+              keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """torch Dropout2d: drop whole channel maps, scale survivors by
-    1/(1-p), with the keep mask drawn from ``generator``."""
-    keep = torch.bernoulli(
-        torch.full((x.shape[0], x.shape[1], 1, 1), 1.0 - rate,
-                   device=x.device), generator=generator)
+    1/(1-p), with the keep mask drawn from ``generator`` (or given)."""
+    if keep is None:
+        keep = dropout_keep(x.shape, rate, x.device, generator)
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 
@@ -196,32 +209,77 @@ class UNet(nn.Module):
         batch statistics, updates the running stats and applies Dropout2d.
         """
         cfg = self.cfg
-        cd = torch_dtype(cfg.compute_dtype)
         x = mix.to(torch.float32)[:, None]  # NCHW (B, 1, F, T)
+        remat = cfg.remat and torch.is_grad_enabled()
+
+        def run(level, *args):
+            if remat:
+                return checkpoint(level, *args, use_reentrant=False)
+            return level(*args)
+
         skips = []
         for i in range(1, 7):
-            conv, bn = getattr(self, f"conv{i}")
-            x = (F.conv2d(x.to(cd), conv.weight.to(cd), None, conv.stride,
-                          conv.padding)
-                 + conv.bias.to(cd)[None, :, None, None])
-            x = bn(x, weight)
-            x = torch.where(x >= 0, x, cfg.leaky_slope * x)  # LeakyReLU
+            x, new_mean, new_var = run(self._enc_level, i, x, weight)
+            if self.training:
+                getattr(self, f"conv{i}")[1].update(new_mean, new_var)
             skips.append(x)
         for i in range(1, 7):
             inp = skips[5] if i == 1 else torch.cat([x, skips[6 - i]], dim=1)
-            deconv = getattr(self, f"deconv{i}")
-            x = (F.conv_transpose2d(inp.to(cd), deconv.weight.to(cd), None,
-                                    deconv.stride, deconv.padding,
-                                    deconv.output_padding)
-                 + deconv.bias.to(cd)[None, :, None, None])
-            if i < 6:
-                x = getattr(self, f"deconv{i}_BAD")[0](x, weight)
-                # ReLU as jnp.maximum(x, 0): the gradient at an exact 0 is
-                # 0.5, as JAX's (torch.clamp gives 1 there, torch.relu 0)
-                x = torch.maximum(x, torch.zeros_like(x))
-                if self.training:
-                    x = dropout2d(x, cfg.dropout_rate, generator)
+            if i == 6:  # the last deconv: no BN, ReLU or dropout
+                x = self._deconv(6, inp)
+                break
+            keep = None
+            if self.training:
+                shape = (inp.shape[0],
+                         getattr(self, f"deconv{i}").weight.shape[1])
+                keep = dropout_keep(shape, cfg.dropout_rate, inp.device,
+                                    generator)
+            x, new_mean, new_var = run(self._dec_level, i, inp, weight, keep)
+            if self.training:
+                getattr(self, f"deconv{i}_BAD")[0].update(new_mean, new_var)
         return torch.sigmoid(x.to(torch.float32))[:, 0]
+
+    def _enc_level(self, i: int, x: torch.Tensor,
+                   weight: Optional[torch.Tensor]):
+        """Encoder level i: conv s2 -> BN -> LeakyReLU (reference model.py:
+        42-77); returns the activation and BN's new running statistics."""
+        cfg = self.cfg
+        cd = torch_dtype(cfg.compute_dtype)
+        conv, bn = getattr(self, f"conv{i}")
+        x = (F.conv2d(x.to(cd), conv.weight.to(cd), None, conv.stride,
+                      conv.padding)
+             + conv.bias.to(cd)[None, :, None, None])
+        x, new_mean, new_var = batch_norm(
+            x, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+            train=self.training, eps=bn.eps, momentum=bn.momentum,
+            weight=weight)
+        return (torch.where(x >= 0, x, cfg.leaky_slope * x),  # LeakyReLU
+                new_mean, new_var)
+
+    def _deconv(self, i: int, inp: torch.Tensor) -> torch.Tensor:
+        cd = torch_dtype(self.cfg.compute_dtype)
+        deconv = getattr(self, f"deconv{i}")
+        return (F.conv_transpose2d(inp.to(cd), deconv.weight.to(cd), None,
+                                   deconv.stride, deconv.padding,
+                                   deconv.output_padding)
+                + deconv.bias.to(cd)[None, :, None, None])
+
+    def _dec_level(self, i: int, inp: torch.Tensor,
+                   weight: Optional[torch.Tensor],
+                   keep: Optional[torch.Tensor]):
+        """Decoder level i < 6: deconv -> BN -> ReLU -> Dropout2d with the
+        keep mask ``keep`` (train mode) (reference model.py:79-109)."""
+        bn = getattr(self, f"deconv{i}_BAD")[0]
+        x, new_mean, new_var = batch_norm(
+            self._deconv(i, inp), bn.weight, bn.bias, bn.running_mean,
+            bn.running_var, train=self.training, eps=bn.eps,
+            momentum=bn.momentum, weight=weight)
+        # ReLU as jnp.maximum(x, 0): the gradient at an exact 0 is 0.5, as
+        # JAX's (torch.clamp gives 1 there, torch.relu 0)
+        x = torch.maximum(x, torch.zeros_like(x))
+        if keep is not None:
+            x = dropout2d(x, self.cfg.dropout_rate, keep=keep)
+        return x, new_mean, new_var
 
 
 def param_count(model: nn.Module) -> int:

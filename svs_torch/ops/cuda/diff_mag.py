@@ -67,7 +67,7 @@ def spectral_mag_plain(x: torch.Tensor, n_fft: int, hop: int,
                        win: int) -> torch.Tensor:
     """Plain PyTorch version of the forward kernel."""
     geo = sp.geometry(x, n_fft, hop, win)
-    re, im = sp.unpair(sp.cols_plain(x, geo))
+    re, im = sp.unpair(sp.cols_plain(x, geo), n_fft)
     _, mag = sp.magnitude(re, im)
     return mag.transpose(1, 2)
 
@@ -76,11 +76,11 @@ def spectral_mag_bwd_plain(x: torch.Tensor, g: torch.Tensor, n_fft: int,
                            hop: int, win: int) -> torch.Tensor:
     """Plain PyTorch version of the backward kernels: d(sum g*mag)/dx."""
     geo = sp.geometry(x, n_fft, hop, win)
-    re, im = sp.unpair(sp.cols_plain(x, geo))
+    re, im = sp.unpair(sp.cols_plain(x, geo), n_fft)
     power, mag = sp.magnitude(re, im)
     live = (power >= sp.EPS).float()
     scale = g.transpose(1, 2).float() * live / mag
-    return sp.adjoint_plain(sp.grad_columns(scale, re, im), geo)
+    return sp.adjoint_plain(sp.grad_columns(scale, re, im, n_fft), geo)
 
 
 # ---------------------------------------------------------------- kernels
@@ -93,8 +93,9 @@ def _fns():
     fwd, bwd = lib.svs_spectral_mag_fwd, lib.svs_spectral_mag_bwd
     if fwd.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # signal, pitch, batch, row length, tiles, the shape
-        dft = [p, ll, i, i, p, i, i, i, i, i]
+        # signal, pitch, batch, row length, tiles, the shape (n_taps,
+        # n_cols, n_fft, hop, n_frames, and spectral_mag's n_bins)
+        dft = [p, ll, i, i, p, i, i, i, i, i, i]
         fwd.restype = bwd.restype = ctypes.c_int
         fwd.argtypes = dft + [p, p]
         # then the cotangents, the shift tiles and their range, the output

@@ -69,8 +69,8 @@ def reset_counts() -> None:
 
 
 def _mags_plain(x, y, geo):
-    rex, imx = sp.unpair(sp.cols_plain(x, geo))
-    rey, imy = sp.unpair(sp.cols_plain(y, geo))
+    rex, imx = sp.unpair(sp.cols_plain(x, geo), geo.n_fft)
+    rey, imy = sp.unpair(sp.cols_plain(y, geo), geo.n_fft)
     px, mx = sp.magnitude(rex, imx)
     _, my = sp.magnitude(rey, imy)
     return rex, imx, px, mx, my
@@ -101,7 +101,7 @@ def loss_partials_bwd_plain(x: torch.Tensor, y: torch.Tensor,
             + c_log * torch.sign(mx - my) / mx)
     live = (px >= sp.EPS).float()
     scale = gmag * live / mx
-    return sp.adjoint_plain(sp.grad_columns(scale, rex, imx), geo)
+    return sp.adjoint_plain(sp.grad_columns(scale, rex, imx, n_fft), geo)
 
 
 # ---------------------------------------------------------------- kernels
@@ -112,8 +112,9 @@ def _fns():
     fwd, bwd = lib.svs_loss_partials_fwd, lib.svs_loss_partials_bwd
     if fwd.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # x, y, pitch, batch, row length, tiles, the shape
-        dft = [p, p, ll, i, i, p, i, i, i, i]
+        # x, y, pitch, batch, row length, tiles, the shape (n_taps,
+        # n_cols, n_fft, hop, n_frames)
+        dft = [p, p, ll, i, i, p, i, i, i, i, i]
         fwd.restype = bwd.restype = ctypes.c_int
         fwd.argtypes = dft + [p, p]
         # then the cotangents, the shift tiles and their range, the output
@@ -134,7 +135,7 @@ def _launch_fwd(x, y, geo):
     fwd, _ = _fns()
     xp, yp = sp.padded_signal(x, geo), sp.padded_signal(y, geo)
     # one row of three sums per (example, frame tile, column tile) block
-    tiles = (-(-geo.n_frames // sp.DFT_FRAMES), geo.n_fft // sp.DFT_COLS)
+    tiles = (-(-geo.n_frames // sp.DFT_FRAMES), geo.n_cols // sp.DFT_COLS)
     part = torch.empty((geo.batch, *tiles, 3), dtype=torch.float32,
                        device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -15,9 +15,12 @@ with the frames an implicit operand (never written), ``i`` running only
 over the taps where the centred window is non-zero (``tap_lo``, aligned
 down to 8 samples, to ``tap_lo + n_taps``, in 64-tap stages), and the
 columns of one bin side by side: column 2q is the windowed cosine of bin q
-and 2q+1 its sine, for 1 <= q < n_fft/2; bin 0 and the Nyquist bin, whose
+and 2q+1 its sine.  At an even n_fft, bin 0 and the Nyquist bin, whose
 sines are zero, share the first pair (column 0 and column 1), so the
-n_fft/2 + 1 bins fill exactly n_fft columns.
+n_fft/2 + 1 bins fill exactly n_fft columns; an odd n_fft has no Nyquist
+bin, and its n_fft//2 + 1 bins take a pair each (n_fft + 1 columns).  The
+kernels' bases pad these columns with zeros to whole 128-column tiles
+(``Geometry.n_cols``), as the Pallas kernels pad the bins to 128 lanes.
 
 The backward recomputes the spectrum and goes back to the waveform without
 per-shift planes: the adjoint kernel computes, for hop-wide rows r of the
@@ -33,12 +36,14 @@ consume (:func:`dft_tiles`, :func:`shift_tiles`).  The reflect pad's
 mirror-add stays plain tensor code here, as it was XLA code outside the TPU
 kernel.
 
-The CUDA kernels take fewer geometries than the Pallas kernels: an even hop,
-n_fft a multiple of 128, at most 65,535 examples, and a block's shared
-memory (which grows with the hop, and with the shifts that meet the
-window) within the 227 KB an H100 block may have.  :func:`check_card`
-refuses any other geometry before a kernel is built or launched, from a
-mirror of the C++ sizes (:func:`dft_smem`, :func:`adj_smem`).
+The CUDA kernels take every geometry the Pallas kernels take, at most
+65,535 examples.  A block's shared memory grows with the hop (the DFT
+GEMM's signal spans) and with the shifts that meet the window (the
+adjoint's cotangent chunks); where either would pass the 227 KB an H100
+block may have, the kernels stage the frames in pieces a stage, and the
+shifts in groups (:func:`dft_staging`, :func:`adj_group`, mirrors of the
+C++ choices and sizes).  :func:`check_card` refuses what they do not take
+before a kernel is built or launched.
 
 Every function here runs on the CPU and on the card; the plain versions use
 float32 products of the bfloat16-rounded operands (on the card with
@@ -48,7 +53,7 @@ float32 products of the bfloat16-rounded operands (on the card with
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +98,18 @@ class Geometry:
     @property
     def n_bins(self) -> int:
         return self.n_fft // 2 + 1
+
+    @property
+    def n_pairs(self) -> int:
+        """Column pairs that carry bins: n_fft/2 (bin 0 and Nyquist share
+        pair 0) at an even n_fft, n_fft//2 + 1 at an odd one."""
+        return (self.n_fft + 1) // 2
+
+    @property
+    def n_cols(self) -> int:
+        """The kernels' basis columns: the pairs padded with zero columns
+        to whole DFT_COLS tiles."""
+        return _cdiv(2 * self.n_pairs, DFT_COLS) * DFT_COLS
 
     @property
     def k(self) -> int:
@@ -152,7 +169,7 @@ def geometry(x: torch.Tensor, n_fft: int, hop: int, win: int) -> Geometry:
         raise ValueError(f"expected (B, T) waveforms, got {tuple(x.shape)}")
     if x.dtype != torch.float32:
         raise TypeError(f"expected float32 waveforms, got {x.dtype}")
-    if n_fft < 4 or n_fft % 2 or hop < 1 or not 0 < win <= n_fft:
+    if n_fft < 4 or hop < 1 or not 0 < win <= n_fft:
         raise ValueError(f"bad geometry n_fft={n_fft} hop={hop} win={win}")
     if x.shape[1] <= n_fft // 2:
         raise ValueError(f"reflect pad of {n_fft // 2} needs more than "
@@ -161,28 +178,35 @@ def geometry(x: torch.Tensor, n_fft: int, hop: int, win: int) -> Geometry:
 
 
 def paired_basis(n_fft: int, win: int) -> np.ndarray:
-    """(n_fft taps, n_fft columns) float32 centred-hann DFT basis in the
+    """(n_fft taps, 2*n_pairs columns) float32 centred-hann DFT basis in the
     paired column layout of the module docstring."""
     cos, sin = dsp.centered_hann_dft(n_fft, win)
-    half = n_fft // 2
-    out = np.zeros((n_fft, n_fft), np.float32)
-    out[:, 0:n_fft:2] = cos[:, :half]
-    out[:, 1:n_fft:2] = sin[:, :half]
-    out[:, 1] = cos[:, half]
+    n_pairs = (n_fft + 1) // 2
+    out = np.zeros((n_fft, 2 * n_pairs), np.float32)
+    out[:, 0::2] = cos[:, :n_pairs]
+    out[:, 1::2] = sin[:, :n_pairs]
+    if n_fft % 2 == 0:
+        out[:, 1] = cos[:, n_pairs]  # Nyquist beside bin 0
     return out
 
 
-def unpair(cols: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(..., n_fft) paired columns -> re, im, each (..., n_fft//2 + 1)."""
-    n_fft = cols.shape[-1]
+def unpair(cols: torch.Tensor, n_fft: Optional[int] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., 2*n_pairs) paired columns -> re, im, each (..., n_fft//2 + 1);
+    ``n_fft`` defaults to the column count (an even n_fft)."""
+    re, im = cols[..., 0::2], cols[..., 1::2]
+    if n_fft is not None and n_fft % 2:
+        return re, im
     zero = torch.zeros_like(cols[..., :1])
-    re = torch.cat([cols[..., 0:n_fft:2], cols[..., 1:2]], dim=-1)
-    im = torch.cat([zero, cols[..., 3:n_fft:2], zero], dim=-1)
-    return re, im
+    return (torch.cat([re, cols[..., 1:2]], dim=-1),
+            torch.cat([zero, im[..., 1:], zero], dim=-1))
 
 
-def pair(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+def pair(re: torch.Tensor, im: torch.Tensor,
+         n_fft: Optional[int] = None) -> torch.Tensor:
     """Inverse of :func:`unpair` (the sines of bin 0 and Nyquist drop)."""
+    if n_fft is not None and n_fft % 2:
+        return torch.stack([re, im], dim=-1).flatten(-2)
     n_bins = re.shape[-1]
     cols = torch.stack([re[..., :-1], im[..., :-1]], dim=-1).flatten(-2)
     cols[..., 1] = re[..., n_bins - 1]
@@ -216,36 +240,38 @@ def swizzle128(t: torch.Tensor) -> torch.Tensor:
 
 
 def dft_tiles(geo: Geometry, device) -> torch.Tensor:
-    """(n_fft/128, n_taps/64, 128, 64) bf16: the DFT GEMM's basis, forward
-    and backward, taps ``tap_lo`` onwards of each column (zero past n_fft),
-    one (column tile, stage) block per bulk copy, swizzled."""
+    """(n_cols/128, n_taps/64, 128, 64) bf16: the DFT GEMM's basis, forward
+    and backward, taps ``tap_lo`` onwards of each column (zero past n_fft,
+    and zero columns past the pairs), one (column tile, stage) block per
+    bulk copy, swizzled."""
     def make():
         b = basis_bf16(geo.n_fft, geo.win, "cpu")
-        taps = torch.zeros((geo.n_taps, geo.n_fft), dtype=torch.bfloat16)
+        taps = torch.zeros((geo.n_taps, geo.n_cols), dtype=torch.bfloat16)
         n = min(geo.n_taps, geo.n_fft - geo.tap_lo)
-        taps[:n] = b[geo.tap_lo:geo.tap_lo + n]
-        t = taps.T.reshape(geo.n_fft // DFT_COLS, DFT_COLS,
+        taps[:n, :b.shape[1]] = b[geo.tap_lo:geo.tap_lo + n]
+        t = taps.T.reshape(geo.n_cols // DFT_COLS, DFT_COLS,
                            geo.n_taps // STAGE, STAGE).transpose(1, 2)
         return swizzle128(t).contiguous().to(device)
     return _cached(("dft", geo.n_fft, geo.win, torch.device(device)), make)
 
 
 def shift_tiles(geo: Geometry, device) -> torch.Tensor:
-    """(hop_tiles, n_fft/64, n_shifts, hop_width, 64) bf16: the adjoint's
+    """(hop_tiles, n_cols/64, n_shifts, hop_width, 64) bf16: the adjoint's
     basis; row c of hop tile h and shift ``shift_lo + j`` is tap
-    (shift_lo + j)*hop + h*hop_width + c (zero past the hop or n_fft), its
-    64 columns of one chunk swizzled, one block per bulk copy."""
+    (shift_lo + j)*hop + h*hop_width + c (zero past the hop or n_fft, and in
+    the zero columns), its 64 columns of one chunk swizzled, one block per
+    bulk copy."""
     def make():
         b = basis_bf16(geo.n_fft, geo.win, "cpu")
         width = geo.hop_width
-        rows = torch.zeros((geo.hop_tiles, geo.n_shifts, width, geo.n_fft),
+        rows = torch.zeros((geo.hop_tiles, geo.n_shifts, width, geo.n_cols),
                            dtype=torch.bfloat16)
         for h in range(geo.hop_tiles):
             for j in range(geo.n_shifts):
                 lo = (geo.shift_lo + j) * geo.hop + h * width
                 n = max(0, min(width, geo.hop - h * width, geo.n_fft - lo))
-                rows[h, j, :n] = b[lo:lo + n]
-        t = rows.unflatten(-1, (geo.n_fft // STAGE, STAGE)).permute(
+                rows[h, j, :n, :b.shape[1]] = b[lo:lo + n]
+        t = rows.unflatten(-1, (geo.n_cols // STAGE, STAGE)).permute(
             0, 3, 1, 2, 4)
         return swizzle128(t).contiguous().to(device)
     return _cached(("shifts", geo.n_fft, geo.hop, geo.win,
@@ -269,7 +295,7 @@ def padded_signal(x: torch.Tensor, geo: Geometry) -> torch.Tensor:
 
 
 def cols_plain(x: torch.Tensor, geo: Geometry) -> torch.Tensor:
-    """(B, n_frames, n_fft) float32 paired re/im columns: the forward GEMM
+    """(B, n_frames, 2*n_pairs) float32 paired re/im columns: the forward GEMM
     with float32 products of the bf16-rounded signal and basis."""
     xp = reflect_pad(x, geo.pad).to(torch.bfloat16).float()
     frames = dsp.frame_signal(xp, geo.n_fft, geo.hop)
@@ -283,11 +309,11 @@ def magnitude(re: torch.Tensor, im: torch.Tensor):
     return power, torch.sqrt(torch.clamp(power, min=EPS))
 
 
-def grad_columns(scale: torch.Tensor, re: torch.Tensor,
-                 im: torch.Tensor) -> torch.Tensor:
+def grad_columns(scale: torch.Tensor, re: torch.Tensor, im: torch.Tensor,
+                 n_fft: int) -> torch.Tensor:
     """The cotangent of the paired columns, ``scale * re`` and
     ``scale * im`` rounded to bf16 (diff_mag.py:112-113), as float32."""
-    g = pair(scale * re, scale * im)
+    g = pair(scale * re, scale * im, n_fft)
     return g.to(torch.bfloat16).float()
 
 
@@ -305,7 +331,7 @@ def mirror_add(dxp: torch.Tensor, geo: Geometry) -> torch.Tensor:
 
 
 def adjoint_plain(g_cols: torch.Tensor, geo: Geometry) -> torch.Tensor:
-    """(B, n_frames, n_fft) column cotangent -> (B, T) signal cotangent:
+    """(B, n_frames, 2*n_pairs) column cotangent -> (B, T) signal cotangent:
     ``g_cols @ basis^T``, overlap-added at hop, then the mirror-add."""
     d_frames = torch.matmul(
         g_cols, basis_bf16(geo.n_fft, geo.win, g_cols.device).float().T)
@@ -318,10 +344,12 @@ SMEM_LIMIT = 232_448  # shared memory an H100 block may have (227 KB)
 MAX_BATCH = 65_535    # the grids' z dimension: one example a slice
 # the other terms of a block's shared memory in spectral.cuh: the DFT
 # GEMM's ring of 4 basis stages and its gradient epilogue's staging of 64
-# bf16 rows of 136 columns; the adjoint's 128-row tiles, its ring of 4
-# shift tiles and 3 cotangent chunks; in both, 1 KB of alignment slack and
-# the mbarriers
+# bf16 rows of 136 columns; with pieces, each ring stage also holds each
+# signal's 64 frame pieces of 72 samples; the adjoint's 128-row tiles, its
+# ring of 4 shift tiles and 3 cotangent chunks; in both, 1 KB of alignment
+# slack and the mbarriers
 _DFT_STAGES, _OUT_PITCH = 4, DFT_COLS + 8
+_PIECE_LEN = STAGE + 8
 _ADJ_ROWS, _ADJ_STAGES, _G_STAGES = 128, 4, 3
 
 
@@ -340,48 +368,55 @@ def dft_smem(nsig: int, span: int) -> int:
             + max(nsig * span * 2, staged) + 8 * (2 * _DFT_STAGES + 1))
 
 
+def dft_piece_smem(nsig: int) -> int:
+    """Bytes of shared memory a DFT block asks for when it stages its frames
+    in pieces (``dft_piece_smem`` in spectral.cuh): a ring of 4 stages,
+    each a basis stage and ``nsig`` signals' 64 pieces."""
+    stage = DFT_COLS * STAGE * 2 + nsig * DFT_FRAMES * _PIECE_LEN * 2
+    return 1024 + _DFT_STAGES * stage + 8 * (2 * _DFT_STAGES + 1)
+
+
+def dft_staging(nsig: int, hop: int, n_taps: int) -> Tuple[str, int]:
+    """How a DFT block with ``nsig`` signals stages its frames, and the
+    bytes of shared memory it then asks for (``dft_pieces`` and
+    ``dft_smem_for`` in spectral.cuh): one span a signal where that fits a
+    block, else pieces a stage."""
+    span = dft_smem(nsig, dft_span(hop, n_taps))
+    if span <= SMEM_LIMIT:
+        return "span", span
+    return "pieces", dft_piece_smem(nsig)
+
+
 def adj_smem(width: int, k: int) -> int:
     """Bytes of shared memory an adjoint block asks for with hop tiles of
-    ``width`` and ``k`` shifts (``adj_smem`` in spectral.cuh)."""
+    ``width`` and groups of ``k`` shifts (``adj_smem`` in spectral.cuh)."""
     return (1024 + _ADJ_STAGES * width * 128
             + _G_STAGES * (_ADJ_ROWS + k - 1) * 128 + 128
             + 8 * 2 * (_ADJ_STAGES + _G_STAGES))
 
 
+def adj_group(width: int, k: int) -> int:
+    """Shifts an adjoint block contracts per staged piece of cotangent rows
+    (``adj_group`` in spectral.cuh): all ``k`` where their rows fit a
+    block, else as many as fit."""
+    fit = (SMEM_LIMIT - adj_smem(width, 1)) // (_G_STAGES * 128) + 1
+    return min(k, fit)
+
+
 def check_card(x: torch.Tensor, geo: Geometry, name: str, nsig: int) -> None:
     """Raise ``ValueError`` for what the CUDA kernels of ``name`` (with
     ``nsig`` signals: 1 for spectral_mag, 2 for loss_partials) do not take:
-    a waveform that is not contiguous, or a geometry past one of their
-    limits, named in the message with its numbers.  The wrappers call it
+    a waveform that is not contiguous, or more examples than their grids
+    hold, named in the message with its numbers: every hop and n_fft is
+    taken (the staging :func:`dft_staging` and :func:`adj_group` mirror
+    fits a block at every geometry).  The wrappers call it
     before any build, allocation or launch, forward and backward alike, so
     that neither runs when the other cannot."""
     if not x.is_contiguous():
         raise ValueError(f"{name} expects a contiguous waveform")
-    at = f"(hop {geo.hop}, n_fft {geo.n_fft}, win {geo.win})"
-    if geo.hop % 2:
-        raise ValueError(f"{name}: the kernels load the signal in 4-byte "
-                         f"bf16 pairs and need an even hop {at}")
-    if geo.n_fft % DFT_COLS:
-        raise ValueError(f"{name}: the kernels tile {DFT_COLS} columns and "
-                         f"need n_fft % {DFT_COLS} == 0 {at}")
     if geo.batch > MAX_BATCH:
         raise ValueError(f"{name}: the kernels' grids take at most "
                          f"{MAX_BATCH:,} examples, got {geo.batch:,}")
-    need = dft_smem(nsig, dft_span(geo.hop, geo.n_taps))
-    if need > SMEM_LIMIT:
-        spans = "two signal spans" if nsig == 2 else "one signal span"
-        raise ValueError(
-            f"{name}: {spans} of 63*hop + n_taps samples need {need:,} bytes "
-            f"of shared memory a block, more than the {SMEM_LIMIT:,} an H100 "
-            f"block may have {at}")
-    need = adj_smem(geo.hop_width, geo.n_shifts)
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"{name}: the adjoint's {geo.n_shifts} hop shifts that meet the "
-            f"window need {need:,} bytes of shared memory a block (tiles "
-            f"{geo.hop_width} wide, cotangent chunks of "
-            f"{_ADJ_ROWS + geo.n_shifts - 1} rows), more than the "
-            f"{SMEM_LIMIT:,} an H100 block may have {at}")
 
 
 def dft_args(geo: Geometry, device) -> tuple:
@@ -389,7 +424,8 @@ def dft_args(geo: Geometry, device) -> tuple:
     backward): pitch, batch, readable row length, basis tiles and shape."""
     tiles = dft_tiles(geo, device)
     return (geo.stride, geo.batch, geo.stride - geo.tap_lo,
-            tiles.data_ptr(), geo.n_taps, geo.n_fft, geo.hop, geo.n_frames)
+            tiles.data_ptr(), geo.n_taps, geo.n_cols, geo.n_fft, geo.hop,
+            geo.n_frames)
 
 
 def tap_base(geo: Geometry, xp: torch.Tensor) -> int:
@@ -399,10 +435,10 @@ def tap_base(geo: Geometry, xp: torch.Tensor) -> int:
 
 def empty_g_cols(geo: Geometry, device) -> torch.Tensor:
     """The backward's bf16 column cotangent between its two launches:
-    (B, n_fft/64, n_frames, 64), column chunk major, each frame's 64
+    (B, n_cols/64, n_frames, 64), column chunk major, each frame's 64
     columns 128-byte swizzled by frame % 8 (``g_col_offset`` in
     spectral.cuh)."""
-    return torch.empty((geo.batch, geo.n_fft // STAGE, geo.n_frames, STAGE),
+    return torch.empty((geo.batch, geo.n_cols // STAGE, geo.n_frames, STAGE),
                        dtype=torch.bfloat16, device=device)
 
 

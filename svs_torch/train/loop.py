@@ -1,0 +1,334 @@
+"""The training loop (port of ``svs_tpu/train/loop.py``, one device).
+
+Contracts kept from the reference (train.py:239-389) and svs_tpu:
+
+- the learning rate drops to ``cfg.lr_after_drop`` at ``cfg.lr_drop_epoch``
+  and ``svs_<label>_400.ckpt`` is written (train.py:251-262);
+- validation every ``val_interval`` epochs with the best checkpoint
+  ``svs_best_<label>.ckpt`` tracked from 100.0 (train.py:209,316-355),
+  restored from the checkpoint on resume;
+- the append-only text log ``<log_dir>/log_<label>.txt``: one train-loss
+  float per epoch and ``Val <float>`` after each validation, buffered and
+  flushed at validation time (train.py:313-314,350,357-363,384-387);
+- ``metrics_<label>.jsonl``, one line per epoch and per validation;
+- the latest checkpoint ``svs_<label>.ckpt`` every ``save_every`` epochs;
+- resume from ``load_path`` (a native ``.ckpt`` or a reference ``.pth``);
+- SIGTERM sets a flag; the loop saves at its next safe point and exits 143;
+- the per-epoch crop seed ``seed * 100003 + ep``.
+
+The step is svs_torch's eager step (:mod:`svs_torch.train.step`), which
+updates the state in place; the epoch's losses stay on the device until
+the epoch ends and are fetched once, so no step waits on the card.
+Dropout draws from one ``torch.Generator`` on the training device, seeded
+from ``seed + 1`` (svs_tpu's ``jax.random.key(seed + 1)``; the two streams
+differ).  The MR-STFT loss's magnitudes follow ``cfg.mr_mag_impl``: the
+CUDA kernels ``pallas_fused`` / ``pallas_fused_wide`` (loss_partials) and
+``pallas_bf16`` (spectral_mag) run here when ``fit`` is given such a
+config; the default stays ``matmul_bf16``.
+
+Not ported yet, and refused with ``NotImplementedError``: a mesh and every
+parallel layout (ROADMAP A.10), the whole-epoch ``epoch_scan`` (A.2, a
+CUDA-graph capture) and ``val_sdr`` (A.7).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import signal
+import time
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from svs_torch.data import device_data as dd
+from svs_torch.data.dataset import PatchDataset
+from svs_torch.train import checkpoint as ckpt_lib
+from svs_torch.train.step import (TrainState, batch_to_device,
+                                  create_train_state, get_learning_rate,
+                                  make_eval_step, make_optimizer,
+                                  make_train_step, reset_accumulation,
+                                  set_learning_rate)
+from svs_torch.utils.config import SVSConfig
+from svs_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass
+class TrainOptions:
+    """svs_tpu's ``TrainOptions`` (the reference's CLI surface, train.py:
+    157-167, and svs_tpu's extensions), the same fields and defaults, plus
+    ``device``."""
+    train_folder: str = "./data/vocals"
+    load_path: str = "result.ckpt"
+    label: str = "run"
+    epoch: int = 2
+    batch_size: int = 2
+    valid_folder: str = "unet_spectrograms/valid"
+    val_interval: int = 20
+    ckpt_dir: str = "CKPT"
+    log_dir: str = "LOG"
+    seed: int = 0
+    export_pth: bool = False
+    # write checkpoints from a worker thread (device-side snapshot first)
+    async_save: bool = False
+    progress: bool = True
+    # latest-checkpoint cadence in epochs (the reference writes every epoch)
+    save_every: int = 1
+    device_put: Optional[Callable] = None  # sharding hook: ROADMAP A.10
+    # keep the spectrogram dataset on the device and gather crops there
+    # (data/device_data.py): "auto" when it fits device_data_cap_mb
+    device_data: str = "auto"  # "auto" | "on" | "off"
+    device_data_cap_mb: float = 2048.0
+    epoch_scan: bool = False   # ROADMAP A.2 (a CUDA graph of the epoch)
+    mesh: Optional[object] = None  # ROADMAP A.10
+    parallel: str = "dp"       # only "dp" without a mesh: one device
+    pp_micro: int = 4
+    pp_split: int = 3
+    zero1: bool = False        # ROADMAP A.10
+    fsdp: bool = False         # ROADMAP A.10
+    # gradient accumulation: one Adam update every accum_steps microbatches
+    # with their mean gradient; resume with the same value
+    accum_steps: int = 1
+    val_sdr: bool = False      # ROADMAP A.7
+    val_sdr_songs: Optional[int] = None
+    # remix augmentation (data/augment.py), off by default
+    augment: bool = False
+    remix_p: float = 0.5
+    aug_gain_lo: float = 0.25
+    aug_gain_hi: float = 1.25
+    # the port's own: the training device ("cuda" unless the caller asks
+    # for the CPU; raises without a card)
+    device: Optional[str] = None
+
+
+def _refuse_unported(opts: TrainOptions) -> None:
+    def no(what: str, item: str) -> None:
+        raise NotImplementedError(f"{what} is not ported to svs_torch yet "
+                                  f"(ROADMAP {item}); fit runs on one device")
+
+    if (opts.mesh is not None or opts.parallel != "dp" or opts.zero1
+            or opts.fsdp or opts.device_put is not None):
+        no("a device mesh / parallel layout (mesh, parallel, zero1, fsdp, "
+           "device_put)", "A.10")
+    if (torch.distributed.is_available() and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1):
+        no("multi-process training", "A.10")
+    if opts.epoch_scan:
+        no("epoch_scan (the whole epoch as one CUDA graph)", "A.2")
+    if opts.val_sdr:
+        no("val_sdr (vocal SDR at each validation)", "A.7")
+
+
+def _dataset(folder: str, cfg: SVSConfig) -> PatchDataset:
+    return PatchDataset(folder, samples_per_song=cfg.samples_per_song,
+                        input_len=cfg.input_len)
+
+
+def _on_device(batch, dev: torch.device):
+    """A host batch (numpy) onto the device; device batches pass."""
+    if isinstance(next(iter(batch.values())), torch.Tensor):
+        return batch
+    return batch_to_device(batch, dev)
+
+
+def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
+    cfg = cfg or SVSConfig()
+    _refuse_unported(opts)
+    if opts.accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {opts.accum_steps}")
+    dev = resolve_device(opts.device)
+    os.makedirs(opts.ckpt_dir, exist_ok=True)
+    os.makedirs(opts.log_dir, exist_ok=True)
+    log_file = os.path.join(opts.log_dir, f"log_{opts.label}.txt")
+    metrics_file = os.path.join(opts.log_dir, f"metrics_{opts.label}.jsonl")
+    best_weight = os.path.join(opts.ckpt_dir, f"svs_best_{opts.label}.ckpt")
+    ckpt_weight = os.path.join(opts.ckpt_dir, f"svs_{opts.label}.ckpt")
+
+    train_ds = _dataset(opts.train_folder, cfg)
+    valid_ds = None
+    if os.path.exists(opts.valid_folder):
+        try:
+            valid_ds = _dataset(opts.valid_folder, cfg)
+        except FileNotFoundError:
+            valid_ds = None
+    if valid_ds is None:
+        print(f"Warning: no validation folder {opts.valid_folder}; skipping "
+              "validation.")
+    if opts.device_data != "off":
+        train_ds = dd.maybe_device_dataset(train_ds, opts.device_data,
+                                           opts.device_data_cap_mb,
+                                           device=dev)
+        valid_ds = dd.maybe_device_dataset(valid_ds, opts.device_data,
+                                           opts.device_data_cap_mb,
+                                           device=dev)
+        if isinstance(train_ds, dd.DeviceDataset):
+            print(f"[svs-torch] device-resident dataset: "
+                  f"{train_ds.nbytes / 2**20:.0f} MiB on {dev}")
+
+    optimizer = make_optimizer(cfg, accum_steps=opts.accum_steps)
+    state = create_train_state(opts.seed, cfg, optimizer, device=dev)
+    train_step = make_train_step(cfg)
+    eval_step = make_eval_step(cfg)
+
+    start_epoch = 0
+    extras = {}
+    if os.path.exists(opts.load_path):
+        state, start_epoch, extras = ckpt_lib.resume(opts.load_path, state)
+        print(f"Loaded checkpoint from {opts.load_path} "
+              f"(epoch {start_epoch})")
+
+    augmenter = None
+    if opts.augment:
+        from svs_torch.data.augment import Augmenter
+        augmenter = Augmenter(opts.remix_p, opts.aug_gain_lo,
+                              opts.aug_gain_hi)
+
+    # 100.0 per reference train.py:209, restored on resume so that a
+    # resumed run cannot overwrite svs_best with a worse model
+    best_val_loss = float(extras.get("best_val_loss", 100.0))
+    saver = ckpt_lib.AsyncSaver() if opts.async_save else None
+    save_ckpt = saver.save if saver else ckpt_lib.save
+    export_ckpt = saver.export_pth if saver else ckpt_lib.export_pth
+    log_buffer: List[str] = []
+    # the per-epoch loss history, persisted like the reference's
+    # loss_list_total (model.py:112-114, train.py:377-379)
+    loss_history: List[float] = [float(x) for x in
+                                 extras.get("loss_list_total", [])]
+    gen = torch.Generator(dev).manual_seed(opts.seed + 1)
+
+    def _flush_log():
+        nonlocal log_buffer
+        if log_buffer:
+            with open(log_file, "a") as f:
+                f.writelines(log_buffer)
+        log_buffer = []
+
+    # graceful preemption: SIGTERM only sets a flag; the loop saves at its
+    # next safe point (between steps, where the in-place update is done)
+    # and exits 143, so ``--load_path <latest>`` resumes
+    stop_requested = False
+
+    def _sigterm(_sig, _frm):
+        nonlocal stop_requested
+        stop_requested = True
+
+    previous = None
+    try:
+        previous = signal.signal(signal.SIGTERM, _sigterm)
+    except ValueError:
+        pass  # not the main thread: no hook
+
+    def _preempt_exit(epoch_to_save: int, already_saved: bool = False):
+        if not already_saved:
+            # resume re-runs the interrupted epoch: drop a half-filled
+            # accumulation cycle (step.reset_accumulation)
+            save_ckpt(ckpt_weight, reset_accumulation(state),
+                      epoch=epoch_to_save,
+                      extras={"loss_list_total": loss_history,
+                              "best_val_loss": best_val_loss})
+        raise SystemExit(143)
+
+    try:
+        for ep in range(start_epoch, opts.epoch):
+            if ep == cfg.lr_drop_epoch:  # train.py:251-262
+                set_learning_rate(state, cfg.lr_after_drop)
+                save_ckpt(os.path.join(opts.ckpt_dir,
+                                       f"svs_{opts.label}_400.ckpt"),
+                          state, epoch=ep + 1)
+                print(f"\n[Info] Epoch {ep}: learning rate set to "
+                      f"{cfg.lr_after_drop}\n")
+
+            t0 = time.time()
+            losses: List[torch.Tensor] = []
+            epoch_seed = opts.seed * 100003 + ep
+            n_steps = train_ds.steps_per_epoch(opts.batch_size)
+            if augmenter is not None:
+                # one generator per epoch, from the epoch seed: a resumed
+                # epoch redraws the same augmentations
+                augmenter.for_epoch(epoch_seed)
+            n_items = len(train_ds)
+            every = max(1, n_steps // 10)
+            for i, batch in enumerate(train_ds.batches(
+                    opts.batch_size, shuffle=True, seed=epoch_seed)):
+                b = _on_device(batch, dev)
+                if augmenter is not None:
+                    b = augmenter(b, n_real=min(opts.batch_size,
+                                                n_items - i * opts.batch_size))
+                state, aux = train_step(state, b, gen)
+                losses.append(aux["total"])  # stays on the device
+                if opts.progress and ((i + 1) % every == 0
+                                      or i + 1 == n_steps):
+                    print(f"Epoch {ep + 1}/{opts.epoch} [Train] "
+                          f"{i + 1}/{n_steps}", flush=True)
+                if stop_requested:
+                    # mid-epoch: epoch=ep, so resume re-runs this epoch
+                    _preempt_exit(ep)
+
+            # one fetch for the epoch's losses
+            values = (torch.stack(losses).cpu().tolist() if losses else [])
+            avg_train_loss = (float(np.mean(values)) if values
+                              else float("nan"))
+            log_buffer.append(f"{avg_train_loss}\n")
+            loss_history.append(avg_train_loss)
+            epoch_secs = time.time() - t0
+            with open(metrics_file, "a") as f:
+                f.write(json.dumps({
+                    "epoch": ep + 1, "train_loss": avg_train_loss,
+                    "lr": get_learning_rate(state),
+                    "steps": len(values), "secs": round(epoch_secs, 3),
+                }) + "\n")
+
+            if valid_ds is not None and (ep + 1) % opts.val_interval == 0:
+                # fixed crop seed: the same validation patches every pass
+                # (svs_tpu's choice; the reference re-rolls them)
+                val_losses = [eval_step(state, _on_device(batch, dev))["total"]
+                              for batch in valid_ds.batches(
+                                  opts.batch_size, shuffle=False,
+                                  seed=opts.seed)]
+                avg_val_loss = float(np.mean(
+                    torch.stack(val_losses).cpu().tolist()))
+                log_buffer.append(f"Val {avg_val_loss}\n")
+                print(f"\n[Epoch {ep + 1}] Train Loss: {avg_train_loss:.4e} "
+                      f"| Val Loss: {avg_val_loss:.4e}")
+                if avg_val_loss < best_val_loss:
+                    best_val_loss = avg_val_loss
+                    save_ckpt(best_weight, state, epoch=ep + 1,
+                              extras={"best_val_loss": best_val_loss,
+                                      "loss_list_total": loss_history})
+                    if opts.export_pth:
+                        export_ckpt(best_weight[:-5] + ".pth", state,
+                                    epoch=ep + 1)
+                with open(metrics_file, "a") as f:
+                    f.write(json.dumps({"epoch": ep + 1,
+                                        "val_loss": avg_val_loss}) + "\n")
+                _flush_log()
+            else:
+                print(f"Epoch {ep + 1} Avg Loss: {avg_train_loss:.4e}")
+
+            saved_latest = ((ep + 1) % opts.save_every == 0
+                            or ep + 1 == opts.epoch)
+            if saved_latest:
+                save_ckpt(ckpt_weight, state, epoch=ep + 1,
+                          extras={"loss_list_total": loss_history,
+                                  "best_val_loss": best_val_loss})
+                if opts.export_pth:
+                    export_ckpt(ckpt_weight[:-5] + ".pth", state,
+                                epoch=ep + 1)
+            if stop_requested:
+                # epoch complete: no second write of the same latest ckpt
+                _preempt_exit(ep + 1, already_saved=saved_latest)
+
+        print("Finish training!")
+        return state
+    finally:
+        # drain the checkpoint writes and flush the text log on every exit
+        # path (normal, preemption, loader or step errors)
+        try:
+            if saver:
+                saver.close()
+            _flush_log()
+        finally:
+            if previous is not None:
+                signal.signal(signal.SIGTERM, previous)

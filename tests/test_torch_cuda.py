@@ -311,57 +311,87 @@ def test_forward_kernels_match_plain(card, kind, b, t, n_fft, hop, win):
     assert counts() == (before[0] + 2, before[1])
 
 
-# the first geometry past each limit of the loss kernels
-# (tests/test_torch_loss_limits.py holds the last one inside it too)
-PAST_LIMITS = [
-    (1, (1024, 121, 600), "even hop"),
-    (2, (1026, 120, 600), "n_fft % 128 == 0"),
-    (2, (2048, 638, 1200), "two signal spans"),
-    (1, (2048, 1298, 1200), "one signal span"),
-    (1, (2048, 2, 1200), "the adjoint's 600 hop shifts"),
+# the geometries past the loss kernels' old limits, which the Pallas
+# kernels always took (tests/test_torch_loss_limits.py holds the plain
+# versions against those in interpret mode): (batch, samples, n_fft, hop,
+# win, what the geometry takes)
+WIDENED = [
+    (2, 9_001, 64, 16, 64),        # DDSP's smallest scale: 64 zero columns
+    (2, 9_001, 1000, 125, 600),    # odd hop (16-bit loads), n_fft % 128
+    (2, 9_001, 1024, 121, 600),    # the first odd hop past the old limit
+    (3, 9_001, 1026, 120, 600),    # the first n_fft past it: 1152 columns
+    (2, 9_001, 129, 33, 100),      # odd n_fft (no Nyquist), odd hop
+    (2, 30_000, 1024, 700, 1024),  # loss_partials' spans in pieces
+    (2, 60_000, 2048, 1298, 1200),  # spectral_mag's span in pieces too
+    (2, 60_000, 2048, 1301, 1200),  # pieces at an odd hop
+    (2, 1_100, 2048, 2, 1200),     # 600 shifts in groups of 389
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nsig,geo,message", PAST_LIMITS)
-def test_past_a_limit_raises_before_any_launch(card, nsig, geo, message):
-    """Forward and backward refuse the geometry with the limit's
-    ``ValueError`` (spectral.check_card) and launch nothing."""
-    x, y = _waves(card, 9, shape=(2, 5_000))
-    n_frames = 1 + 5_000 // geo[1]
-    if nsig == 1:
-        g = torch.zeros((2, geo[0] // 2 + 1, n_frames), device=card)
-        calls = [lambda: cdm.spectral_mag_fwd(x, *geo),
-                 lambda: cdm.spectral_mag_bwd(x, g, *geo)]
+@pytest.mark.parametrize("kind", ["spectral_mag", "loss_partials"])
+@pytest.mark.parametrize("b,t,n_fft,hop,win", WIDENED)
+def test_widened_geometries_match_plain(card, kind, b, t, n_fft, hop, win):
+    """Forward and backward of both kernels at each geometry past an old
+    limit: one launch each, the plain version's values within the tests'
+    bounds, the same bits on a repeat."""
+    x, y = _waves(card, 9, shape=(b, t))
+    geo = sp.Geometry(b, t, n_fft, hop, win)
+    if kind == "spectral_mag":
+        g = torch.randn((b, geo.n_bins, geo.n_frames),
+                        generator=torch.Generator(card).manual_seed(7),
+                        device=card)
+        fwd = lambda: cdm.spectral_mag_fwd(x, n_fft, hop, win)  # noqa: E731
+        bwd = lambda: cdm.spectral_mag_bwd(x, g, n_fft, hop, win)  # noqa
+        want = cdm.spectral_mag_plain(x, n_fft, hop, win)
+        want_g = cdm.spectral_mag_bwd_plain(x, g, n_fft, hop, win)
         counts = lambda: (cdm.fwd_launches, cdm.bwd_launches)  # noqa: E731
     else:
-        g = torch.ones((2, 3), device=card)
-        calls = [lambda: cfl.loss_partials_fwd(x, y, *geo),
-                 lambda: cfl.loss_partials_bwd(x, y, g, *geo)]
+        g = torch.tensor([[0.7, 0.0, 1.3], [1.0, 2.0, -0.5],
+                          [0.0, 0.0, 1.0]], device=card)[:b]
+        fwd = lambda: cfl.loss_partials_fwd(x, y, n_fft, hop, win)  # noqa
+        bwd = lambda: cfl.loss_partials_bwd(x, y, g, n_fft, hop, win)  # noqa
+        want = cfl.loss_partials_plain(x, y, n_fft, hop, win)
+        want_g = cfl.loss_partials_bwd_plain(x, y, g, n_fft, hop, win)
         counts = lambda: (cfl.fwd_launches, cfl.bwd_launches)  # noqa: E731
     before = counts()
-    for call in calls:
-        with pytest.raises(ValueError, match=message):
-            call()
+    got = fwd()
+    dx = bwd()
     torch.cuda.synchronize()
-    assert counts() == before
+    assert counts() == (before[0] + 1, before[1] + 1)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    if kind == "spectral_mag":
+        torch.testing.assert_close(got, want, atol=2e-3, rtol=1e-3)
+    else:
+        torch.testing.assert_close(got, want, atol=0, rtol=1e-4)
+    assert dx.shape == (b, t) and bool(torch.isfinite(dx).all())
+    _close_grads(dx, want_g)
+    assert torch.equal(got, fwd()) and torch.equal(dx, bwd())
 
 
 @pytest.mark.cuda
 def test_shared_memory_mirror_matches_the_cuda_formulas(card):
-    """spectral.py's dft_smem / adj_smem, which check_card reads, give the
-    bytes the C++ launches ask for (svs_dft_smem, svs_adj_smem)."""
+    """spectral.py's dft_staging / adj_group / adj_smem, which check_card
+    reads, give the staging and the bytes the C++ launches take
+    (svs_dft_pieces, svs_dft_smem, svs_adj_group, svs_adj_smem)."""
     lib = build.load(cdm.KERNEL)
-    for fn in (lib.svs_dft_smem, lib.svs_adj_smem):
+    for fn in (lib.svs_dft_pieces, lib.svs_dft_smem, lib.svs_adj_group,
+               lib.svs_adj_smem):
         fn.restype = ctypes.c_int
-    for n_taps in (256, 640, 1216, 2048):
-        for hop in range(2, 1400, 2):
+    for n_taps in (64, 256, 640, 1216, 2048):
+        for hop in range(1, 1400):
             for nsig in (1, 2):
-                assert lib.svs_dft_smem(nsig, hop, n_taps) == sp.dft_smem(
-                    nsig, sp.dft_span(hop, n_taps)), (nsig, hop, n_taps)
+                how, smem = sp.dft_staging(nsig, hop, n_taps)
+                assert lib.svs_dft_pieces(nsig, hop, n_taps) == (
+                    how == "pieces"), (nsig, hop, n_taps)
+                assert lib.svs_dft_smem(nsig, hop, n_taps) == smem
+                assert smem <= sp.SMEM_LIMIT
     for width in (56, 64, 120, 240):
-        for k in range(1, 700):
-            assert lib.svs_adj_smem(width, k) == sp.adj_smem(width, k)
+        for k in range(1, 2100):
+            group = sp.adj_group(width, k)
+            assert lib.svs_adj_group(width, k) == group
+            assert lib.svs_adj_smem(width, k) == sp.adj_smem(width, group)
+            assert sp.adj_smem(width, group) <= sp.SMEM_LIMIT
 
 
 @pytest.mark.cuda

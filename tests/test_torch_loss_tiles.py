@@ -126,9 +126,10 @@ def test_train_shapes_fit_the_kernels_shared_memory():
     """The DFT GEMM stages one signal span (two for loss_partials) of
     (64 - 1)*hop + n_taps samples beside a 4-stage ring of 16 KB; the
     adjoint a ring of 4 shift tiles and three cotangent chunks of 128 rows:
-    all within the H100's 227 KB a block (spectral.check_card refuses a
-    geometry otherwise), by spectral.py's mirror of the C++ sizes, which
-    is held here against the sizes worked out by hand."""
+    all within the H100's 227 KB a block (other geometries stage their
+    frames in pieces or their shifts in groups), by spectral.py's mirror
+    of the C++ sizes, which is held here against the sizes worked out by
+    hand."""
     for n_fft, hop, win in [(1024, 120, 600), (2048, 240, 1200),
                             (512, 50, 240)]:
         geo = sp.Geometry(32, 97_536, n_fft, hop, win)

@@ -211,12 +211,24 @@ def test_separate_refuses_a_model_on_another_device(weights):
 
 
 def test_native_ckpt_is_refused(tmp_path, capsys):
+    """infer_cli once refused svs_tpu's native ``.ckpt``; the checkpoint
+    slice loads it (svs_torch.train.checkpoint.resume, weights only): a
+    written one separates, and a missing one fails with exit code 1."""
+    from svs_torch.train import checkpoint as tckpt
+    from svs_torch.train.step import create_train_state
+
     (tmp_path / "m").mkdir()
     rc = t_infer_cli.main(["--model_path", str(tmp_path / "x.ckpt"),
                            "--tar", str(tmp_path / "o"), "--mixture_folder",
                            str(tmp_path / "m"), "--device", "cpu"])
     assert rc == 1
-    assert "not yet ported" in capsys.readouterr().out
+    assert "Failed to load model" in capsys.readouterr().out
+    tckpt.save(str(tmp_path / "x.ckpt"),
+               create_train_state(0, get_config("default"), device="cpu"))
+    rc = t_infer_cli.main(["--model_path", str(tmp_path / "x.ckpt"),
+                           "--tar", str(tmp_path / "o"), "--mixture_folder",
+                           str(tmp_path / "m"), "--device", "cpu"])
+    assert rc == 0
 
 
 def test_entry_points_raise_without_gpu(monkeypatch, tmp_path):
@@ -249,8 +261,8 @@ def test_port_imports_neither_jax_nor_svs_tpu():
     files = [os.path.join(root, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(root, "svs_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    bad = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|ml_dtypes|svs_tpu)"
-                     r"\b", re.M)
+    bad = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|ml_dtypes|msgpack|"
+                     r"svs_tpu)\b", re.M)
     for path in files:
         with open(path) as f:
             assert not bad.search(f.read()), path
