@@ -67,7 +67,24 @@ Phases, each printing what it found on its own line:
              loss against ``matmul_bf16``'s), one epoch traced for the
              device's idle share, and one ``fine_tune`` step with remat
              against the same step without it;
-8. parity  — the U-Net at float32 on the card (cuDNN, TF32 off) against the
+8. scan    — ``fit(epoch_scan=True)`` (each epoch's full batches as replays
+             of one captured CUDA graph of the step) at the full ``default``
+             preset, B = 32, 35 patches a song (3 full steps and a ragged
+             tail an epoch), 3 epochs across a learning-rate drop, under
+             each of ``matmul_bf16``, ``pallas_bf16`` and ``pallas_fused``
+             with ``val_sdr``, against the eager fit: per-step losses and
+             parameters, captures, the loss kernels' wrapper counts (zeroed
+             just before, read just after) and their launches in the
+             replays (torch.profiler), the step's ms with and without the
+             graph (CUDA events) and the idle share of a graph epoch; then
+             a resume from a ``.ckpt``, ``accum_steps = 2``, augmentation
+             and SIGTERM (exit 143) under the scan;
+9. native  — the port's C++ loader: native batches bitwise equal to numpy's
+             and a ``train_cli`` epoch with ``'auto'`` resolved to native;
+10. eval   — ``eval_cli --impl torch`` (BSS eval in float64 on the card)
+             against ``--impl numpy`` on the slice's separated wavs, and
+             ``validation_sdr`` on the card, no fallback;
+11. parity — the U-Net at float32 on the card (cuDNN, TF32 off) against the
              same weights and input on the CPU, and one float32 ``fft``
              train step (B = 4, no dropout) on the card against the CPU.
 
@@ -83,6 +100,7 @@ script fails the same way.
 from __future__ import annotations
 
 import contextlib
+import csv
 import dataclasses
 import io
 import json
@@ -1007,6 +1025,419 @@ def fit_phase(torch, np, work: str):
     return dict(zip(names, launches))
 
 
+# scan: patches a song at B = 32 (3 songs, 105 patches: 3 full steps and a
+# ragged tail of 9 an epoch)
+SCAN_SAMPLES = 35
+# graph replay against the eager step, per-step losses: the same kernels on
+# the same inputs, only Adam's bias corrections rounded on the card (the
+# capturable form) instead of on the host
+SCAN_LOSS_RTOL = 1e-5
+# per step: (spectral_mag fwd, bwd, loss_partials fwd, bwd) wrapper calls
+LOSS_PER_STEP = {"matmul_bf16": (0, 0, 0, 0), "pallas_fused": (0, 0, 3, 3),
+                 "pallas_fused_wide": (0, 0, 3, 3),
+                 "pallas_bf16": (6, 3, 0, 0)}
+
+
+def _kernel_of(name: str):
+    """A loss kernel's profiler name -> (function, direction) or None:
+    ``spec::dft_wgmma<NSIG, EPI, FRAG>`` (NSIG 1 spectral_mag, 2
+    loss_partials; EPI 0/1 forward, 2/3 backward) and the backward's
+    ``spec::adjoint_wgmma``."""
+    if "spec::dft_wgmma<" in name:
+        nsig, epi = (int(v) for v in
+                     name.split("dft_wgmma<")[1].split(",")[:2])
+        fn = "spectral_mag" if nsig == 1 else "loss_partials"
+        return f"{fn}_{'fwd' if epi < 2 else 'bwd'}"
+    if "spec::adjoint_wgmma<" in name:
+        return "adjoint"
+    return None
+
+
+def _recording_fit(torch, opts, cfg):
+    """``loop.fit(opts, cfg)`` with every step's ``total`` recorded in
+    order (the eager steps', the scan's tail included, and each graph
+    epoch's loss vector); returns (state, losses, the epoch function and
+    its last arguments, or None)."""
+    from svs_torch.train import loop
+    from svs_torch.train import scan
+
+    totals, seen = [], {}
+    make_step, make_scan = loop.make_train_step, scan.make_epoch_scan
+
+    def step_factory(c):
+        step = make_step(c)
+
+        def run(state, batch, gen=None):
+            state, m = step(state, batch, gen)
+            totals.append(m["total"].reshape(1))
+            return state, m
+        return run
+
+    def scan_factory(*a, **k):
+        epoch = make_scan(*a, **k)
+        seen["epoch"] = epoch
+
+        def run(*args):
+            state, losses = epoch(*args)
+            seen["args"] = args
+            totals.append(losses)
+            return state, losses
+        return run
+
+    loop.make_train_step, scan.make_epoch_scan = step_factory, scan_factory
+    try:
+        state = loop.fit(opts, cfg)
+    finally:
+        loop.make_train_step, scan.make_epoch_scan = make_step, make_scan
+    losses = torch.cat(totals).cpu().numpy() if totals else None
+    return state, losses, seen
+
+
+def _param_envelope(torch, a, b, lr: float):
+    d = torch.cat([(p - q).abs().flatten().float() for p, q in
+                   zip(a.model.parameters(), b.model.parameters())])
+    return d.max().item(), d.mean().item(), 2.1 * lr
+
+
+def _graph_vs_eager(torch, np, label, eager, graphed, lr):
+    """Per-step losses and parameters of a graph run against the eager run
+    of the same fit; prints and checks; returns the largest relative
+    difference of a step's loss."""
+    (s_e, l_e, _), (s_g, l_g, _) = eager, graphed
+    check(l_e.shape == l_g.shape and np.isfinite(l_g).all(),
+          f"{label}: {l_e.shape} step losses either way, finite")
+    rel = float(np.max(np.abs(l_g - l_e) / np.abs(l_e)))
+    pmax, pmean, bound = _param_envelope(torch, s_e, s_g, lr)
+    print(f"{label}: {len(l_e)} step losses graph vs eager, max rel diff "
+          f"{rel:.3e} (bound {SCAN_LOSS_RTOL:g}); params max |d| "
+          f"{pmax:.3e} (bound {bound:.3e}), mean {pmean:.3e} (bound 2e-4)")
+    check(rel <= SCAN_LOSS_RTOL, f"{label}: step losses within "
+          f"{SCAN_LOSS_RTOL:g} relative of the eager run's")
+    check(s_e.step == s_g.step, f"{label}: the same step count")
+    check(pmax <= bound and pmean < 2e-4,
+          f"{label}: parameters within the envelope")
+    return rel
+
+
+def scan_phase(torch, np, work: str):
+    """``fit(epoch_scan=True)``, the whole epoch as replays of a captured
+    CUDA graph, against the eager fit under each loss path; returns the
+    loss kernels' wrapper counts of the graph fits under the kernel paths
+    (each zeroed just before and read just after), their replays' launches
+    from the profiler, and the phase's numbers."""
+    from svs_torch.data.device_data import gather_crops
+    from svs_torch.evaluation import bss_torch
+    from svs_torch.ops.cuda import diff_mag as cdm
+    from svs_torch.ops.cuda import fused_loss as cfl
+    from svs_torch.train import loop
+    from svs_torch.train import step as tstep
+    from svs_torch.utils.config import get_config
+
+    spec = os.path.join(work, "spec")
+    ckpt_dir, log_dir = os.path.join(work, "CKPT"), os.path.join(work, "LOG")
+    n_full = N_SONGS * SCAN_SAMPLES // TRAIN_B
+    check(n_full == 3 and N_SONGS * SCAN_SAMPLES % TRAIN_B,
+          "3 full steps and a ragged tail an epoch")
+
+    def opts(label, **kw):
+        base = dict(train_folder=spec, valid_folder=spec, label=label,
+                    epoch=3, batch_size=TRAIN_B, load_path="none",
+                    ckpt_dir=ckpt_dir, log_dir=log_dir, progress=False,
+                    device_data="on", val_interval=3, device="cuda")
+        base.update(kw)
+        return loop.TrainOptions(**base)
+
+    def config(impl, **kw):
+        return dataclasses.replace(get_config("default"), mr_mag_impl=impl,
+                                   samples_per_song=SCAN_SAMPLES,
+                                   lr_drop_epoch=1, **kw)
+
+    numbers, counts, replays = {}, {}, {}
+    lr = get_config("default").learning_rate
+    for impl in ("matmul_bf16", "pallas_bf16", "pallas_fused"):
+        cfg = config(impl)
+        t0 = time.perf_counter()
+        eager = _recording_fit(torch, opts(f"eager_{impl}"), cfg)
+        t1 = time.perf_counter()
+        cdm.reset_counts()
+        cfl.reset_counts()
+        graphed = _recording_fit(
+            torch, opts(f"scan_{impl}", epoch_scan=True, val_sdr=True), cfg)
+        t2 = time.perf_counter()
+        got = (cdm.fwd_launches, cdm.bwd_launches, cfl.fwd_launches,
+               cfl.bwd_launches)
+        epoch, args = graphed[2]["epoch"], graphed[2]["args"]
+        # wrapper calls: the warm-up step, two captures (the rate drops
+        # at epoch 1), three eager tails, and 4 validation batches' forward
+        per = LOSS_PER_STEP[impl]
+        want = (per[0] * 10, per[1] * 6, per[2] * 10, per[3] * 6)
+        print(f"scan {impl}: fit 3 epochs eager {t1 - t0:.2f} s, graph "
+              f"{t2 - t1:.2f} s (with val_sdr); captures {epoch.captures}; "
+              f"wrapper calls {list(got)} (want {list(want)})")
+        check(epoch.captures == 2, f"scan {impl}: captured at epoch 1 and "
+              "again after the learning-rate drop")
+        check(got == want, f"scan {impl}: wrapper calls {got} == {want}")
+        rel = _graph_vs_eager(torch, np, f"scan {impl}", eager, graphed, lr)
+        val = [json.loads(x) for x in _read_lines(
+            os.path.join(log_dir, f"metrics_scan_{impl}.jsonl"))][-1]
+        check(val.get("sdr_songs") == N_SONGS
+              and all(math.isfinite(val[f"vocal_{k}"])
+                      for k in ("sdr", "sir", "sar", "nsdr")),
+              f"scan {impl}: val_sdr wrote the vocal SDR fields {val}")
+        counts[impl] = got
+
+        # the step's time with the graph (replays of the last epoch's
+        # index matrices, 3 steps a call) and eager (gather and step), by
+        # CUDA events, and the device's busy share of one graph epoch
+        state, planes, songs, starts, gen = args[:5]
+        fn = lambda: epoch(state, planes, songs, starts, gen)  # noqa: E731
+        graph_ms = cuda_ms(torch, fn, reps=5, warmup=1) / n_full
+        ev = None
+        for _ in range(3):  # a trace can miss records (ROADMAP C)
+            ev = device_events(torch, fn)
+            seen = {}
+            for key, _, n in ev:
+                k = _kernel_of(key)
+                if k:
+                    seen[k] = seen.get(k, 0) + n
+            want_rep = {k: n_full * v for k, v in zip(
+                ("spectral_mag_fwd", "spectral_mag_bwd", "loss_partials_fwd",
+                 "loss_partials_bwd"), per) if v}
+            if any(per):
+                want_rep["adjoint"] = n_full * (per[1] + per[3])
+            if seen == want_rep:
+                break
+        busy = sum(ms for _, ms, _ in ev)
+        replays[impl] = seen
+        check(seen == want_rep, f"scan {impl}: the replays ran the loss "
+              f"kernels {seen} == {want_rep}")
+        step = tstep.make_train_step(cfg)
+        s_t = torch.as_tensor(songs[0], dtype=torch.int64, device="cuda")
+        st_t = torch.as_tensor(starts[0], dtype=torch.int64, device="cuda")
+        eager_ms = cuda_ms(torch, lambda: step(
+            state, gather_crops(planes, s_t, st_t, cfg.input_len), gen),
+            reps=6, warmup=2)
+        idle = 1.0 - busy / (graph_ms * n_full)
+        numbers[impl] = dict(graph_step_ms=graph_ms, eager_step_ms=eager_ms,
+                             graph_epoch_busy_ms=busy,
+                             graph_idle_share=idle, loss_rel_diff=rel,
+                             eager_fit_s=t1 - t0, graph_fit_s=t2 - t1)
+        print(f"scan {impl}: step ms graph {graph_ms:.3f}, eager "
+              f"{eager_ms:.3f} (CUDA events, B={TRAIN_B}); one graph epoch "
+              f"of {n_full} replays: device busy {busy:.3f} ms, idle share "
+              f"{idle:.3f}; replays' loss kernels {json.dumps(seen)}")
+        del eager, graphed, state, step
+
+    # what the capturable Adam changes: the eager fit with torch's host
+    # form (bias corrections in float64 on the host) against the same fit
+    # with the port's (on the card in float32); bf16 weights round each
+    # update, so the two drift apart (no bound: a measurement)
+    cfg = config("matmul_bf16")
+    capturable = _recording_fit(torch, opts("adam_card"), cfg)
+    build = tstep.AdamSpec.build
+    tstep.AdamSpec.build = lambda self, params: torch.optim.Adam(
+        params, lr=self.learning_rate)
+    try:
+        host = _recording_fit(torch, opts("adam_host"), cfg)
+    finally:
+        tstep.AdamSpec.build = build
+    rel = np.abs(host[1] - capturable[1]) / np.abs(capturable[1])
+    pmax, pmean, _ = _param_envelope(torch, host[0], capturable[0], lr)
+    print("scan: eager fit, torch's host-form Adam vs the capturable form, "
+          f"per-step loss rel diff {np.array2string(rel, precision=2)}; "
+          f"params max |d| {pmax:.3e}, mean {pmean:.3e}")
+    numbers["host_adam_loss_rel_diff"] = rel.tolist()
+    del capturable, host
+
+    # resume from a .ckpt under epoch_scan: two epochs, then a third from
+    # the checkpoint, against three uninterrupted; both start from one
+    # .ckpt (a resumed Adam takes the file's float32 betas)
+    from svs_torch.train import checkpoint as ckpt
+    cfg = config("matmul_bf16", dropout_rate=0.0)
+    init = os.path.join(ckpt_dir, "scan_init.ckpt")
+    ckpt.save(init, tstep.create_train_state(0, cfg, device="cuda"))
+    full = _recording_fit(torch, opts("full", epoch_scan=True,
+                                      load_path=init), cfg)
+    _recording_fit(torch, opts("half", epoch_scan=True, epoch=2,
+                               load_path=init), cfg)
+    resumed = _recording_fit(torch, opts(
+        "half", epoch_scan=True, load_path=os.path.join(
+            ckpt_dir, "svs_half.ckpt")), cfg)
+    tail = (full[0], full[1][-(n_full + 1):], None)
+    _graph_vs_eager(torch, np, "scan resume (epoch 3 from the .ckpt vs "
+                    "uninterrupted)", tail, resumed, lr)
+
+    # accumulation (one graph per cycle position) and augmentation
+    for label, kw in (("accum_steps=2", dict(accum_steps=2)),
+                      ("augment", dict(augment=True))):
+        cfg = config("matmul_bf16")
+        eager = _recording_fit(torch, opts(f"e_{label}", epoch=2, **kw), cfg)
+        graphed = _recording_fit(torch, opts(f"g_{label}", epoch=2,
+                                             epoch_scan=True, **kw), cfg)
+        _graph_vs_eager(torch, np, f"scan {label}", eager, graphed, lr)
+        if "accum_steps" in kw:
+            check(sorted(graphed[2]["epoch"].graphs) == [0, 1],
+                  "accum_steps=2: one graph per cycle position")
+        del eager, graphed
+
+    # SIGTERM under epoch_scan: served at the epoch's end, exit 143
+    import signal
+    from svs_torch.train import flax_msgpack
+    from svs_torch.train import scan
+    make_scan = scan.make_epoch_scan
+
+    def stopping(*a, **k):
+        epoch = make_scan(*a, **k)
+
+        def run(*args):
+            os.kill(os.getpid(), signal.SIGTERM)
+            return epoch(*args)
+        return run
+
+    scan.make_epoch_scan = stopping
+    code = None
+    try:
+        loop.fit(opts("stop", epoch_scan=True), config("matmul_bf16"))
+    except SystemExit as e:
+        code = e.code
+    finally:
+        scan.make_epoch_scan = make_scan
+    with open(os.path.join(ckpt_dir, "svs_stop.ckpt"), "rb") as f:
+        raw = flax_msgpack.unpackb(f.read())
+    print(f"scan SIGTERM: exit {code}, checkpoint at epoch {raw['epoch']}, "
+          f"step {raw['step']}")
+    check(code == 143 and (raw["epoch"], raw["step"]) == (1, n_full + 1),
+          "SIGTERM under epoch_scan: saved at the epoch's end, exit 143")
+    check(bss_torch.fallbacks == 0, "val_sdr: no BSS call fell back")
+    print("scan numbers: " + json.dumps(numbers))
+    names = ("spectral_mag_fwd", "spectral_mag_bwd", "loss_partials_fwd",
+             "loss_partials_bwd")
+    total = [sum(c[i] for c in counts.values()) for i in range(4)]
+    return dict(zip(names, total)), replays
+
+
+def native_phase(torch, np, work: str) -> dict:
+    """The port's C++ loader: native batches against numpy's, and a
+    ``train_cli`` epoch from the host pipeline with 'auto' resolved to it."""
+    from svs_torch.cli import train_cli
+    from svs_torch.data import native
+    from svs_torch.data.dataset import PatchDataset
+    from svs_torch.train import loop
+
+    spec = os.path.join(work, "spec")
+    seconds = {}
+    t0 = time.perf_counter()
+    check(native.available(), "the native library builds and loads")
+    seconds["build_s"] = time.perf_counter() - t0
+    check(os.path.dirname(native.SO_PATH).endswith(
+        os.path.join("svs_torch", "_build")), "built under svs_torch/_build")
+    nat = PatchDataset(spec, samples_per_song=FIT_SAMPLES, backend="native")
+    ref = PatchDataset(spec, samples_per_song=FIT_SAMPLES, backend="numpy")
+    n = 0
+    for a, b in zip(nat.batches(TRAIN_B, seed=3), ref.batches(TRAIN_B,
+                                                              seed=3)):
+        for k in a:
+            check(np.array_equal(a[k], b[k]),
+                  f"native batch {k} equals numpy's")
+        n += 1
+    backends = []
+    make = loop._dataset
+
+    def recording(folder, cfg):
+        ds = make(folder, cfg)
+        backends.append(ds.backend)
+        return ds
+
+    loop._dataset = recording
+    t0 = time.perf_counter()
+    try:
+        rc = train_cli.main([
+            "--label", "native", "--train_folder", spec, "--valid_folder",
+            "none", "--batch_size", str(TRAIN_B), "--samples_per_song",
+            str(FIT_SAMPLES), "--epoch", "1", "--device_data", "off",
+            "--load_path", "none", "--ckpt_dir", os.path.join(work, "CKPT"),
+            "--log_dir", os.path.join(work, "LOG"), "--device", "cuda"])
+    finally:
+        loop._dataset = make
+    seconds["train_cli_epoch_s"] = time.perf_counter() - t0
+    log = _read_lines(os.path.join(work, "LOG", "log_native.txt"))
+    print(f"native: {n} batches of {TRAIN_B} bitwise equal to numpy's; "
+          f"train_cli epoch on the host pipeline, backends {backends}, "
+          f"loss {log}; seconds {json.dumps(seconds)}")
+    check(rc == 0 and backends == ["native"] and math.isfinite(float(log[0])),
+          "train_cli ran an epoch with 'auto' resolved to native")
+    return seconds
+
+
+def eval_phase(torch, np, work: str) -> dict:
+    """``eval_cli --impl torch`` (f64 on the card) against ``--impl numpy``
+    on the slice's separated wavs, and ``validation_sdr`` on the card."""
+    import shutil
+
+    from svs_torch.cli import eval_cli
+    from svs_torch.evaluation import bss_torch
+    from svs_torch.evaluation.val_sdr import validation_sdr
+    from svs_torch.models.unet import UNet
+    from svs_torch.utils.config import get_config
+
+    mix, ref = os.path.join(work, "eval_mix"), os.path.join(work, "eval_ref")
+    for d in (mix, ref):
+        os.makedirs(d)
+    for i in range(N_SONGS):
+        song = os.path.join(work, "songs", f"song{i}")
+        shutil.copy(os.path.join(song, "mixture.wav"),
+                    os.path.join(mix, f"{i:04d}_song{i}.wav"))
+        shutil.copy(os.path.join(song, "vocals.wav"),
+                    os.path.join(ref, f"{i:04d}_song{i}.wav"))
+    seconds, tables = {}, {}
+    before = bss_torch.fallbacks
+    for impl in ("torch", "numpy"):
+        out = os.path.join(work, f"eval_{impl}.csv")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = eval_cli.main(["--est", os.path.join(work, "wav"), "--mix",
+                                mix, "--ref", ref, "--impl", impl,
+                                "--device", "cuda", "--out_csv", out])
+        seconds[f"eval_cli_{impl}_s"] = time.perf_counter() - t0
+        check(rc == 0, f"eval_cli --impl {impl} exit code 0")
+        with open(out) as f:
+            tables[impl] = {r["track"]: {k: float(r[k]) for k in
+                                         ("SDR", "SIR", "SAR", "NSDR")}
+                            for r in csv.DictReader(f)}
+    check(sorted(tables["torch"]) == sorted(tables["numpy"])
+          and len(tables["torch"]) == N_SONGS, "eval_cli scored every song")
+    diff = max(abs(tables["torch"][t][k] - v)
+               for t, m in tables["numpy"].items() for k, v in m.items())
+    vals = [v for m in tables["torch"].values() for v in m.values()]
+    print(f"eval: eval_cli --impl torch (f64 on the card) vs --impl numpy, "
+          f"{N_SONGS} songs of {SONG_SECONDS} s: max |d| {diff:.3e} dB "
+          f"(bound 1e-9); fallbacks {bss_torch.fallbacks - before}; "
+          f"song0 {json.dumps(tables['torch']['0000_song0'])}")
+    check(diff <= 1e-9 and all(math.isfinite(v) for v in vals),
+          "eval_cli on the card equals the numpy reference within 1e-9 dB")
+    check(bss_torch.fallbacks == before, "eval_cli: no BSS call fell back")
+
+    cfg = get_config("default")
+    model = UNet(cfg, generator=torch.Generator().manual_seed(0)).to("cuda")
+    spec = os.path.join(work, "spec")
+    out = {}
+    for impl in ("torch", "numpy"):
+        t0 = time.perf_counter()
+        out[impl] = validation_sdr(model, spec, cfg, impl=impl,
+                                   device="cuda")
+        seconds[f"validation_sdr_{impl}_s"] = time.perf_counter() - t0
+    d = max(abs(out["torch"][k] - out["numpy"][k])
+            for k in ("SDR", "SIR", "SAR", "NSDR"))
+    print(f"eval: validation_sdr of {N_SONGS} songs on the card, BSS on "
+          f"the card vs the host: max |d| {d:.3e} dB; seconds "
+          f"{json.dumps(seconds)}")
+    check(d <= 1e-9 and len(out["torch"]["per_song"]) == N_SONGS
+          and not out["torch"]["skipped"],
+          "validation_sdr: every song scored, card BSS equals the host's")
+    check(bss_torch.fallbacks == before, "validation_sdr: no fallback")
+    return seconds
+
+
 def step_parity_phase(torch, np, host_batch) -> None:
     """One float32 fft step (B = 4, no dropout) on the card, TF32 off,
     against the same weights and batch on the CPU."""
@@ -1402,15 +1833,32 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         fit_launches = fit_phase(torch, np, work)
         seconds["fit"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scan_launches, replays = scan_phase(torch, np, work)
+        seconds["scan"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native_phase(torch, np, work)
+        seconds["native"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eval_phase(torch, np, work)
+        seconds["eval"] = time.perf_counter() - t0
     print("train phase launches: " + json.dumps(train_launches))
-    # the loss kernels' launches on this slice's path: fit under the
-    # kernel loss paths
+    # the loss kernels' launches on the paths that run them: fit under the
+    # kernel loss paths (PR 7's), and fit with epoch_scan, where the
+    # wrappers run for the warm-up step, the captures and the eager tails
+    # and the profiler counts the replays' launches
     launches.update(fit_launches)
     launches["stft_magnitude"] = bench_launches["stft_magnitude"]
+    graph = {**replays["pallas_bf16"], **replays["pallas_fused"]}
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
         check(entry["launches"] > 0,
               f"{entry['name']} launched on its main path")
+        if entry["name"] in scan_launches:
+            entry["scan_launches"] = scan_launches[entry["name"]]
+            entry["replay_launches"] = graph[entry["name"]]
+            check(entry["scan_launches"] > 0 and entry["replay_launches"] > 0,
+                  f"{entry['name']} launched under epoch_scan")
 
     t0 = time.perf_counter()
     parity_phase(torch)

@@ -36,7 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch", type=int, default=32,
                    help="train-bench batch size (reference docs use 32)")
     p.add_argument("--dp-smoke", action="store_true",
-                   help="the multi-device dry run (not yet ported)")
+                   help="the multi-device dry run (not yet ported: "
+                        "ROADMAP A.10)")
     p.add_argument("--device", type=str, default="cuda",
                    help="device to bench on (default cuda; 'cpu' runs the "
                         "kernels' plain versions on the host)")
@@ -94,7 +95,7 @@ def main(argv=None) -> int:
         return _frontend_bench(args.secs, args.device)
     if args.dp_smoke:
         print("bench_cli --dp-smoke: the multi-device dry run waits for the "
-              "port's parallel layouts (ROADMAP A.14); nothing was run",
+              "port's parallel layouts (ROADMAP A.10); nothing was run",
               file=sys.stderr)
         return 2
     if args.train:

@@ -5,12 +5,13 @@ Flag surface preserved from reference train.py:157-167:
   --valid_folder --val_interval
 and svs_tpu's extensions (--preset --seed --export_pth --ckpt_dir --log_dir
 --samples_per_song --dtype --remat --save_every --async_save --device_data
---device_data_cap_mb --accum --augment --remix_p --aug_gain), plus
---device (default cuda; ``--device cpu`` runs on the host).  One device:
-the parallel and multi-host flags (--multihost --coordinator --num_hosts
---host_id --dp --cp --tp --pp --zero1 --fsdp) wait for ROADMAP A.10,
---epoch_scan for A.2 and --val_sdr for A.7; each exits 2 with a message
-that names its item.
+--device_data_cap_mb --accum --augment --remix_p --aug_gain --epoch_scan
+--val_sdr --val_sdr_songs), plus --device (default cuda; ``--device cpu``
+runs on the host).  ``--epoch_scan`` replays a captured CUDA graph of the
+step for each epoch's full batches (it needs the dataset on the device).
+One device: the parallel and multi-host flags (--multihost --coordinator
+--num_hosts --host_id --dp --cp --tp --pp --zero1 --fsdp) wait for ROADMAP
+A.10; each exits 2 with a message that names its item.
 
 Run as ``python -m svs_torch.cli.train_cli``.
 """
@@ -24,8 +25,7 @@ import dataclasses
 UNPORTED = {
     "multihost": "A.10", "coordinator": "A.10", "num_hosts": "A.10",
     "host_id": "A.10", "dp": "A.10", "cp": "A.10", "tp": "A.10",
-    "pp": "A.10", "zero1": "A.10", "fsdp": "A.10", "epoch_scan": "A.2",
-    "val_sdr": "A.7",
+    "pp": "A.10", "zero1": "A.10", "fsdp": "A.10",
 }
 
 
@@ -96,11 +96,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "--device_data_cap_mb)")
     p.add_argument("--device_data_cap_mb", type=float, default=2048.0)
     p.add_argument("--val_sdr", action="store_true",
-                   help="not ported (ROADMAP A.7)")
+                   help="also decode the validation songs and log vocal "
+                        "SDR/SIR/SAR/NSDR (BSS eval on the device in f64) "
+                        "at every validation")
     p.add_argument("--val_sdr_songs", type=int, default=None, metavar="N",
-                   help="with --val_sdr (not ported)")
+                   help="with --val_sdr: score only the first N songs")
     p.add_argument("--epoch_scan", action="store_true",
-                   help="not ported (ROADMAP A.2)")
+                   help="run each epoch's full batches as replays of one "
+                        "captured CUDA graph of the step (needs the dataset "
+                        "on the device, --device_data on/auto)")
     p.add_argument("--augment", action="store_true",
                    help="remix augmentation: random source gains + "
                         "cross-song vocal remixing, exact via STFT "
@@ -160,6 +164,9 @@ def main(argv=None) -> int:
         remix_p=args.remix_p,
         aug_gain_lo=args.aug_gain[0],
         aug_gain_hi=args.aug_gain[1],
+        epoch_scan=args.epoch_scan,
+        val_sdr=args.val_sdr,
+        val_sdr_songs=args.val_sdr_songs,
         device=args.device,
     )
     fit(opts, cfg)

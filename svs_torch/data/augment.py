@@ -149,6 +149,17 @@ class Augmenter:
         self._rng = np.random.default_rng(epoch_seed * 1_000_003 + 17)
         return self
 
+    def epoch_vectors(self, n_steps: int, n_rows: int
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The stacked ``(n_steps, n_rows)`` draws of a whole-epoch run
+        (:func:`draw_epoch`): the generator moves as ``n_steps`` full-batch
+        calls would move it, so a ragged tail's call afterwards continues
+        the same stream."""
+        if self._rng is None:
+            raise RuntimeError("call for_epoch(seed) first")
+        return draw_epoch(self._rng, n_steps, n_rows, self.remix_p,
+                          self.gain_lo, self.gain_hi)
+
     def __call__(self, batch, n_real: Optional[int] = None):
         """``n_real``: the count of non-pad rows, from the loop's own
         schedule (``None``: every row is real)."""

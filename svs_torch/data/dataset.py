@@ -14,9 +14,11 @@ copied, so both packages give bitwise-equal batches for one seed.
 - batches are single contiguous (B, 512, 128) numpy arrays
 - prefetching is one background thread and a queue
 - the RNG is one seeded generator (:meth:`PatchDataset.index_batches`)
-
-The C++ loader backend (``backend="native"``) is not yet ported;
-``"auto"`` means numpy.
+- ``backend="native"`` crops the magnitudes in the C++ runtime's threads
+  (:mod:`svs_torch.data.native`, the port's own build of
+  ``native/svs_native.cpp``) and slices the angles from the same per-song
+  cache, so its batches are numpy's bits; ``"auto"`` takes it when the
+  library builds and loads
 """
 
 from __future__ import annotations
@@ -42,8 +44,9 @@ class PatchDataset:
         drop_dc: bool = True,
         backend: str = "auto",
     ):
-        """backend: 'numpy' or 'auto' (numpy); the C++ loader ('native')
-        is not yet ported and raises."""
+        """backend: 'native' (the C++ threaded loader, which raises when
+        its library cannot be built or loaded), 'numpy', or 'auto' (native
+        when the library builds and loads, else numpy)."""
         self.path = path
         self.mixture_path = os.path.join(path, "mixture")
         self.vocal_path = os.path.join(path, "vocal")
@@ -51,13 +54,21 @@ class PatchDataset:
         self.input_len = input_len
         self.drop_dc = drop_dc
 
-        if backend == "native":
-            raise NotImplementedError(
-                "PatchDataset backend 'native' (the C++ loader) is not yet "
-                "ported; use 'numpy' or 'auto'")
-        if backend not in ("numpy", "auto"):
+        if backend not in ("native", "numpy", "auto"):
             raise ValueError(f"unknown backend {backend!r}")
-        self.backend = "numpy"
+        if backend != "numpy":
+            from svs_torch.data import native
+            if native.available():
+                backend = "native"
+            elif backend == "native":
+                raise RuntimeError(
+                    "PatchDataset backend 'native': the C++ loader could not "
+                    f"be built or loaded ({native.SRC_PATH} with g++ into "
+                    f"{native.BUILD_DIR}); use 'numpy' or 'auto'")
+            else:
+                backend = "numpy"
+        self.backend = backend
+        self._native_handles: Dict[str, tuple] = {}
 
         if not os.path.exists(self.mixture_path):
             raise FileNotFoundError(
@@ -151,6 +162,47 @@ class PatchDataset:
             voc_a = np.pad(voc_af, pad)
         return mix, voc, mix_a, voc_a
 
+    def _song_native(self, name: str):
+        """Two native handles a song, mixture and vocal magnitudes, opened
+        once (the phase planes never go through the native loader: angles
+        come from the shared cache, :meth:`_song_angles`)."""
+        if name not in self._native_handles:
+            from svs_torch.data import native
+            self._native_handles[name] = tuple(
+                native.NpyHandle(os.path.join(d, name))
+                for d in (self.mixture_path, self.vocal_path))
+        return self._native_handles[name]
+
+    def _angle_crop(self, angles: np.ndarray, start: int) -> np.ndarray:
+        """One cached angle plane cropped (or zero-padded) to ``input_len``
+        columns: :meth:`crop`'s two branches."""
+        seg = angles[:, start:start + self.input_len]
+        if seg.shape[1] < self.input_len:
+            seg = np.pad(seg, ((0, 0), (0, self.input_len - seg.shape[1])))
+        return seg
+
+    def _native_batch(self, idxs, starts) -> Dict[str, np.ndarray]:
+        """A batch through the C++ loader at the given crop offsets (from
+        :meth:`index_batches`): magnitudes cropped from the mmaps in C++
+        threads, angles sliced from the shared per-song cache (C++'s
+        ``atan2f`` differs from numpy's angle at the last ulp), so numpy,
+        native and device batches are the same bits."""
+        from svs_torch.data import native
+        names = [self.file_names[i % len(self.file_names)] for i in idxs]
+        handles = [self._song_native(n) for n in names]
+        rows = handles[0][0].rows - (1 if self.drop_dc else 0)
+        starts = np.asarray(starts, np.int64)
+        mix, voc = (native.fill_batch(
+            np.asarray([h[k].handle for h in handles]), None, starts,
+            drop_dc=self.drop_dc, out_len=self.input_len, rows=rows)[0]
+            for k in (0, 1))
+        angles = [self._song_angles(n) for n in names]
+        mix_a, voc_a = (np.stack([self._angle_crop(a[k], int(s))
+                                  for a, s in zip(angles, starts)])
+                        for k in (0, 1))
+        return {"mix": mix, "voc": voc, "mix_angle": mix_a,
+                "voc_angle": voc_a}
+
     def index_batches(
         self,
         batch_size: int,
@@ -222,10 +274,13 @@ class PatchDataset:
                 for idxs, starts in self.index_batches(
                         batch_size, shuffle=shuffle, seed=seed,
                         drop_last=drop_last, n_steps=n_steps):
-                    items = [self.crop(i, int(s))
-                             for i, s in zip(idxs, starts)]
-                    batch = {k: np.stack([it[j] for it in items])
-                             for j, k in enumerate(PLANE_KEYS)}
+                    if self.backend == "native":
+                        batch = self._native_batch(idxs, starts)
+                    else:
+                        items = [self.crop(i, int(s))
+                                 for i, s in zip(idxs, starts)]
+                        batch = {k: np.stack([it[j] for it in items])
+                                 for j, k in enumerate(PLANE_KEYS)}
                     q.put(batch)
                 q.put(None)
             except BaseException as e:  # surface in the consumer, don't

@@ -129,10 +129,13 @@ def song_to_spec(
             else:
                 y = np.pad(y, (0, len(y_mix) - len(y)))
             mag, phase = stft_magphase(y, win_size, hop_size, device=device)
-        mag = (mag / norm).astype(np.float32)
+        # C order, as svs_tpu writes them: the C++ loader (native/
+        # svs_native.cpp) maps only C-ordered .npy files
+        mag = np.ascontiguousarray(mag / norm, dtype=np.float32)
         base = f"{num2str(idx)}_{song_name}"
         np.save(os.path.join(tar, folder, f"{base}_spec.npy"), mag)
-        np.save(os.path.join(tar, folder, f"{base}_phase.npy"), phase)
+        np.save(os.path.join(tar, folder, f"{base}_phase.npy"),
+                np.ascontiguousarray(phase))
     return True
 
 

@@ -5,8 +5,9 @@ The reference delegates audio I/O to librosa/soundfile (reference
 data.py:78,166).  This is the port's own copy of svs_tpu's zero-dependency
 RIFF parser (PCM 16/24/32, IEEE float32/64, WAVE_FORMAT_EXTENSIBLE) and its
 scipy polyphase resampling (librosa.load's resample step, data.py:78,94).
-The C++ loader branch of svs_tpu's ``load_audio`` waits for the port's
-data-pipeline slice.
+``load_audio`` decodes through the C++ runtime when it is available
+(:mod:`svs_torch.data.native`: mmap and a native mixdown, held against this
+parser), else through the parser here.
 """
 
 from __future__ import annotations
@@ -164,10 +165,21 @@ def resample(y: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
 def load_audio(path: str, sr: Optional[int] = None, mono: bool = True
                ) -> Tuple[np.ndarray, int]:
     """librosa.load equivalent (reference data.py:78, evaluate.py:22):
-    read, optional mono mixdown, optional resample.  sr=None keeps native."""
-    y, file_sr = read_wav(path)
-    if mono:
-        y = to_mono(y)
+    read, optional mono mixdown, optional resample.  sr=None keeps native.
+
+    Decoding goes through the C++ runtime when it is available, else the
+    numpy parser (a file the C++ reader refuses takes the parser too)."""
+    y = None
+    try:
+        from svs_torch.data import native
+        if native.available():
+            y, file_sr = native.read_wav(path, mono=mono)
+    except Exception:
+        y = None
+    if y is None:
+        y, file_sr = read_wav(path)
+        if mono:
+            y = to_mono(y)
     if sr is not None and sr != file_sr:
         return resample(y, file_sr, sr), sr
     return y, file_sr

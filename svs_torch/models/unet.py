@@ -80,7 +80,10 @@ def batch_norm(
             batch_mean = (w * x32).sum(dim=axes) / n
             batch_var = (w * (x32 - batch_mean[None, :, None, None]) ** 2
                          ).sum(dim=axes) / n
-        n = torch.as_tensor(n, dtype=torch.float32, device=x.device)
+        if not isinstance(n, torch.Tensor):
+            # made on the device (a fill, not a host copy: a CUDA graph
+            # captures no pageable copy)
+            n = torch.full((), n, dtype=torch.float32, device=x.device)
         unbiased = batch_var * (n / torch.clamp(n - 1, min=1))
         new_mean = (1 - momentum) * mean + momentum * batch_mean
         new_var = (1 - momentum) * var + momentum * unbiased

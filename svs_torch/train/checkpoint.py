@@ -212,10 +212,14 @@ def _restore_opt(state: TrainState, opt: dict, path: str) -> None:
     set_learning_rate(state, float(str(np.float32(hyper["learning_rate"]))))
     optimizer.state.clear()
     named = dict(state.model.named_parameters())
+    # a capturable Adam (one a CUDA graph replays, train/scan.py) keeps its
+    # step count on the parameter's device; a plain one keeps it on the host
+    on_device = bool(group.get("capturable"))
     if count > 0:
         for name, p in named.items():
             optimizer.state[p] = {
-                "step": torch.tensor(float(count), dtype=torch.float32),
+                "step": torch.tensor(float(count), dtype=torch.float32,
+                                     device=p.device if on_device else None),
                 "exp_avg": torch.from_numpy(_get(tree_mu, name).copy()).to(
                     p.device, p.dtype),
                 "exp_avg_sq": torch.from_numpy(_get(tree_nu, name).copy()).to(

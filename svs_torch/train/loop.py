@@ -26,9 +26,14 @@ CUDA kernels ``pallas_fused`` / ``pallas_fused_wide`` (loss_partials) and
 ``pallas_bf16`` (spectral_mag) run here when ``fit`` is given such a
 config; the default stays ``matmul_bf16``.
 
+``epoch_scan`` runs each epoch's full batches as replays of one captured
+CUDA graph of the step (:mod:`svs_torch.train.scan`; eager on the CPU),
+then the ragged tail through the eager step; it needs the dataset on the
+device.  ``val_sdr`` scores the validation songs' separated vocals with
+BSS eval after each validation (:mod:`svs_torch.evaluation.val_sdr`).
+
 Not ported yet, and refused with ``NotImplementedError``: a mesh and every
-parallel layout (ROADMAP A.10), the whole-epoch ``epoch_scan`` (A.2, a
-CUDA-graph capture) and ``val_sdr`` (A.7).
+parallel layout (ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -81,7 +86,7 @@ class TrainOptions:
     # (data/device_data.py): "auto" when it fits device_data_cap_mb
     device_data: str = "auto"  # "auto" | "on" | "off"
     device_data_cap_mb: float = 2048.0
-    epoch_scan: bool = False   # ROADMAP A.2 (a CUDA graph of the epoch)
+    epoch_scan: bool = False   # the epoch as replays of a CUDA graph
     mesh: Optional[object] = None  # ROADMAP A.10
     parallel: str = "dp"       # only "dp" without a mesh: one device
     pp_micro: int = 4
@@ -91,7 +96,7 @@ class TrainOptions:
     # gradient accumulation: one Adam update every accum_steps microbatches
     # with their mean gradient; resume with the same value
     accum_steps: int = 1
-    val_sdr: bool = False      # ROADMAP A.7
+    val_sdr: bool = False      # vocal SDR at each validation
     val_sdr_songs: Optional[int] = None
     # remix augmentation (data/augment.py), off by default
     augment: bool = False
@@ -115,10 +120,6 @@ def _refuse_unported(opts: TrainOptions) -> None:
     if (torch.distributed.is_available() and torch.distributed.is_initialized()
             and torch.distributed.get_world_size() > 1):
         no("multi-process training", "A.10")
-    if opts.epoch_scan:
-        no("epoch_scan (the whole epoch as one CUDA graph)", "A.2")
-    if opts.val_sdr:
-        no("val_sdr (vocal SDR at each validation)", "A.7")
 
 
 def _dataset(folder: str, cfg: SVSConfig) -> PatchDataset:
@@ -166,6 +167,17 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
         if isinstance(train_ds, dd.DeviceDataset):
             print(f"[svs-torch] device-resident dataset: "
                   f"{train_ds.nbytes / 2**20:.0f} MiB on {dev}")
+
+    epoch_fn = None
+    if opts.epoch_scan:
+        if not isinstance(train_ds, dd.DeviceDataset):
+            raise ValueError(
+                "epoch_scan requires the device-resident dataset on a "
+                "single-process run, mesh-free or plain-DP mesh "
+                "(device_data='on'/'auto' with the dataset under the HBM "
+                "cap; not cp/tp/zero1/fsdp)")
+        from svs_torch.train.scan import make_epoch_scan
+        epoch_fn = make_epoch_scan(cfg, augment=opts.augment)
 
     optimizer = make_optimizer(cfg, accum_steps=opts.accum_steps)
     state = create_train_state(opts.seed, cfg, optimizer, device=dev)
@@ -250,24 +262,53 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
                 augmenter.for_epoch(epoch_seed)
             n_items = len(train_ds)
             every = max(1, n_steps // 10)
-            for i, batch in enumerate(train_ds.batches(
-                    opts.batch_size, shuffle=True, seed=epoch_seed)):
-                b = _on_device(batch, dev)
+            if epoch_fn is not None:
+                # the full batches as graph replays, the ragged tail through
+                # the eager step: the index stream and generator order of
+                # the per-step loop below
+                songs_a, starts_a, tail = dd.epoch_index_arrays(
+                    train_ds.host, opts.batch_size, shuffle=True,
+                    seed=epoch_seed)
+                aug_args = ()
                 if augmenter is not None:
-                    b = augmenter(b, n_real=min(opts.batch_size,
-                                                n_items - i * opts.batch_size))
-                state, aux = train_step(state, b, gen)
-                losses.append(aux["total"])  # stays on the device
-                if opts.progress and ((i + 1) % every == 0
-                                      or i + 1 == n_steps):
+                    aug_args = augmenter.epoch_vectors(len(songs_a),
+                                                       opts.batch_size)
+                if len(songs_a):
+                    state, loss_vec = epoch_fn(state, train_ds.planes,
+                                               songs_a, starts_a, gen,
+                                               *aug_args)
+                    losses.append(loss_vec)
+                if tail is not None:
+                    b = train_ds.gather(tail[0], tail[1])
+                    if augmenter is not None:
+                        b = augmenter(b, n_real=len(tail[0]))
+                    state, aux = train_step(state, b, gen)
+                    losses.append(aux["total"].reshape(1))
+                if opts.progress:
                     print(f"Epoch {ep + 1}/{opts.epoch} [Train] "
-                          f"{i + 1}/{n_steps}", flush=True)
-                if stop_requested:
-                    # mid-epoch: epoch=ep, so resume re-runs this epoch
-                    _preempt_exit(ep)
+                          f"{n_steps}/{n_steps}", flush=True)
+                # a stop request is served at the epoch's end, below
+            else:
+                batches = train_ds.batches(opts.batch_size, shuffle=True,
+                                           seed=epoch_seed)
+                for i, batch in enumerate(batches):
+                    b = _on_device(batch, dev)
+                    if augmenter is not None:
+                        b = augmenter(b, n_real=min(
+                            opts.batch_size, n_items - i * opts.batch_size))
+                    state, aux = train_step(state, b, gen)
+                    losses.append(aux["total"])  # stays on the device
+                    if opts.progress and ((i + 1) % every == 0
+                                          or i + 1 == n_steps):
+                        print(f"Epoch {ep + 1}/{opts.epoch} [Train] "
+                              f"{i + 1}/{n_steps}", flush=True)
+                    if stop_requested:
+                        # mid-epoch: epoch=ep, so resume re-runs this epoch
+                        _preempt_exit(ep)
 
             # one fetch for the epoch's losses
-            values = (torch.stack(losses).cpu().tolist() if losses else [])
+            values = (torch.cat([x.reshape(-1) for x in losses]).cpu()
+                      .tolist() if losses else [])
             avg_train_loss = (float(np.mean(values)) if values
                               else float("nan"))
             log_buffer.append(f"{avg_train_loss}\n")
@@ -300,9 +341,25 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
                     if opts.export_pth:
                         export_ckpt(best_weight[:-5] + ".pth", state,
                                     epoch=ep + 1)
+                val_record = {"epoch": ep + 1, "val_loss": avg_val_loss}
+                if opts.val_sdr:
+                    # after the best-checkpoint decision, so the scoring
+                    # never moves the loss-based contract; a song that
+                    # fails is skipped inside validation_sdr
+                    from svs_torch.evaluation.val_sdr import validation_sdr
+                    sdr = validation_sdr(state.model, opts.valid_folder, cfg,
+                                         max_songs=opts.val_sdr_songs,
+                                         device=dev)
+                    for k in ("SDR", "SIR", "SAR", "NSDR"):
+                        val_record[f"vocal_{k.lower()}"] = sdr[k]
+                    val_record["sdr_songs"] = len(sdr["per_song"])
+                    if sdr["SDR"] is not None:
+                        print(f"[Epoch {ep + 1}] Val vocal SDR "
+                              f"{sdr['SDR']:.3f} dB | NSDR "
+                              f"{sdr['NSDR']:.3f} dB "
+                              f"({len(sdr['per_song'])} songs)")
                 with open(metrics_file, "a") as f:
-                    f.write(json.dumps({"epoch": ep + 1,
-                                        "val_loss": avg_val_loss}) + "\n")
+                    f.write(json.dumps(val_record) + "\n")
                 _flush_log()
             else:
                 print(f"Epoch {ep + 1} Avg Loss: {avg_train_loss:.4e}")

@@ -40,8 +40,15 @@ class AdamSpec:
     accum_steps: int = 1
 
     def build(self, params) -> torch.optim.Adam:
+        """torch's Adam; on a CUDA device its capturable form, which keeps
+        the step counts on the card and takes the bias corrections there in
+        float32 (as optax does on its device), so that a step replayed from
+        a CUDA graph (``train/scan.py``) and the eager step are the same
+        bits.  On the CPU, which has no capturable form, the host form."""
+        params = list(params)
         # betas (0.9, 0.999) and eps 1e-8 are torch's defaults, and optax's
-        return torch.optim.Adam(params, lr=self.learning_rate)
+        return torch.optim.Adam(params, lr=self.learning_rate,
+                                capturable=bool(params) and params[0].is_cuda)
 
 
 @dataclasses.dataclass
@@ -142,21 +149,32 @@ def make_step_fn(cfg: Optional[SVSConfig] = None):
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        model = state.model.train()
-        weight = batch.get("weight")
-        params = list(model.parameters())
-        mask = model(batch["mix"], weight=weight, generator=generator)
-        total, aux = combined_loss(mask, batch["mix"], batch["voc"],
-                                   batch["mix_angle"], batch["voc_angle"],
-                                   cfg, weight=weight)
-        grads = torch.autograd.grad(total, params)
-        metrics = {k: v.detach() for k, v in aux.items()}
-        metrics["grad_norm"] = global_norm(grads)
-        _apply(state, list(grads))
+        grads, metrics = loss_and_grads(cfg, state, batch, generator)
+        _apply(state, grads)
         state.step += 1
         return state, metrics
 
     return step
+
+
+def loss_and_grads(cfg: SVSConfig, state: TrainState,
+                   batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None
+                   ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
+    """The step before its optimiser call: the train-mode forward (BN
+    running statistics updated in place), the combined loss and the
+    parameters' gradients, with the step's metrics."""
+    model = state.model.train()
+    weight = batch.get("weight")
+    params = list(model.parameters())
+    mask = model(batch["mix"], weight=weight, generator=generator)
+    total, aux = combined_loss(mask, batch["mix"], batch["voc"],
+                               batch["mix_angle"], batch["voc_angle"],
+                               cfg, weight=weight)
+    grads = torch.autograd.grad(total, params)
+    metrics = {k: v.detach() for k, v in aux.items()}
+    metrics["grad_norm"] = global_norm(grads)
+    return list(grads), metrics
 
 
 def make_train_step(cfg: Optional[SVSConfig] = None):

@@ -245,17 +245,15 @@ def train_epoch_bench(cfg=None, batch_size: int = 32, n_songs: int = 4,
 
     ``device_resident=True`` benches the device-resident dataset instead
     (data/device_data.py: dataset on the card, crops gathered there); its
-    fields get a ``_device`` suffix.  ``epoch_scan`` (a whole epoch as one
-    captured program) is not yet ported and raises."""
+    fields get a ``_device`` suffix.  ``epoch_scan=True`` (implies
+    ``device_resident``) benches the whole epoch as replays of one captured
+    CUDA graph of the step (train/scan.py; eager on the CPU), the ragged
+    tail through the eager step; its fields get a ``_scan`` suffix."""
     from svs_torch.data.dataset import PatchDataset
     from svs_torch.train.step import (batch_to_device, create_train_state,
                                       make_train_step)
     from svs_torch.utils.config import get_config
 
-    if epoch_scan:
-        raise NotImplementedError(
-            "train_epoch_bench(epoch_scan=True) is not yet ported (the "
-            "whole-epoch program comes with the training loop)")
     dev = resolve_device(device)
     cfg = cfg or get_config("default")
     rng = np.random.default_rng(seed)
@@ -275,30 +273,51 @@ def train_epoch_bench(cfg=None, batch_size: int = 32, n_songs: int = 4,
 
         ds = PatchDataset(work, samples_per_song=cfg.samples_per_song,
                           input_len=cfg.input_len)
-        if device_resident:
+        if device_resident or epoch_scan:
             from svs_torch.data.device_data import DeviceDataset
             ds = DeviceDataset(ds, device=dev)
         state = create_train_state(0, cfg, device=dev)
         step = make_train_step(cfg)
         gen = torch.Generator(dev).manual_seed(1)
 
-        def run_epoch(ep):
-            nonlocal state
-            aux = None
-            for batch in ds.batches(batch_size, shuffle=True,
-                                    seed=seed * 7 + ep):
-                if not device_resident:
-                    batch = batch_to_device(batch, dev)
-                state, aux = step(state, batch, gen)
-            # the losses are read once per epoch, as a training loop does
-            fetch_barrier(aux["total"])
+        if epoch_scan:
+            from svs_torch.data.device_data import epoch_index_arrays
+            from svs_torch.train.scan import make_epoch_scan
+            epoch_fn = make_epoch_scan(cfg)
+
+            def run_epoch(ep):
+                nonlocal state
+                songs, starts, tail = epoch_index_arrays(
+                    ds.host, batch_size, shuffle=True, seed=seed * 7 + ep)
+                barrier = None
+                if len(songs):
+                    state, losses = epoch_fn(state, ds.planes, songs, starts,
+                                             gen)
+                    barrier = losses[-1]
+                if tail is not None:
+                    state, aux = step(state, ds.gather(*tail), gen)
+                    barrier = aux["total"]
+                if barrier is not None:
+                    fetch_barrier(barrier)
+        else:
+            def run_epoch(ep):
+                nonlocal state
+                aux = None
+                for batch in ds.batches(batch_size, shuffle=True,
+                                        seed=seed * 7 + ep):
+                    if not device_resident:
+                        batch = batch_to_device(batch, dev)
+                    state, aux = step(state, batch, gen)
+                # the losses are read once per epoch, as a training loop does
+                fetch_barrier(aux["total"])
 
         run_epoch(0)  # warm-up (cuDNN and cuBLAS set-up)
         t0 = time.perf_counter()
         for ep in range(1, epochs + 1):
             run_epoch(ep)
         secs = (time.perf_counter() - t0) / epochs
-        sfx = "_device" if device_resident else ""
+        sfx = ("_scan" if epoch_scan
+               else "_device" if device_resident else "")
         return {
             f"train_epoch{sfx}_secs": round(secs, 2),
             f"train_epoch{sfx}_patches": len(ds),
@@ -400,4 +419,6 @@ def run_bench(secs: float = 240.0, reps: int = 8, seed: int = 0,
                                             device=dev))
         except Exception as e:
             result["train_epoch_device_bench_error"] = repr(e)
+        # the epoch_scan variant stays out of the default line, as in
+        # svs_tpu's; train_epoch_bench(epoch_scan=True) reaches it
     return result

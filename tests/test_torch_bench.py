@@ -66,8 +66,16 @@ def test_train_epoch_bench_fields(resident):
 
 
 def test_epoch_scan_is_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        bm.train_epoch_bench(NARROW, epoch_scan=True, device="cpu")
+    """The whole-epoch variant has come (train/scan.py, eager on the CPU):
+    svs_tpu's ``_scan`` fields, 3 full steps of 2 and a tail a epoch."""
+    out = bm.train_epoch_bench(NARROW, batch_size=3, n_songs=2,
+                               song_frames=150, epochs=1, epoch_scan=True,
+                               device="cpu")
+    assert sorted(out) == ["train_epoch_scan_patches",
+                           "train_epoch_scan_secs",
+                           "train_patches_per_sec_scan"]
+    assert out["train_epoch_scan_patches"] == 8
+    assert out["train_patches_per_sec_scan"] > 0
 
 
 def test_run_bench_line(monkeypatch):

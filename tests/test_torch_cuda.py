@@ -419,3 +419,167 @@ def test_perfect_prediction_has_a_finite_zero_safe_gradient(card):
     x.requires_grad_()
     cfl.stft_loss_fused(x, x.detach(), 1024, 120, 600).backward()
     assert torch.isfinite(x.grad).all()
+
+
+# ---------------------------------------------------------------- epoch_scan
+# The whole-epoch training of train/scan.py: a captured CUDA graph of the
+# step, replayed, against the eager step on the same card.  Both run the
+# same kernels and the same (capturable) Adam, and the bf16 step is
+# deterministic on the H100, so they agree to the bit there; the bounds
+# are the acceptance's: the per-step losses within 1e-5 relative and the
+# parameters within __graft_entry__.py's envelope (max |d| <= 2.1 lr, mean
+# |d| < 2e-4).
+
+SCAN_B, SCAN_STEPS = 4, 4
+
+
+def _scan_setup(card, impl, dropout=0.5, accum=1):
+    import dataclasses
+
+    from svs_torch.train import step as tstep
+    from svs_torch.utils.config import get_config
+
+    cfg = dataclasses.replace(get_config("default"), mr_mag_impl=impl,
+                              dropout_rate=dropout)
+    gen = torch.Generator().manual_seed(5)
+    planes = {k: torch.rand((2, 512, 300), generator=gen).to(card)
+              for k in ("mix", "voc", "mix_angle", "voc_angle")}
+    rng = np.random.default_rng(0)
+    songs = rng.integers(0, 2, (SCAN_STEPS, SCAN_B)).astype(np.int32)
+    starts = rng.integers(0, 300 - 128, (SCAN_STEPS, SCAN_B)).astype(np.int32)
+    opt = tstep.make_optimizer(cfg, accum)
+    return cfg, planes, songs, starts, [
+        tstep.create_train_state(0, cfg, opt, device=card) for _ in range(2)]
+
+
+def _eager_epoch(cfg, state, planes, songs, starts, gen):
+    from svs_torch.data.device_data import gather_crops
+    from svs_torch.train import step as tstep
+    step = tstep.make_step_fn(cfg)
+    losses = []
+    dev = planes["mix"].device
+    for s, st in zip(songs, starts):
+        batch = gather_crops(
+            planes, torch.as_tensor(s, dtype=torch.int64, device=dev),
+            torch.as_tensor(st, dtype=torch.int64, device=dev), cfg.input_len)
+        state, m = step(state, batch, gen)
+        losses.append(m["total"])
+    return torch.stack(losses)
+
+
+def _close_states(a, b, lr):
+    d = torch.cat([(p - q).abs().flatten() for p, q in
+                   zip(a.model.parameters(), b.model.parameters())])
+    assert d.max().item() <= 2.1 * lr and d.mean().item() < 2e-4, (
+        d.max().item(), d.mean().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["matmul_bf16", "pallas_bf16",
+                                  "pallas_fused"])
+def test_graph_replay_matches_the_eager_step(card, impl):
+    from svs_torch.train import scan as tscan
+    cfg, planes, songs, starts, (eager, graphed) = _scan_setup(card, impl)
+    want = _eager_epoch(cfg, eager, planes, songs, starts,
+                        torch.Generator(card).manual_seed(1))
+    epoch = tscan.make_epoch_scan(cfg)
+    cdm.reset_counts()
+    cfl.reset_counts()
+    graphed, got = epoch(graphed, planes, songs, starts,
+                         torch.Generator(card).manual_seed(1))
+    assert graphed.step == eager.step == SCAN_STEPS
+    assert epoch.captures == 1 and len(epoch.graphs) == 1
+    # the wrappers run for the eager warm-up step and once in the capture
+    per_step = {"matmul_bf16": (0, 0, 0, 0), "pallas_bf16": (6, 3, 0, 0),
+                "pallas_fused": (0, 0, 3, 3)}[impl]
+    assert (cdm.fwd_launches, cdm.bwd_launches, cfl.fwd_launches,
+            cfl.bwd_launches) == tuple(2 * n for n in per_step)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    _close_states(eager, graphed, cfg.learning_rate)
+
+
+@pytest.mark.cuda
+def test_replays_draw_the_eager_steps_dropout_masks(card):
+    """A generator registered with the graph: each replay draws fresh
+    masks, the same the eager draws take from the same generator state."""
+    from svs_torch.models.unet import dropout_keep
+    shape = (8, 64, 32, 16)
+    eager_gen = torch.Generator(card).manual_seed(7)
+    want = [dropout_keep(shape, 0.5, card, eager_gen) for _ in range(3)]
+    gen = torch.Generator(card).manual_seed(7)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        out = dropout_keep(shape, 0.5, card, gen)
+    got = []
+    for _ in range(3):
+        graph.replay()
+        got.append(out.clone())
+    assert not torch.equal(got[0], got[1])
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert gen.get_offset() == eager_gen.get_offset()
+
+
+@pytest.mark.cuda
+def test_graph_is_captured_again_after_a_learning_rate_change(card):
+    from svs_torch.train import scan as tscan
+    from svs_torch.train import step as tstep
+    cfg, planes, songs, starts, (eager, graphed) = _scan_setup(
+        card, "pallas_fused", dropout=0.0)
+    epoch = tscan.make_epoch_scan(cfg)
+    eg, gg = (torch.Generator(card).manual_seed(1) for _ in range(2))
+    want, got = [], []
+    for lr in (cfg.learning_rate, cfg.lr_after_drop):
+        tstep.set_learning_rate(eager, lr)
+        tstep.set_learning_rate(graphed, lr)
+        want.append(_eager_epoch(cfg, eager, planes, songs, starts, eg))
+        graphed, losses = epoch(graphed, planes, songs, starts, gg)
+        got.append(losses)
+    assert epoch.captures == 2
+    torch.testing.assert_close(torch.cat(got), torch.cat(want), rtol=1e-5,
+                               atol=0)
+    _close_states(eager, graphed, cfg.learning_rate)
+
+
+@pytest.mark.cuda
+def test_accumulation_graphs_match_the_eager_cycle(card):
+    """accum_steps = 2: one graph per cycle position on static buffers."""
+    from svs_torch.train import scan as tscan
+    cfg, planes, songs, starts, (eager, graphed) = _scan_setup(
+        card, "matmul_bf16", accum=2)
+    want = _eager_epoch(cfg, eager, planes, songs, starts,
+                        torch.Generator(card).manual_seed(1))
+    epoch = tscan.make_epoch_scan(cfg)
+    graphed, got = epoch(graphed, planes, songs, starts,
+                         torch.Generator(card).manual_seed(1))
+    assert sorted(epoch.graphs) == [0, 1]
+    assert graphed.mini_step == eager.mini_step == 0
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    _close_states(eager, graphed, cfg.learning_rate)
+
+
+@pytest.mark.cuda
+def test_capturable_adam_checkpoint_round_trip(card, tmp_path):
+    """A checkpoint of a graph-trained state loads into a capturable Adam
+    with its step counts on the card, writes back the same bytes, and the
+    loaded state trains on under the graph."""
+    from svs_torch.train import checkpoint as ckpt
+    from svs_torch.train import scan as tscan
+    cfg, planes, songs, starts, (first, second) = _scan_setup(
+        card, "pallas_bf16", dropout=0.0)
+    first, _ = tscan.make_epoch_scan(cfg)(
+        first, planes, songs, starts, torch.Generator(card).manual_seed(1))
+    path = str(tmp_path / "a.ckpt")
+    ckpt.save(path, first, epoch=1)
+    assert second.optimizer.param_groups[0]["capturable"]
+    ckpt.load(path, second)
+    steps = {st["step"].device.type for st in second.optimizer.state.values()}
+    assert steps == {"cuda"}
+    again = str(tmp_path / "b.ckpt")
+    ckpt.save(again, second, epoch=1)
+    with open(path, "rb") as f, open(again, "rb") as g:
+        assert f.read() == g.read()
+    second, losses = tscan.make_epoch_scan(cfg)(
+        second, planes, songs, starts, torch.Generator(card).manual_seed(2))
+    assert second.step == 2 * SCAN_STEPS and torch.isfinite(losses).all()

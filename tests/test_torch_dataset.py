@@ -73,9 +73,20 @@ def test_index_stream_and_sample_match(spec_dir):
 
 
 def test_native_backend_is_not_ported(spec_dir):
-    assert tds.PatchDataset(spec_dir, backend="auto").backend == "numpy"
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tds.PatchDataset(spec_dir, backend="native")
+    """The C++ loader backend has come (svs_torch/data/native.py): 'auto'
+    takes it where it builds, as svs_tpu's does, and its batches are the
+    numpy backend's bits (tests/test_torch_native.py holds it further)."""
+    from svs_torch.data import native
+    want = "native" if native.available() else "numpy"
+    assert tds.PatchDataset(spec_dir, backend="auto").backend == want
+    if native.available():
+        nat = tds.PatchDataset(spec_dir, samples_per_song=4,
+                               backend="native")
+        ref = tds.PatchDataset(spec_dir, samples_per_song=4,
+                               backend="numpy")
+        for a, b in zip(nat.batches(3, seed=2), ref.batches(3, seed=2)):
+            for k in tds.PLANE_KEYS:
+                np.testing.assert_array_equal(a[k], b[k])
     with pytest.raises(FileNotFoundError):
         tds.PatchDataset(os.path.join(spec_dir, "missing"))
 
@@ -87,5 +98,6 @@ def test_producer_errors_reach_the_consumer(spec_dir, monkeypatch):
         raise OSError("disk gone")
 
     monkeypatch.setattr(ds, "crop", boom)
+    monkeypatch.setattr(ds, "_native_batch", boom)  # 'auto' may be native
     with pytest.raises(OSError, match="disk gone"):
         list(ds.batches(2, seed=0))

@@ -217,8 +217,8 @@ def test_sigterm_saves_exits_143_and_resumes(data, tmp_path):
 
 def test_fit_refuses_what_is_not_ported(data, tmp_path):
     songs, init = data
-    for kw, item in ((dict(epoch_scan=True), "A.2"),
-                     (dict(val_sdr=True), "A.7"),
+    for kw, item in ((dict(fsdp=True), "A.10"),
+                     (dict(device_put=lambda b: b), "A.10"),
                      (dict(zero1=True), "A.10"),
                      (dict(parallel="cp"), "A.10"),
                      (dict(mesh=object()), "A.10")):
@@ -251,7 +251,7 @@ def test_train_cli_runs_an_epoch_on_the_cpu(data, tmp_path):
     (["--multihost"], "A.10"), (["--coordinator", "h:1"], "A.10"),
     (["--dp"], "A.10"), (["--cp"], "A.10"), (["--tp", "2"], "A.10"),
     (["--pp"], "A.10"), (["--zero1"], "A.10"), (["--fsdp"], "A.10"),
-    (["--epoch_scan"], "A.2"), (["--val_sdr"], "A.7")])
+    (["--num_hosts", "2"], "A.10"), (["--host_id", "1"], "A.10")])
 def test_train_cli_unported_flags_exit_2(flag, item, capsys):
     with pytest.raises(SystemExit) as err:
         train_cli.main(["--label", "x", "--device", "cpu", *flag])
