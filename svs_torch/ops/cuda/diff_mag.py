@@ -50,14 +50,18 @@ from svs_torch.ops.cuda import spectral as sp
 KERNEL = "diff_mag"
 
 # launches of the CUDA kernels (plain-version calls are not counted); one
-# backward is the gradient-spectrum and adjoint launches together
+# backward is the gradient-spectrum and adjoint launches together.  A call
+# made while a CUDA graph captures the stream launches nothing (the graph
+# records the launch and each replay runs it): it counts as captured
 fwd_launches = 0
 bwd_launches = 0
+fwd_captured = 0
+bwd_captured = 0
 
 
 def reset_counts() -> None:
-    global fwd_launches, bwd_launches
-    fwd_launches = bwd_launches = 0
+    global fwd_launches, bwd_launches, fwd_captured, bwd_captured
+    fwd_launches = bwd_launches = fwd_captured = bwd_captured = 0
 
 
 # ---------------------------------------------------------------- plain
@@ -109,7 +113,7 @@ def _raise_on(rc: int, what: str) -> None:
 
 
 def _launch_fwd(x: torch.Tensor, geo: sp.Geometry) -> torch.Tensor:
-    global fwd_launches
+    global fwd_launches, fwd_captured
     sp.check_card(x, geo, "spectral_mag", 1)
     fwd, _ = _fns()
     xp = sp.padded_signal(x, geo)
@@ -120,13 +124,16 @@ def _launch_fwd(x: torch.Tensor, geo: sp.Geometry) -> torch.Tensor:
         rc = fwd(sp.tap_base(geo, xp), *sp.dft_args(geo, x.device),
                  geo.n_bins, mag.data_ptr(), stream)
     _raise_on(rc, "spectral_mag forward")
-    fwd_launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        fwd_captured += 1
+    else:
+        fwd_launches += 1
     return mag
 
 
 def _launch_bwd(x: torch.Tensor, g: torch.Tensor,
                 geo: sp.Geometry) -> torch.Tensor:
-    global bwd_launches
+    global bwd_launches, bwd_captured
     sp.check_card(x, geo, "spectral_mag", 1)
     _, bwd = _fns()
     xp = sp.padded_signal(x, geo)
@@ -140,7 +147,10 @@ def _launch_bwd(x: torch.Tensor, g: torch.Tensor,
                  geo.n_bins, g.data_ptr(), g_cols.data_ptr(),
                  *sp.adjoint_args(geo, x.device), rows.data_ptr(), stream)
     _raise_on(rc, "spectral_mag backward")
-    bwd_launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        bwd_captured += 1
+    else:
+        bwd_launches += 1
     return sp.fold_rows(rows, geo)
 
 

@@ -56,13 +56,17 @@ from svs_torch.ops.cuda import spectral as sp
 
 KERNEL = "fused_loss"
 
+# launches of the CUDA kernels, and calls recorded into a CUDA graph
+# (diff_mag.py's counts)
 fwd_launches = 0
 bwd_launches = 0
+fwd_captured = 0
+bwd_captured = 0
 
 
 def reset_counts() -> None:
-    global fwd_launches, bwd_launches
-    fwd_launches = bwd_launches = 0
+    global fwd_launches, bwd_launches, fwd_captured, bwd_captured
+    fwd_launches = bwd_launches = fwd_captured = bwd_captured = 0
 
 
 # ---------------------------------------------------------------- plain
@@ -130,7 +134,7 @@ def _check(x, y, geo):
 
 
 def _launch_fwd(x, y, geo):
-    global fwd_launches
+    global fwd_launches, fwd_captured
     _check(x, y, geo)
     fwd, _ = _fns()
     xp, yp = sp.padded_signal(x, geo), sp.padded_signal(y, geo)
@@ -145,12 +149,15 @@ def _launch_fwd(x, y, geo):
     if rc != 0:
         raise RuntimeError(f"loss_partials forward kernel launch failed: "
                            f"CUDA error {rc}")
-    fwd_launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        fwd_captured += 1
+    else:
+        fwd_launches += 1
     return part.sum((1, 2))
 
 
 def _launch_bwd(x, y, g, geo):
-    global bwd_launches
+    global bwd_launches, bwd_captured
     _check(x, y, geo)
     _, bwd = _fns()
     xp, yp = sp.padded_signal(x, geo), sp.padded_signal(y, geo)
@@ -166,7 +173,10 @@ def _launch_bwd(x, y, g, geo):
     if rc != 0:
         raise RuntimeError(f"loss_partials backward kernel launch failed: "
                            f"CUDA error {rc}")
-    bwd_launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        bwd_captured += 1
+    else:
+        bwd_launches += 1
     return sp.fold_rows(rows, geo)
 
 

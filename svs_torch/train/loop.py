@@ -176,10 +176,13 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
                 "single-process run, mesh-free or plain-DP mesh "
                 "(device_data='on'/'auto' with the dataset under the HBM "
                 "cap; not cp/tp/zero1/fsdp)")
-        from svs_torch.train.scan import make_epoch_scan
+        from svs_torch.train.scan import make_epoch_scan, run_epoch
         epoch_fn = make_epoch_scan(cfg, augment=opts.augment)
 
-    optimizer = make_optimizer(cfg, accum_steps=opts.accum_steps)
+    # a CUDA graph replays Adam only in its capturable form; the eager
+    # loop keeps torch's host form
+    optimizer = make_optimizer(cfg, accum_steps=opts.accum_steps,
+                               capturable=opts.epoch_scan)
     state = create_train_state(opts.seed, cfg, optimizer, device=dev)
     train_step = make_train_step(cfg)
     eval_step = make_eval_step(cfg)
@@ -266,24 +269,10 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
                 # the full batches as graph replays, the ragged tail through
                 # the eager step: the index stream and generator order of
                 # the per-step loop below
-                songs_a, starts_a, tail = dd.epoch_index_arrays(
-                    train_ds.host, opts.batch_size, shuffle=True,
-                    seed=epoch_seed)
-                aug_args = ()
-                if augmenter is not None:
-                    aug_args = augmenter.epoch_vectors(len(songs_a),
-                                                       opts.batch_size)
-                if len(songs_a):
-                    state, loss_vec = epoch_fn(state, train_ds.planes,
-                                               songs_a, starts_a, gen,
-                                               *aug_args)
-                    losses.append(loss_vec)
-                if tail is not None:
-                    b = train_ds.gather(tail[0], tail[1])
-                    if augmenter is not None:
-                        b = augmenter(b, n_real=len(tail[0]))
-                    state, aux = train_step(state, b, gen)
-                    losses.append(aux["total"].reshape(1))
+                state, loss_vec = run_epoch(epoch_fn, train_step, state,
+                                            train_ds, opts.batch_size,
+                                            epoch_seed, gen, augmenter)
+                losses.append(loss_vec)
                 if opts.progress:
                     print(f"Epoch {ep + 1}/{opts.epoch} [Train] "
                           f"{n_steps}/{n_steps}", flush=True)

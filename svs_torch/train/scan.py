@@ -16,13 +16,14 @@ one fetch of the loss vector, svs_tpu's contract (scan.py:49-63).
 
 What the capture needs, and how it is met:
 
-- Adam runs in its capturable form (its step counts on the card), which
-  the port builds on a CUDA device (``AdamSpec.build``), so the eager step
-  and a replay are the same bits.  The learning rate, betas and eps are
-  baked into the graph, so a changed rate (the epoch-400 drop) captures it
-  again; so does anything that rebinds a tensor the graph holds (a
-  parameter, a BN buffer, an Adam moment, the dataset's planes): the graph
-  is keyed on their addresses.
+- Adam runs in its capturable form (its step counts on the card:
+  ``make_optimizer(capturable=True)``, which ``fit`` asks for under
+  ``epoch_scan``), so the eager step and a replay are the same bits.  The
+  learning rate, betas and eps are baked into the graph, so a changed rate
+  (the epoch-400 drop) captures it again; so does anything that rebinds a
+  tensor the graph holds (a parameter, a BN buffer, an Adam moment, the
+  accumulation buffers, the dataset's planes): the graph is keyed on their
+  addresses.
 - The first steps of the first epoch run eagerly on a side stream before
   the capture (PyTorch's recipe): they build the kernels, put the loss
   kernels' bases on the card and give Adam its state, so no build, host
@@ -32,27 +33,29 @@ What the capture needs, and how it is met:
   every graph, so each replay draws fresh masks: the same masks the eager
   step draws from the same generator state.
 - ``accum_steps > 1`` (``optax.MultiSteps``): one graph per position in the
-  accumulation cycle, sharing one memory pool; the running mean lives in
-  static buffers (zeroed by position 0), and the last position also applies
-  Adam.  The state's ``acc_grads`` points at those buffers while a cycle is
-  open, so a checkpoint and the eager tail step see it.
+  accumulation cycle, sharing one memory pool, each the eager step's
+  ``_apply`` at that position; the running mean lives in the state's
+  ``acc_buffers``, allocated once (position 0 zeroes them), and the last
+  position also applies Adam.
 
 On the CPU (the tests) ``epoch`` runs the same per-step body eagerly, with
 no graph.  On a CUDA device it captures, and a failed capture raises: it
-never falls back to eager steps on the card.  The ragged tail batch is the
-caller's, through the eager step, after the replays (as svs_tpu's loop
-does).  The mesh variant waits for the parallel layouts (ROADMAP A.10).
+never falls back to eager steps on the card.  :func:`run_epoch` is one
+epoch as ``fit`` runs it: the replays, then the ragged tail batch through
+the eager step (as svs_tpu's loop does).  The mesh variant waits for the
+parallel layouts (ROADMAP A.10).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from svs_torch.data.device_data import gather_crops
-from svs_torch.train.step import TrainState, loss_and_grads
+from svs_torch.data.device_data import epoch_index_arrays, gather_crops
+from svs_torch.train.step import TrainState, _accumulator, _apply, \
+    loss_and_grads
 from svs_torch.utils.config import SVSConfig
 
 
@@ -75,6 +78,35 @@ def make_epoch_scan(cfg: Optional[SVSConfig] = None, augment: bool = False,
     return _EpochScan(cfg or SVSConfig(), augment)
 
 
+def run_epoch(epoch_fn: Callable, step: Callable, state: TrainState, ds,
+              batch_size: int, seed: int,
+              generator: Optional[torch.Generator] = None, augmenter=None
+              ) -> Tuple[TrainState, torch.Tensor]:
+    """One shuffled epoch of the ``DeviceDataset`` ``ds``: its full batches
+    through ``epoch_fn`` (:func:`make_epoch_scan`'s), then the ragged tail
+    through the eager ``step``, in the index stream and generator order of
+    the per-step loop.  ``augmenter``: an ``Augmenter`` already set for the
+    epoch.  Returns the state and the per-step totals on the device."""
+    songs, starts, tail = epoch_index_arrays(ds.host, batch_size,
+                                             shuffle=True, seed=seed)
+    losses = []
+    if len(songs):
+        aug = (augmenter.epoch_vectors(len(songs), batch_size)
+               if augmenter is not None else ())
+        state, vec = epoch_fn(state, ds.planes, songs, starts, generator,
+                              *aug)
+        losses.append(vec)
+    if tail is not None:
+        batch = ds.gather(tail[0], tail[1])
+        if augmenter is not None:
+            batch = augmenter(batch, n_real=len(tail[0]))
+        state, aux = step(state, batch, generator)
+        losses.append(aux["total"].reshape(1))
+    dev = next(iter(ds.planes.values())).device
+    return state, (torch.cat(losses) if losses
+                   else torch.zeros(0, dtype=torch.float32, device=dev))
+
+
 def _bindings(state: TrainState, planes: Dict[str, torch.Tensor]) -> tuple:
     """What a captured graph holds: the addresses of every tensor it reads
     or writes in place, and the optimiser's constants."""
@@ -83,6 +115,7 @@ def _bindings(state: TrainState, planes: Dict[str, torch.Tensor]) -> tuple:
     for st in opt.state.values():
         ptrs += [t.data_ptr() for t in st.values()
                  if isinstance(t, torch.Tensor)]
+    ptrs += [t.data_ptr() for t in state.acc_buffers or ()]
     ptrs += [p.data_ptr() for p in planes.values()]
     consts = tuple((g["lr"], tuple(g["betas"]), g["eps"],
                     g["weight_decay"]) for g in opt.param_groups)
@@ -96,17 +129,18 @@ class _EpochScan:
         self.graphs: Dict[int, Tuple[torch.cuda.CUDAGraph, dict]] = {}
         self.key = None
         # static buffers: the epoch's index matrix (songs, starts and, with
-        # augment, perm) and gains, the step counter, the loss vector and
-        # the accumulation buffers
+        # augment, perm) and gains, the step counter and the loss vector
         self.idx: Optional[torch.Tensor] = None
         self.gains: Optional[torch.Tensor] = None
         self.ctr: Optional[torch.Tensor] = None
         self.losses: Optional[torch.Tensor] = None
-        self.acc: Optional[List[torch.Tensor]] = None
         self.captures = 0  # how many times the graphs were captured
+        self.replays = 0   # how many steps ran as replays
 
     # -- the per-step body: eager on the CPU and in warm-up, else captured
-    def _body(self, state: TrainState, planes, generator, k: int):
+    def _body(self, state: TrainState, planes, generator) -> dict:
+        """The step at the state's cycle position (``_apply`` moves it on
+        when it runs eagerly)."""
         row = self.idx.index_select(0, self.ctr)[0]
         batch = gather_crops(planes, row[0], row[1], self.cfg.input_len)
         if self.augment:
@@ -114,37 +148,13 @@ class _EpochScan:
             from svs_torch.data.augment import apply_remix
             batch = apply_remix(batch, row[2], gains[0], gains[1])
         grads, metrics = loss_and_grads(self.cfg, state, batch, generator)
-        self._apply(state, grads, k)
+        _apply(state, grads)
         self.losses.index_copy_(0, self.ctr, metrics["total"].reshape(1))
         self.ctr.add_(1)
         return metrics
 
-    def _apply(self, state: TrainState, grads: List[torch.Tensor],
-               k: int) -> None:
-        """``step._apply`` at cycle position ``k`` on static buffers: the
-        same running mean (position 0 zeroes the buffers, as ``_apply``'s
-        fresh zeros), Adam on the last position."""
-        n = state.accum_steps
-        if n > 1:
-            with torch.no_grad():
-                for acc, g in zip(self.acc, grads):
-                    if k == 0:
-                        acc.zero_()
-                    acc.add_((g - acc) / (k + 1))
-            if k + 1 < n:
-                return
-            grads = self.acc
-        for p, g in zip(state.model.parameters(), grads):
-            p.grad = g
-        state.optimizer.step()
-        state.optimizer.zero_grad(set_to_none=True)
-
-    def _advance(self, state: TrainState) -> None:
-        state.step += 1
-        state.mini_step = (state.mini_step + 1) % state.accum_steps
-
     # -- buffers
-    def _load(self, state, planes, songs, starts, aug) -> int:
+    def _load(self, planes, songs, starts, aug) -> int:
         n = songs.shape[0]
         dev = next(iter(planes.values())).device
         cols = [songs, starts] + ([aug[0]] if self.augment else [])
@@ -165,22 +175,7 @@ class _EpochScan:
                 self.key = None
             self.gains.copy_(host_gains)
         self.ctr.zero_()
-        if state.accum_steps > 1:
-            params = list(state.model.parameters())
-            if self.acc is None:
-                self.acc = [torch.zeros_like(p) for p in params]
-                self.key = None
-            if state.acc_grads is not None and any(
-                    a is not b for a, b in zip(state.acc_grads, self.acc)):
-                for a, g in zip(self.acc, state.acc_grads):
-                    a.copy_(g)
         return n
-
-    def _release(self, state: TrainState) -> None:
-        """The state's open accumulation cycle, if any, is the static
-        buffers' (read by a checkpoint and continued by the eager step)."""
-        if state.accum_steps > 1:
-            state.acc_grads = self.acc if state.mini_step else None
 
     # -- the epoch
     def __call__(self, state: TrainState, planes: Dict[str, torch.Tensor],
@@ -194,14 +189,13 @@ class _EpochScan:
         dev = next(iter(planes.values())).device
         if songs.shape[0] == 0:
             return state, torch.zeros(0, dtype=torch.float32, device=dev)
-        n = self._load(state, planes, songs, starts, aug)
+        n = self._load(planes, songs, starts, aug)
         if dev.type == "cuda":
             self._replay_epoch(state, planes, generator, n)
         else:
             for _ in range(n):
-                self._body(state, planes, generator, state.mini_step)
-                self._advance(state)
-        self._release(state)
+                self._body(state, planes, generator)
+                state.step += 1
         return state, self.losses.clone()
 
     def _replay_epoch(self, state, planes, generator, n: int) -> None:
@@ -210,20 +204,27 @@ class _EpochScan:
                              "torch.Generator (a graph registers it)")
         if not all(g["capturable"] for g in state.optimizer.param_groups):
             raise ValueError("epoch_scan needs the state's Adam in its "
-                             "capturable form (step.AdamSpec.build makes "
-                             "it so on a CUDA device)")
+                             "capturable form "
+                             "(step.make_optimizer(capturable=True))")
         done = 0
         if not self.graphs:
             done = self._warm_up(state, planes, generator, n)
         if done == n:
             return
+        if state.acc_grads is not None:
+            _accumulator(state, state.acc_grads)  # a loaded cycle
         key = _bindings(state, planes)
         if key != self.key:
             self._capture(state, planes, generator)
             self.key = key
         for _ in range(done, n):
-            self.graphs[state.mini_step][0].replay()
-            self._advance(state)
+            k = state.mini_step
+            self.graphs[k][0].replay()
+            # what the replayed _apply did to the host's cycle position
+            state.step += 1
+            state.mini_step = (k + 1) % state.accum_steps
+            state.acc_grads = state.acc_buffers if state.mini_step else None
+            self.replays += 1
 
     def _warm_up(self, state, planes, generator, n: int) -> int:
         """Eager steps of the epoch on a side stream until Adam has its
@@ -236,8 +237,8 @@ class _EpochScan:
         with torch.cuda.stream(side):
             while done < n and (done == 0 or len(state.optimizer.state)
                                 < len(params)):
-                self._body(state, planes, generator, state.mini_step)
-                self._advance(state)
+                self._body(state, planes, generator)
+                state.step += 1
                 done += 1
         torch.cuda.current_stream(dev).wait_stream(side)
         return done
@@ -246,17 +247,18 @@ class _EpochScan:
         """One graph per accumulation position, in one memory pool; capture
         runs nothing, so the host's cycle position is put back after it."""
         self.graphs = {}
-        position = state.mini_step
+        position, acc = state.mini_step, state.acc_grads
         pool = None
         try:
             for k in range(state.accum_steps):
                 graph = torch.cuda.CUDAGraph()
                 graph.register_generator_state(generator)
                 state.mini_step = k
+                state.acc_grads = state.acc_buffers if k else None
                 with torch.cuda.graph(graph, pool=pool):
-                    metrics = self._body(state, planes, generator, k)
+                    metrics = self._body(state, planes, generator)
                 pool = graph.pool()
                 self.graphs[k] = (graph, metrics)
         finally:
-            state.mini_step = position
+            state.mini_step, state.acc_grads = position, acc
         self.captures += 1

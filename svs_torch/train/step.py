@@ -38,17 +38,19 @@ class AdamSpec:
     parameters, so the spec is built into one by :func:`create_train_state`."""
     learning_rate: float
     accum_steps: int = 1
+    capturable: bool = False
 
     def build(self, params) -> torch.optim.Adam:
-        """torch's Adam; on a CUDA device its capturable form, which keeps
-        the step counts on the card and takes the bias corrections there in
-        float32 (as optax does on its device), so that a step replayed from
-        a CUDA graph (``train/scan.py``) and the eager step are the same
-        bits.  On the CPU, which has no capturable form, the host form."""
+        """torch's Adam; with ``capturable`` on a CUDA device its capturable
+        form, which keeps the step counts on the card and takes the bias
+        corrections there in float32, so that a CUDA graph of the step can
+        replay it (``train/scan.py``).  Otherwise, and always on the CPU,
+        the host form."""
         params = list(params)
         # betas (0.9, 0.999) and eps 1e-8 are torch's defaults, and optax's
         return torch.optim.Adam(params, lr=self.learning_rate,
-                                capturable=bool(params) and params[0].is_cuda)
+                                capturable=(self.capturable and bool(params)
+                                            and params[0].is_cuda))
 
 
 @dataclasses.dataclass
@@ -58,20 +60,25 @@ class TrainState:
     step: int = 0
     accum_steps: int = 1
     # MultiSteps: microbatches in the current cycle and their mean gradient
+    # (``acc_buffers`` while a cycle is open, else None)
     mini_step: int = 0
     acc_grads: Optional[List[torch.Tensor]] = None
+    # the running mean's storage, allocated once: a CUDA graph of the step
+    # holds its addresses
+    acc_buffers: Optional[List[torch.Tensor]] = None
 
 
-def make_optimizer(cfg: Optional[SVSConfig] = None,
-                   accum_steps: int = 1) -> AdamSpec:
+def make_optimizer(cfg: Optional[SVSConfig] = None, accum_steps: int = 1,
+                   capturable: bool = False) -> AdamSpec:
     """Adam with torch defaults at ``cfg.learning_rate``; ``accum_steps > 1``
     updates once every ``accum_steps`` microbatches with their MEAN
     gradient (``optax.MultiSteps``).  A run resumes with the same
-    ``accum_steps``."""
+    ``accum_steps``.  ``capturable``: the form a CUDA graph replays
+    (``epoch_scan``)."""
     cfg = cfg or SVSConfig()
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    return AdamSpec(cfg.learning_rate, accum_steps)
+    return AdamSpec(cfg.learning_rate, accum_steps, capturable)
 
 
 def create_train_state(rng: Union[int, torch.Generator] = 0,
@@ -113,16 +120,31 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(t)) for t in tensors))
 
 
+def _accumulator(state: TrainState, like) -> List[torch.Tensor]:
+    """Open the accumulation cycle on ``state.acc_buffers`` (allocated at
+    first use, shaped as ``like``); a cycle loaded from a checkpoint is
+    copied in."""
+    if state.acc_buffers is None:
+        state.acc_buffers = [torch.zeros_like(g) for g in like]
+    if state.acc_grads is not None and state.acc_grads is not \
+            state.acc_buffers:
+        with torch.no_grad():
+            for buf, g in zip(state.acc_buffers, state.acc_grads):
+                buf.copy_(g)
+    state.acc_grads = state.acc_buffers
+    return state.acc_grads
+
+
 def _apply(state: TrainState, grads: List[torch.Tensor]) -> None:
     """One optimiser call with ``grads``: Adam, or a MultiSteps
     accumulation that reaches Adam on the k-th microbatch."""
     params = list(state.model.parameters())
     if state.accum_steps > 1:
-        if state.acc_grads is None:
-            state.acc_grads = [torch.zeros_like(g) for g in grads]
         n = state.mini_step
         with torch.no_grad():
-            for acc, g in zip(state.acc_grads, grads):
+            for acc, g in zip(_accumulator(state, grads), grads):
+                if n == 0:
+                    acc.zero_()
                 acc.add_((g - acc) / (n + 1))  # optax's running mean
         state.mini_step = (n + 1) % state.accum_steps
         if state.mini_step:

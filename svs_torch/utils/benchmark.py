@@ -251,7 +251,7 @@ def train_epoch_bench(cfg=None, batch_size: int = 32, n_songs: int = 4,
     tail through the eager step; its fields get a ``_scan`` suffix."""
     from svs_torch.data.dataset import PatchDataset
     from svs_torch.train.step import (batch_to_device, create_train_state,
-                                      make_train_step)
+                                      make_optimizer, make_train_step)
     from svs_torch.utils.config import get_config
 
     dev = resolve_device(device)
@@ -276,29 +276,21 @@ def train_epoch_bench(cfg=None, batch_size: int = 32, n_songs: int = 4,
         if device_resident or epoch_scan:
             from svs_torch.data.device_data import DeviceDataset
             ds = DeviceDataset(ds, device=dev)
-        state = create_train_state(0, cfg, device=dev)
+        state = create_train_state(
+            0, cfg, make_optimizer(cfg, capturable=epoch_scan), device=dev)
         step = make_train_step(cfg)
         gen = torch.Generator(dev).manual_seed(1)
 
         if epoch_scan:
-            from svs_torch.data.device_data import epoch_index_arrays
-            from svs_torch.train.scan import make_epoch_scan
-            epoch_fn = make_epoch_scan(cfg)
+            from svs_torch.train import scan
+            epoch_fn = scan.make_epoch_scan(cfg)
 
             def run_epoch(ep):
                 nonlocal state
-                songs, starts, tail = epoch_index_arrays(
-                    ds.host, batch_size, shuffle=True, seed=seed * 7 + ep)
-                barrier = None
-                if len(songs):
-                    state, losses = epoch_fn(state, ds.planes, songs, starts,
-                                             gen)
-                    barrier = losses[-1]
-                if tail is not None:
-                    state, aux = step(state, ds.gather(*tail), gen)
-                    barrier = aux["total"]
-                if barrier is not None:
-                    fetch_barrier(barrier)
+                state, losses = scan.run_epoch(epoch_fn, step, state, ds,
+                                               batch_size, seed * 7 + ep, gen)
+                if len(losses):
+                    fetch_barrier(losses[-1])
         else:
             def run_epoch(ep):
                 nonlocal state

@@ -424,7 +424,8 @@ def test_perfect_prediction_has_a_finite_zero_safe_gradient(card):
 # ---------------------------------------------------------------- epoch_scan
 # The whole-epoch training of train/scan.py: a captured CUDA graph of the
 # step, replayed, against the eager step on the same card.  Both run the
-# same kernels and the same (capturable) Adam, and the bf16 step is
+# same kernels and the same Adam (its capturable form, as fit builds it
+# under epoch_scan), and the bf16 step is
 # deterministic on the H100, so they agree to the bit there; the bounds
 # are the acceptance's: the per-step losses within 1e-5 relative and the
 # parameters within __graft_entry__.py's envelope (max |d| <= 2.1 lr, mean
@@ -447,7 +448,7 @@ def _scan_setup(card, impl, dropout=0.5, accum=1):
     rng = np.random.default_rng(0)
     songs = rng.integers(0, 2, (SCAN_STEPS, SCAN_B)).astype(np.int32)
     starts = rng.integers(0, 300 - 128, (SCAN_STEPS, SCAN_B)).astype(np.int32)
-    opt = tstep.make_optimizer(cfg, accum)
+    opt = tstep.make_optimizer(cfg, accum, capturable=True)
     return cfg, planes, songs, starts, [
         tstep.create_train_state(0, cfg, opt, device=card) for _ in range(2)]
 
@@ -489,11 +490,15 @@ def test_graph_replay_matches_the_eager_step(card, impl):
                          torch.Generator(card).manual_seed(1))
     assert graphed.step == eager.step == SCAN_STEPS
     assert epoch.captures == 1 and len(epoch.graphs) == 1
-    # the wrappers run for the eager warm-up step and once in the capture
+    # the wrappers launch for the eager warm-up step and record once in
+    # the capture
     per_step = {"matmul_bf16": (0, 0, 0, 0), "pallas_bf16": (6, 3, 0, 0),
                 "pallas_fused": (0, 0, 3, 3)}[impl]
     assert (cdm.fwd_launches, cdm.bwd_launches, cfl.fwd_launches,
-            cfl.bwd_launches) == tuple(2 * n for n in per_step)
+            cfl.bwd_launches) == per_step
+    assert (cdm.fwd_captured, cdm.bwd_captured, cfl.fwd_captured,
+            cfl.bwd_captured) == per_step
+    assert epoch.replays == SCAN_STEPS - 1
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
     _close_states(eager, graphed, cfg.learning_rate)
 
@@ -557,6 +562,20 @@ def test_accumulation_graphs_match_the_eager_cycle(card):
     assert graphed.mini_step == eager.mini_step == 0
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
     _close_states(eager, graphed, cfg.learning_rate)
+
+
+@pytest.mark.cuda
+def test_only_epoch_scan_asks_for_the_capturable_adam(card):
+    """The eager loop keeps torch's host-form Adam on the card; the
+    capturable form is built on request (``fit`` under ``epoch_scan``)."""
+    from svs_torch.train import step as tstep
+    from svs_torch.utils.config import get_config
+    cfg = get_config("default")
+    p = [torch.zeros(4, device=card, requires_grad=True)]
+    assert not tstep.make_optimizer(cfg).build(p).param_groups[0][
+        "capturable"]
+    assert tstep.make_optimizer(cfg, capturable=True).build(p).param_groups[
+        0]["capturable"]
 
 
 @pytest.mark.cuda

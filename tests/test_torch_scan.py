@@ -167,8 +167,8 @@ def test_fit_with_epoch_scan_is_the_per_step_fit(songs, tmp_path, kw):
 
 def test_an_accumulation_cycle_open_across_the_epoch_end(songs, tmp_path):
     """``accum_steps = 3``: each epoch's 4 microbatches leave a cycle open,
-    which the scan's static buffers carry into the state, the checkpoint
-    and the next epoch's replays."""
+    which the state's accumulation buffers carry into the checkpoint and
+    the next epoch's replays."""
     kw = dict(accum_steps=3, epoch=1)
     one = _fit(songs, str(tmp_path / "step"), **kw)
     two = _fit(songs, str(tmp_path / "scan"), epoch_scan=True, **kw)
@@ -178,6 +178,33 @@ def test_an_accumulation_cycle_open_across_the_epoch_end(songs, tmp_path):
         assert torch.equal(a, b)
     assert (_files(str(tmp_path / "step"))["svs_t.ckpt"]
             == _files(str(tmp_path / "scan"))["svs_t.ckpt"])
+
+
+def test_accumulation_keeps_one_storage():
+    """MultiSteps' running mean lives in buffers allocated at the first
+    microbatch and reused by every later cycle (a CUDA graph of the step
+    holds their addresses); ``acc_grads`` is them while a cycle is open,
+    None once it closes."""
+    cfg = TConfig(**NARROW)
+    state = tstep.create_train_state(0, cfg, tstep.make_optimizer(cfg, 2),
+                                     device="cpu")
+    step = tstep.make_step_fn(cfg)
+    gen = torch.Generator().manual_seed(0)
+    rng = np.random.default_rng(1)
+    ptrs = None
+    for i in range(4):
+        batch = {k: torch.from_numpy(rng.random((B, 512, 128),
+                                                dtype=np.float32))
+                 for k in ("mix", "voc", "mix_angle", "voc_angle")}
+        state, _ = step(state, batch, gen)
+        if i % 2 == 0:
+            assert state.acc_grads is state.acc_buffers
+        else:
+            assert state.acc_grads is None and state.mini_step == 0
+        now = [t.data_ptr() for t in state.acc_buffers]
+        assert ptrs is None or now == ptrs
+        ptrs = now
+    assert not state.optimizer.param_groups[0]["capturable"]
 
 
 def test_resumed_scan_fit_equals_an_uninterrupted_one(songs, tmp_path):
