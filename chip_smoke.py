@@ -38,14 +38,30 @@ Phases, each printing what it found on its own line:
              against the same weights and input on the CPU; then
              ``separate_wav`` timed, with one torch.profiler trace of its
              device time by family;
-5. train   — the training path on the slice's spectra: ``PatchDataset``
+5. serve   — ``python -m svs_torch.cli.serve_cli`` in its own process on
+             the slice's ``.pth`` (60-s warmup on its worker thread), driven
+             over HTTP: 50 serial requests of one 60-s song, a burst of 8
+             distinct songs (``vocal_solo=0``, ``mode=segments``,
+             ``mode=whole`` and a 44.1-kHz stereo WAV among them), each
+             response held against ``separate_wav`` in this process (1 LSB),
+             ``/healthz``'s counts and percentiles, the 404 / 400 / 411 /
+             413 paths, SIGTERM during a second burst (200 or 503 only, exit
+             0); then ``amplitude_to_db`` on the card against the CPU and
+             ``viz_cli --device cuda`` (a figure where matplotlib imports,
+             else an ImportError that names it); one ``serve:`` JSON line
+             (serial p50 / p90, the burst's throughput over its 8192-Hz
+             songs and the 44.1-kHz song's latency apart, coalescing, the
+             percentiles, a serial request's device share from a trace of
+             its one-song stream call, and one in-process stream call of
+             the burst's songs for scale);
+6. train   — the training path on the slice's spectra: ``PatchDataset``
              batches of 32, one seeded full-width ``default`` state, three
              steps from it under each of ``matmul_bf16``, ``pallas_fused``,
              ``pallas_fused_wide`` and ``pallas_bf16`` (counts zeroed just
              before each and read just after), ms per step from CUDA
              events and the device's busy share of a step from a
              torch.profiler trace;
-6. bench   — the bench entry point: ``bench_cli --frontend`` (counts
+7. bench   — the bench entry point: ``bench_cli --frontend`` (counts
              zeroed just before and read just after: 102 launches of each
              front-end kernel, all on the fft route), then the default
              line ``bench_cli --secs 60 --reps 2``
@@ -56,7 +72,7 @@ Phases, each printing what it found on its own line:
              against ``separate_wav`` (2 LSB), and ``DeviceDataset``
              batches on the card against the host ``PatchDataset``'s
              (bitwise);
-7. fit     — the training entry point at the full ``default`` preset
+8. fit     — the training entry point at the full ``default`` preset
              (B = 32, bf16 convs, seeded weights): ``train_cli`` for two
              epochs with validation on the slice's spectra (log, metrics and
              checkpoints checked), a resume from its ``.ckpt`` for a third,
@@ -67,7 +83,7 @@ Phases, each printing what it found on its own line:
              loss against ``matmul_bf16``'s), one epoch traced for the
              device's idle share, and one ``fine_tune`` step with remat
              against the same step without it;
-8. scan    — ``fit(epoch_scan=True)`` (each epoch's full batches as replays
+9. scan    — ``fit(epoch_scan=True)`` (each epoch's full batches as replays
              of one captured CUDA graph of the step) at the full ``default``
              preset, B = 32, 35 patches a song (3 full steps and a ragged
              tail an epoch), 2 epochs across a learning-rate drop, under
@@ -82,14 +98,14 @@ Phases, each printing what it found on its own line:
              idle share of a traced graph epoch; then SIGTERM (exit 143) at
              the first epoch and the resume from its ``.ckpt`` against the
              uninterrupted fit, and ``accum_steps = 2`` with augmentation;
-9. native  — the port's C++ loader: native batches bitwise equal to numpy's,
+10. native — the port's C++ loader: native batches bitwise equal to numpy's,
              an epoch of batches timed with each, and a ``train_cli`` epoch
              with ``'auto'`` resolved to native;
-10. eval   — ``eval_cli --impl torch`` (BSS eval in float64 on the card)
+11. eval   — ``eval_cli --impl torch`` (BSS eval in float64 on the card)
              against ``--impl numpy`` on the slice's separated wavs, and
              ``validation_sdr`` of one song on the card against the host's
              BSS, no fallback;
-11. parity — the U-Net at float32 on the card (cuDNN, TF32 off) against the
+12. parity — the U-Net at float32 on the card (cuDNN, TF32 off) against the
              same weights and input on the CPU, and one float32 ``fft``
              train step (B = 4, no dropout) on the card against the CPU.
 
@@ -1650,6 +1666,347 @@ def slice_phase(torch, np, work: str):
     return launches
 
 
+# the serve phase: serve_cli in its own process at the full ``default``
+# preset, answering serial requests of one 60-s song and a burst of distinct
+# songs, each held against separate_wav in this process
+SERVE_SERIAL, SERVE_BURST = 50, 8
+SERVE_WARMUP_S = 60
+# seconds for serve_cli to load, warm up and bind, and to drain and exit
+SERVE_START_S, SERVE_EXIT_S = 300, 120
+# the burst's first requests (path, sample rate, channels); the rest are
+# 8192-Hz mono songs at the server's defaults
+SERVE_ODD = (("/separate?vocal_solo=0", SR, 1),
+             ("/separate?mode=segments", SR, 1),
+             ("/separate?mode=whole", SR, 1), ("/separate", 44100, 2))
+# a response against the same decode in this process, both PCM16 encoded
+# on the host: the same kernels at the same shapes (the server's stream
+# runs them on another stream), so one code apart at most
+SERVE_LSB = 1
+# amplitude_to_db on the card against the CPU: float32 log10 on two
+# backends (tests/test_torch_viz.py's bound against svs_tpu)
+DB_RTOL = DB_ATOL = 1e-5
+
+
+def _http(port: int, method: str, path: str, body=None, headers=(),
+          connected=None):
+    """One request to 127.0.0.1:port with exactly the headers given (none
+    added); ``connected`` is set once the connection is open.  Returns
+    (status, body)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.connect()
+        if connected is not None:
+            connected.set()
+        conn.putrequest(method, path, skip_accept_encoding=True)
+        for k, v in headers:
+            conn.putheader(k, v)
+        conn.endheaders(body)
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def _post_wav(port: int, path: str, body: bytes, connected=None):
+    return _http(port, "POST", path, body,
+                 [("Content-Length", str(len(body)))], connected)
+
+
+def _healthz(port: int) -> dict:
+    status, body = _http(port, "GET", "/healthz")
+    check(status == 200, f"/healthz answers 200, not {status}")
+    return json.loads(body)
+
+
+def _burst(port: int, requests, before_join=None):
+    """POST every (path, body) at once from its own thread; returns the
+    (status, body, seconds from the burst's start to its answer) of each
+    and the wall seconds of the burst.  ``before_join`` runs once every
+    connection is open."""
+    import threading
+    results = [None] * len(requests)
+    opened = [threading.Event() for _ in requests]
+
+    def post(i):
+        try:
+            status, body = _post_wav(port, *requests[i], connected=opened[i])
+        except OSError as e:
+            status, body = repr(e), b""
+        results[i] = (status, body, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=post, args=(i,))
+               for i in range(len(requests))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    if before_join is not None:
+        for e in opened:
+            check(e.wait(timeout=60), "every burst connection opened")
+        before_join()
+    for t in threads:
+        t.join(timeout=SERVE_START_S)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads),
+          "no request of the burst hangs")
+    return results, wall
+
+
+def serve_phase(torch, np, work: str) -> dict:
+    """``python -m svs_torch.cli.serve_cli`` on the slice's full-width
+    ``default`` .pth, driven over HTTP; returns the ``serve:`` line."""
+    import signal
+    import socket
+    from urllib.parse import parse_qs
+
+    from svs_torch.cli import infer_cli, viz_cli
+    from svs_torch.data import wav
+    from svs_torch.infer import separate
+    from svs_torch.ops import stft as tdsp
+    from svs_torch.ops.cuda import diff_mag as cdm
+    from svs_torch.ops.cuda import dsp as cdsp
+    from svs_torch.ops.cuda import fused_loss as cfl
+    from svs_torch.serve.server import DEFAULT_MAX_BODY, DEFAULT_MODE
+    from svs_torch.utils.config import get_config
+
+    # the host resampler's module, imported here (and timed, if this is its
+    # first import) so that the import is not timed as resampling;
+    # serve_cli imports it at warmup, not in a request
+    t0 = time.perf_counter()
+    import scipy.signal  # noqa: F401
+    line = {"scipy_signal_import_s": time.perf_counter() - t0}
+
+    cfg = get_config("default")
+    pth = os.path.join(work, "default_seed0.pth")
+    rng = np.random.default_rng(4)
+
+    def song_body(sr: int, channels: int) -> bytes:
+        t = np.arange(SONG_SECONDS * sr) / sr
+        vocal = 0.3 * np.sin(2 * np.pi * rng.uniform(150, 600) * t)
+        y = vocal + 0.2 * rng.standard_normal((channels, len(t)))
+        return wav.encode_wav(y.astype(np.float32), sr)
+
+    model = infer_cli.load_model(pth, cfg, "cuda")
+
+    resample_s = []  # host seconds of each resampling, there and back
+
+    def resampled(y, sr_from: int, sr_to: int):
+        t0 = time.perf_counter()
+        y = wav.resample(y, sr_from, sr_to)
+        resample_s.append(time.perf_counter() - t0)
+        return y
+
+    def host_input(body: bytes):
+        y, sr = wav.parse_wav(body)
+        y = wav.to_mono(y)
+        return (resampled(y, sr, SR) if sr != SR else y), sr
+
+    def in_process(path: str, body: bytes) -> bytes:
+        """What the server should answer: the same parse, mixdown and
+        resampling around separate_wav on the card, encoded as PCM16."""
+        q = parse_qs(path.partition("?")[2])
+        y, sr = host_input(body)
+        out = separate.separate_wav(
+            model, y.astype(np.float32),
+            vocal_solo=q.get("vocal_solo", ["1"])[0] != "0",
+            mode=q.get("mode", [DEFAULT_MODE])[0])
+        return wav.encode_wav(resampled(out, SR, sr) if sr != SR
+                              else out, sr)
+
+    def lsb(got: bytes, want: bytes) -> int:
+        (g, g_sr), (w, w_sr) = wav.parse_wav(got), wav.parse_wav(want)
+        check(g_sr == w_sr and g.shape == w.shape and np.abs(w).max() > 0,
+              f"a response's rate and shape: {g_sr} {g.shape} against "
+              f"{w_sr} {w.shape}")
+        return int(np.abs(np.round(g * 32768.0)
+                          - np.round(w * 32768.0)).max())
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    log_path = os.path.join(work, "serve_cli.log")
+
+    def server_log() -> str:
+        with open(log_path) as f:
+            return f.read()
+
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "svs_torch.cli.serve_cli",
+             "--model_path", pth, "--port", str(port),
+             "--warmup_secs", str(SERVE_WARMUP_S)],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        t0 = time.perf_counter()
+        while True:
+            check(proc.poll() is None,
+                  f"serve_cli exited ({proc.returncode}) before it "
+                  f"answered:\n{server_log()}")
+            try:
+                if _http(port, "GET", "/healthz")[0] == 200:
+                    break
+            except OSError:
+                pass
+            check(time.perf_counter() - t0 < SERVE_START_S,
+                  f"serve_cli answered /healthz within {SERVE_START_S} s:"
+                  f"\n{server_log()}")
+            time.sleep(0.2)
+        line["startup_s"] = time.perf_counter() - t0
+
+        # serial: one song, one request after another
+        body = song_body(SR, 1)
+        want = in_process("/separate", body)
+        serial, worst = [], 0
+        for _ in range(SERVE_SERIAL):
+            t0 = time.perf_counter()
+            status, got = _post_wav(port, "/separate", body)
+            serial.append((time.perf_counter() - t0) * 1e3)
+            check(status == 200, f"serial request: 200, not {status}")
+            worst = max(worst, lsb(got, want))
+        line["serial_ms"] = serial
+        line["serial_p50_ms"] = float(np.percentile(serial, 50))
+        line["serial_p90_ms"] = float(np.percentile(serial, 90))
+        # the window holds the warmup and the serial requests' stream calls
+        line["serial_device_time_secs"] = {
+            k: _healthz(port)["device_time_secs"][k] for k in ("p50", "p90")}
+
+        # a burst of distinct songs, some with other queries and rates
+        rates = [sr for _, sr, _ in SERVE_ODD] + [SR] * (
+            SERVE_BURST - len(SERVE_ODD))
+        requests = [(path, song_body(sr, ch)) for path, sr, ch in
+                    SERVE_ODD + (("/separate", SR, 1),)
+                    * (SERVE_BURST - len(SERVE_ODD))]
+        results, wall = _burst(port, requests)
+        for (path, b), (status, got, _) in zip(requests, results):
+            check(status == 200, f"burst {path}: 200, not {status}")
+            worst = max(worst, lsb(got, in_process(path, b)))
+        print(f"serve check: {SERVE_SERIAL} serial and {SERVE_BURST} burst "
+              f"responses against separate_wav in this process: max "
+              f"{worst} LSB (bound {SERVE_LSB})")
+        check(worst <= SERVE_LSB, "the server's answers are separate_wav's")
+        # throughput over the songs at the model's rate; the 44.1-kHz
+        # song waits on the host resampler, so its latency stands apart
+        same = [r[2] for r, sr in zip(results, rates) if sr == SR]
+        line.update(burst_wall_s=wall, burst_request_s=[r[2] for r in results],
+                    burst_same_rate_songs=len(same),
+                    burst_same_rate_wall_s=max(same),
+                    burst_same_rate_songs_per_s=len(same) / max(same),
+                    burst_44k1_request_s=[r[2] for r, sr in zip(results, rates)
+                                          if sr != SR],
+                    max_lsb=worst, resample_44k1_s=resample_s[-2:])
+        h = _healthz(port)
+        served = 1 + SERVE_SERIAL + SERVE_BURST  # the warmup is one
+        check(h["requests_served"] == served,
+              f"/healthz requests_served {h['requests_served']} == {served}")
+        check(h["max_coalesced"] > 1, f"the burst was coalesced: "
+              f"max_coalesced {h['max_coalesced']}")
+        for window in ("queue_wait_secs", "device_time_secs"):
+            check(all(v is not None for v in h[window].values()),
+                  f"/healthz {window} has percentiles")
+            line[window] = {k: h[window][k] for k in ("p50", "p90")}
+        line["max_coalesced"] = h["max_coalesced"]
+        line["batches_run"] = h["batches_run"]
+
+        # a serial request's device share: the device time of the one-song
+        # stream call the worker makes for it (traced in this process, no
+        # coalescing) over the serial p50 on the client
+        y1 = host_input(body)[0].astype(np.float32)
+        separate.separate_wav_stream(model, [y1], mode=DEFAULT_MODE)
+        line["serial_request_device_ms"] = device_breakdown(
+            torch, lambda: separate.separate_wav_stream(
+                model, [y1], mode=DEFAULT_MODE),
+            "serve check: in-process stream of the serial 60-s song")
+        line["serial_device_share"] = (line["serial_request_device_ms"]
+                                       / line["serial_p50_ms"])
+
+        # for scale: the burst's songs through one stream call in this
+        # process, the hand kernels' counts zeroed just before
+        ys = [host_input(b)[0].astype(np.float32) for _, b in requests]
+        separate.separate_wav_stream(model, ys, mode=DEFAULT_MODE)
+        cdsp.reset_counts(), cdm.reset_counts(), cfl.reset_counts()
+        t0 = time.perf_counter()
+        outs = separate.separate_wav_stream(model, ys, mode=DEFAULT_MODE)
+        line["stream_in_process_s"] = time.perf_counter() - t0
+        line["hand_kernel_launches"] = (
+            cdsp.launches + cdsp.mag_launches + sum(_loss_counts()[0]))
+        check(all(o.shape == y.shape and np.isfinite(o).all()
+                  for o, y in zip(outs, ys)), "the stream: shape, finite")
+        line["stream_device_ms_per_song"] = device_breakdown(
+            torch, lambda: separate.separate_wav_stream(
+                model, ys, mode=DEFAULT_MODE),
+            f"serve check: in-process stream of {SERVE_BURST} 60-s songs"
+        ) / SERVE_BURST
+
+        # the error paths
+        codes = {
+            "unknown_path_get": (_http(port, "GET", "/nope")[0], 404),
+            "unknown_path_post": (_post_wav(port, "/nope", body)[0], 404),
+            "bad_body": (_post_wav(port, "/separate", b"not a wav")[0], 400),
+            "bad_mode": (_post_wav(port, "/separate?mode=bogus", body)[0],
+                         400),
+            "no_content_length": (_http(port, "POST", "/separate")[0], 411),
+            "oversize": (_http(port, "POST", "/separate", None, [
+                ("Content-Length", str(DEFAULT_MAX_BODY + 1))])[0], 413),
+        }
+        for what, (got, want_code) in codes.items():
+            check(got == want_code, f"{what}: {want_code}, not {got}")
+
+        # SIGTERM while a second burst is in flight: once every connection
+        # is open and the server has answered one of them
+        def sigterm():
+            for _ in range(SERVE_START_S * 100):
+                if _healthz(port)["requests_served"] > served:
+                    break
+                time.sleep(0.01)
+            proc.send_signal(signal.SIGTERM)
+
+        results, _ = _burst(port, requests, before_join=sigterm)
+        statuses = [r[0] for r in results]
+        check(all(s in (200, 503) for s in statuses),
+              f"every request under SIGTERM ends 200 or 503: {statuses}")
+        t0 = time.perf_counter()
+        rc = proc.wait(timeout=SERVE_EXIT_S)
+        check(rc == 0, f"serve_cli exits 0 after SIGTERM, not {rc}:\n"
+                       f"{server_log()}")
+        line["sigterm"] = {"ok": statuses.count(200),
+                           "unavailable": statuses.count(503),
+                           "exit_s": time.perf_counter() - t0}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    # the diagnostics on the card
+    mix_path = os.path.join(work, "spec", "mixture", "0000_song0_spec.npy")
+    mix = torch.from_numpy(np.load(mix_path))
+    db_card = tdsp.amplitude_to_db(mix.cuda(), ref=float(mix.max()))
+    db_cpu = tdsp.amplitude_to_db(mix, ref=float(mix.max()))
+    err = float((db_card.cpu() - db_cpu).abs().max())
+    print(f"serve check: amplitude_to_db on the card against the CPU: "
+          f"max_abs_err {err:.3e} dB")
+    check(torch.allclose(db_card.cpu(), db_cpu, rtol=DB_RTOL, atol=DB_ATOL),
+          "amplitude_to_db on the card matches the CPU")
+    png = os.path.join(work, "viz.png")
+    argv = ["--model_path", pth, "--spec_path", mix_path, "--out", png,
+            "--device", "cuda"]
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        try:
+            viz_cli.main(argv)
+        except ImportError as e:
+            check("matplotlib" in str(e), "the ImportError names matplotlib")
+            line["viz_cli"] = f"no matplotlib here; it raised: {e}"
+        else:
+            check(False, "viz_cli without matplotlib raises ImportError")
+    else:
+        check(viz_cli.main(argv) == 0 and os.path.getsize(png) > 10000,
+              "viz_cli wrote its figure")
+        line["viz_cli"] = "figure written"
+    print(f"serve check: viz_cli --device cuda: {line['viz_cli']}")
+    return line
+
+
 def run_cli(main, argv) -> dict:
     """Run a CLI's ``main(argv)``, echo what it printed, return its last
     line as JSON."""
@@ -1887,6 +2244,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         launches = slice_phase(torch, np, work)
         seconds["slice"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serve_line = serve_phase(torch, np, work)
+        seconds["serve"] = time.perf_counter() - t0
+        print("serve: " + json.dumps(serve_line))
         t0 = time.perf_counter()
         train_launches, batch = train_phase(torch, np,
                                             os.path.join(work, "spec"))

@@ -210,6 +210,25 @@ def polar(mag: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
                          mag * torch.sin(angle)).to(torch.complex64)
 
 
+def amplitude_to_db(
+    S: torch.Tensor,
+    ref: float = 1.0,
+    amin: float = 1e-5,
+    top_db: Optional[float] = 80.0,
+) -> torch.Tensor:
+    """``librosa.amplitude_to_db`` semantics (used by the reference
+    visualizer, aaa.py:106-108): ``20 log10(max(amin, |S|)) - 20
+    log10(max(amin, ref))``, floored at ``top_db`` below the peak unless
+    ``top_db`` is None; on the device ``S`` lies on."""
+    mag = torch.abs(S)
+    ref_t = torch.as_tensor(ref, dtype=mag.dtype, device=mag.device)
+    db = (20.0 * torch.log10(torch.clamp(mag, min=amin))
+          - 20.0 * torch.log10(torch.clamp(ref_t, min=amin)))
+    if top_db is not None:
+        db = torch.maximum(db, db.max() - top_db)
+    return db
+
+
 def stft_magphase(y: torch.Tensor, n_fft: int, hop_length: int):
     """STFT + magnitude/phase split of the preprocessing path (replaces
     reference data.py:79-80's host librosa calls) on ``torch.fft``.
