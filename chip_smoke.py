@@ -105,7 +105,22 @@ Phases, each printing what it found on its own line:
              against ``--impl numpy`` on the slice's separated wavs, and
              ``validation_sdr`` of one song on the card against the host's
              BSS, no fallback;
-12. parity — the U-Net at float32 on the card (cuDNN, TF32 off) against the
+12. dp     — the data-parallel layer (``svs_torch.parallel``): ``make_mesh``
+             alone makes a world of one over NCCL, and the full-width
+             ``default`` DP step at B = 32 under ``pallas_fused`` and
+             ``pallas_bf16`` (the loss kernels' counts zeroed just before
+             and read just after) is held against ``make_train_step`` on
+             the same batch with an all-ones ``weight`` (the same bits,
+             and within ``__graft_entry__``'s envelope), both timed by
+             CUDA events; ``separate_magnitude_mesh`` of a 4-minute song's
+             magnitude (float32) against ``separate_magnitude``; then
+             whether NCCL runs two ranks on one card (a pool of two worker
+             processes: its all-reduce must then be right, and the one
+             refusal taken is NCCL's duplicate GPU), and two ranks on the card (gloo with CUDA tensors where NCCL
+             refuses) stepping B = 2 x 16 of the float32 ``default`` model
+             against the single-process B = 32 step, the ranks' states the
+             same bits; any failure fails the run;
+13. parity — the U-Net at float32 on the card (cuDNN, TF32 off) against the
              same weights and input on the CPU, and one float32 ``fft``
              train step (B = 4, no dropout) on the card against the CPU.
 
@@ -186,6 +201,12 @@ GN_RTOL = 1e-3
 # implementation of it, except the loss, whose 3 FFT resolutions and 12
 # convs sum in other orders on the two backends (1e-4 relative)
 STEP_LOSS_RTOL, STEP_GN_RTOL, STEP_BN_ATOL = 1e-4, 1e-3, 1e-4
+# the DP step's kernel paths and their loss-kernel launches a step
+# (spectral_mag fwd, bwd, loss_partials fwd, bwd)
+DP_PER_STEP = {"pallas_fused": (0, 0, 3, 3), "pallas_bf16": (6, 3, 0, 0)}
+# the SP decode's song (seconds at 8192 Hz) and its bound against the
+# unsharded decode: tests/test_infer_mesh.py's, float32 on both sides
+SP_SECONDS, SP_ATOL = 240, 2e-5
 
 
 def check(ok: bool, what: str) -> None:
@@ -1515,6 +1536,131 @@ def eval_phase(torch, np, work: str) -> dict:
     return seconds
 
 
+def _ms(pair) -> str:
+    return " / ".join(f"{v:.3f}" for v in pair)
+
+
+def dp_phase(torch, np, spec: str) -> dict:
+    """The data-parallel layer on the card; returns the loss kernels'
+    launches in the world-of-one DP steps."""
+    import torch.distributed as dist
+
+    from svs_torch.data.dataset import PatchDataset
+    from svs_torch.infer import separate
+    from svs_torch.models.unet import UNet
+    from svs_torch.parallel import dryrun, mesh as mesh_lib
+    from svs_torch.parallel.launch import Ranks
+    from svs_torch.utils.config import get_config
+
+    ds = PatchDataset(spec, samples_per_song=64, input_len=128)
+    host = {k: np.asarray(v) for k, v in
+            next(iter(ds.batches(TRAIN_B, seed=11))).items()}
+    default = get_config("default")
+    line = {"smi": nvidia_smi_line()}
+
+    # a world of one over NCCL (no torchrun environment)
+    mesh = mesh_lib.make_mesh()
+    check(mesh.size == 1 and mesh.backend == "nccl",
+          f"make_mesh alone: a world of one over NCCL ({mesh})")
+    total = [0, 0, 0, 0]
+    for impl in DP_PER_STEP:
+        cfg = dataclasses.replace(default, mr_mag_impl=impl)
+        r = dryrun.dp_parity(mesh, cfg, host, time_reps=5)
+        counts = tuple(r["kernels"])
+        check(counts == DP_PER_STEP[impl], f"dp {impl}: loss-kernel launches "
+              f"{counts} == {DP_PER_STEP[impl]} in one DP step")
+        total = [a + c for a, c in zip(total, counts)]
+        print(f"dp world 1 (nccl) {impl}: default preset B={TRAIN_B}, DP step "
+              f"{_ms(r['dp_ms'])} ms vs make_train_step {_ms(r['ref_ms'])} ms "
+              f"(CUDA events, means of 5 steps in turns: single, DP, DP, "
+              f"single); loss rel {r['loss_rel']:.2e}, "
+              f"grad_norm rel {r['grad_norm_rel']:.2e}, BN {r['bn_abs']:.2e}, "
+              f"params max {r['params_max']:.2e} mean {r['params_mean']:.2e}; "
+              f"launches {list(counts)}")
+        check(r["ok"], f"dp {impl}: the world-of-one DP step within the "
+              "dry-run envelope of make_train_step")
+        check(all(r[k] == 0.0 for k in ("loss_rel", "grad_norm_rel", "bn_abs",
+                                        "params_max")),
+              f"dp {impl}: the world-of-one DP step gives make_train_step's "
+              "bits")
+        line[f"w1_{impl}"] = r
+
+    frames = SP_SECONDS * SR // 768 + 1
+    mag = np.abs(np.random.default_rng(4).standard_normal(
+        (513, frames))).astype(np.float32)
+    cfg32 = dataclasses.replace(default, compute_dtype="float32")
+    model = UNet(cfg32, generator=torch.Generator().manual_seed(0))
+    model = model.to("cuda").eval()
+    for mode in ("segments", "overlap"):
+        ms = {}
+        for name, fn in (
+                ("mesh", lambda: separate.separate_magnitude_mesh(
+                    model, mag, mesh, mode=mode)),
+                ("one", lambda: separate.separate_magnitude(
+                    model, mag, mode=mode, device="cuda"))):
+            fn()  # warm
+            t0 = time.perf_counter()
+            out = fn()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+            ms[name + "_out"] = out
+        err = float(np.abs(ms.pop("mesh_out") - ms.pop("one_out")).max())
+        print(f"dp world 1 sp {mode}: {SP_SECONDS}-s song ({frames} frames), "
+              f"float32, separate_magnitude_mesh {ms['mesh']:.2f} ms vs "
+              f"separate_magnitude {ms['one']:.2f} ms (wall, host included); "
+              f"max |d| {err:.3e} (bound {SP_ATOL:g})")
+        check(err <= SP_ATOL, f"sp {mode}: the mesh decode equals the "
+              "unsharded one")
+        line[f"sp_{mode}"] = dict(ms, max_abs_err=err)
+    dist.destroy_process_group()
+
+    # two ranks on the one card: NCCL first, gloo with CUDA tensors if it
+    # refuses
+    t0 = time.perf_counter()
+    try:
+        with Ranks(2, device="cuda:0", backend="nccl", timeout=180) as ranks:
+            got = ranks.run(dryrun.collective_probe)
+    except RuntimeError as e:
+        # NCCL's one expected refusal; any other failure fails the phase
+        hit = [x.strip() for x in str(e).splitlines()
+               if "Duplicate GPU" in x]
+        check(bool(hit), "NCCL, two ranks on one card: ran, or refused as "
+              f"a duplicate GPU, not: {str(e)[-2000:]}")
+        nccl, backend = "refused: " + hit[0][:400], "gloo"
+    else:
+        check(got == [2.0, 2.0], "NCCL, two ranks on one card: the "
+              f"all_reduce of ones gives [2.0, 2.0], not {got}")
+        nccl, backend = f"ran, all_reduce of ones gave {got}", "nccl"
+    print(f"dp two ranks on one card, NCCL: {nccl} "
+          f"({time.perf_counter() - t0:.1f} s); the two-rank step runs "
+          f"over {backend}")
+    line["nccl_two_ranks_one_card"] = nccl
+    with Ranks(2, device="cuda:0", backend=backend, timeout=900) as ranks:
+        ranks.run(dryrun.no_tf32)
+        for impl in DP_PER_STEP:
+            cfg = dataclasses.replace(cfg32, mr_mag_impl=impl)
+            r = ranks.run(dryrun.dp_parity, cfg, host, time_reps=3)[0]
+            print(f"dp world 2 ({backend}, one card) {impl}: float32 default "
+                  f"preset, B = 2 x {TRAIN_B // 2} against the single-process "
+                  f"B={TRAIN_B} step: loss rel {r['loss_rel']:.2e}, "
+                  f"grad_norm rel {r['grad_norm_rel']:.2e}, BN "
+                  f"{r['bn_abs']:.2e}, params max {r['params_max']:.2e} "
+                  f"mean {r['params_mean']:.2e}, "
+                  f"rank spread {r['spread']:g}; DP step {_ms(r['dp_ms'])} "
+                  f"ms vs {_ms(r['ref_ms'])} ms (CUDA events on rank 0, "
+                  f"means of 3 steps in turns); rank 0 launches "
+                  f"{r['kernels']}")
+            check(tuple(r["kernels"]) == DP_PER_STEP[impl],
+                  f"dp world 2 {impl}: the loss kernels launched on rank 0")
+            check(r["ok"] and r["spread"] == 0.0,
+                  f"dp world 2 {impl}: the single-process step within the "
+                  "dry-run envelope, the ranks the same bits")
+            line[f"w2_{impl}"] = dict(r, backend=backend)
+    print("dp: " + json.dumps(line))
+    names = ("spectral_mag_fwd", "spectral_mag_bwd", "loss_partials_fwd",
+             "loss_partials_bwd")
+    return dict(zip(names, total))
+
+
 def step_parity_phase(torch, np, host_batch) -> None:
     """One float32 fft step (B = 4, no dropout) on the card, TF32 off,
     against the same weights and batch on the CPU."""
@@ -2267,6 +2413,9 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         eval_phase(torch, np, work)
         seconds["eval"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dp_counts = dp_phase(torch, np, os.path.join(work, "spec"))
+        seconds["dp"] = time.perf_counter() - t0
     print("train phase launches: " + json.dumps(train_launches))
     # the loss kernels' launches on the paths that run them: fit under the
     # kernel loss paths (the fit phase's eager fit), and fit with
@@ -2284,6 +2433,11 @@ def main(argv=None) -> int:
             check(entry["scan_launches"] > 0 and entry["scan_captured"] > 0
                   and entry["replay_launches"] > 0,
                   f"{entry['name']} launched and replayed under epoch_scan")
+        if entry["name"] in dp_counts:
+            # the DP steps' own count, zeroed just before and read after
+            entry["dp_launches"] = dp_counts[entry["name"]]
+            check(entry["dp_launches"] > 0,
+                  f"{entry['name']} launched inside the DP step")
 
     t0 = time.perf_counter()
     parity_phase(torch)

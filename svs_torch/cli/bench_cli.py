@@ -6,8 +6,12 @@
     python -m svs_torch.cli.bench_cli --frontend     # the front-end kernels
     python -m svs_torch.cli.bench_cli --device cpu   # on the host
 
-Each mode prints one JSON line.  ``--dp-smoke`` (svs_tpu's multi-device
-dry run) waits for the parallel layouts and exits with an error.
+    python -m svs_torch.cli.bench_cli --dp-smoke --devices 8
+
+Each mode prints one JSON line.  ``--dp-smoke`` is svs_tpu's multi-device
+dry run: ``--devices`` gloo ranks on the CPU, the DP train step against
+the unsharded step and the segment-parallel decode against the unsharded
+decode (``svs_torch.parallel.dryrun``); it exits 1 when a check fails.
 """
 
 from __future__ import annotations
@@ -36,8 +40,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch", type=int, default=32,
                    help="train-bench batch size (reference docs use 32)")
     p.add_argument("--dp-smoke", action="store_true",
-                   help="the multi-device dry run (not yet ported: "
-                        "ROADMAP A.10)")
+                   help="the multi-device dry run: --devices gloo ranks on "
+                        "the CPU, the DP train step and the segment-"
+                        "parallel decode against the unsharded ones; "
+                        "pass/fail and wall time")
+    p.add_argument("--devices", type=int, default=8,
+                   help="with --dp-smoke: the ranks to start (svs_tpu's "
+                        "virtual mesh has 8)")
     p.add_argument("--device", type=str, default="cuda",
                    help="device to bench on (default cuda; 'cpu' runs the "
                         "kernels' plain versions on the host)")
@@ -94,10 +103,15 @@ def main(argv=None) -> int:
     if args.frontend:
         return _frontend_bench(args.secs, args.device)
     if args.dp_smoke:
-        print("bench_cli --dp-smoke: the multi-device dry run waits for the "
-              "port's parallel layouts (ROADMAP A.10); nothing was run",
-              file=sys.stderr)
-        return 2
+        if args.devices < 1:
+            print(f"bench_cli --dp-smoke: --devices must be >= 1, got "
+                  f"{args.devices}; nothing was run", file=sys.stderr)
+            return 2
+        from svs_torch.parallel.dryrun import dp_smoke
+
+        line = dp_smoke(args.devices)
+        print(json.dumps(line))
+        return 0 if line["ok"] else 1
     if args.train:
         import dataclasses
 

@@ -6,12 +6,16 @@ Flag surface preserved from reference train.py:157-167:
 and svs_tpu's extensions (--preset --seed --export_pth --ckpt_dir --log_dir
 --samples_per_song --dtype --remat --save_every --async_save --device_data
 --device_data_cap_mb --accum --augment --remix_p --aug_gain --epoch_scan
---val_sdr --val_sdr_songs), plus --device (default cuda; ``--device cpu``
-runs on the host).  ``--epoch_scan`` replays a captured CUDA graph of the
-step for each epoch's full batches (it needs the dataset on the device).
-One device: the parallel and multi-host flags (--multihost --coordinator
---num_hosts --host_id --dp --cp --tp --pp --zero1 --fsdp) wait for ROADMAP
-A.10; each exits 2 with a message that names its item.
+--val_sdr --val_sdr_songs --dp), plus --device (default cuda; ``--device
+cpu`` runs on the host).  ``--epoch_scan`` replays a captured CUDA graph of
+the step for each epoch's full batches (it needs the dataset on the
+device).  ``--dp`` trains data-parallel over the ranks of ``torchrun``
+(``torchrun --nproc_per_node N -m svs_torch.cli.train_cli --dp ...``: NCCL
+on the cards, gloo with ``--device cpu``), or alone at world size 1
+(``parallel.mesh.make_mesh``).  The other parallel and multi-host flags
+(--multihost --coordinator --num_hosts --host_id --cp --tp --pp --zero1
+--fsdp, and --epoch_scan with --dp) exit 2 with a message that names
+their ROADMAP item.
 
 Run as ``python -m svs_torch.cli.train_cli``.
 """
@@ -23,15 +27,16 @@ import dataclasses
 
 # flag -> the ROADMAP item that ports it
 UNPORTED = {
-    "multihost": "A.10", "coordinator": "A.10", "num_hosts": "A.10",
-    "host_id": "A.10", "dp": "A.10", "cp": "A.10", "tp": "A.10",
-    "pp": "A.10", "zero1": "A.10", "fsdp": "A.10",
+    "multihost": "A.10.7", "coordinator": "A.10.7", "num_hosts": "A.10.7",
+    "host_id": "A.10.7", "cp": "A.10.6", "tp": "A.10.4", "pp": "A.10.5",
+    "zero1": "A.10.3", "fsdp": "A.10.3",
 }
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="Train the SVS U-Net on one device (cuda by default).")
+        description="Train the SVS U-Net (cuda by default; --dp over the "
+                    "ranks of torchrun).")
     p.add_argument("--train_folder", type=str, default="./data/vocals")
     p.add_argument("--load_path", type=str, default="result.ckpt")
     p.add_argument("--label", type=str, required=True)
@@ -47,29 +52,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--export_pth", action="store_true",
                    help="also write reference-loadable .pth checkpoints")
     p.add_argument("--multihost", action="store_true",
-                   help="not ported (ROADMAP A.10)")
+                   help="not ported (ROADMAP A.10.7)")
     p.add_argument("--coordinator", type=str, default=None,
-                   metavar="HOST:PORT", help="not ported (ROADMAP A.10)")
+                   metavar="HOST:PORT", help="not ported (ROADMAP A.10.7)")
     p.add_argument("--num_hosts", type=int, default=None,
-                   help="not ported (ROADMAP A.10)")
+                   help="not ported (ROADMAP A.10.7)")
     p.add_argument("--host_id", type=int, default=None,
-                   help="not ported (ROADMAP A.10)")
+                   help="not ported (ROADMAP A.10.7)")
     p.add_argument("--dp", action="store_true",
-                   help="not ported (ROADMAP A.10)")
+                   help="data-parallel over the ranks of torchrun (world "
+                        "size 1 without it): sync-BN, the gradient summed "
+                        "over the ranks, rank 0 writes")
     p.add_argument("--cp", action="store_true",
-                   help="not ported (ROADMAP A.10)")
+                   help="not ported (ROADMAP A.10.6)")
     p.add_argument("--tp", type=int, default=None, metavar="K",
-                   help="not ported (ROADMAP A.10)")
+                   help="not ported (ROADMAP A.10.4)")
     p.add_argument("--pp", action="store_true",
-                   help="not ported (ROADMAP A.10)")
+                   help="not ported (ROADMAP A.10.5)")
     p.add_argument("--pp_micro", type=int, default=4, metavar="N",
                    help="with --pp (not ported)")
     p.add_argument("--pp_split", type=int, default=3, metavar="K",
                    help="with --pp (not ported)")
     p.add_argument("--zero1", action="store_true",
-                   help="not ported (ROADMAP A.10)")
+                   help="not ported (ROADMAP A.10.3)")
     p.add_argument("--fsdp", action="store_true",
-                   help="not ported (ROADMAP A.10)")
+                   help="not ported (ROADMAP A.10.3)")
     p.add_argument("--accum", type=int, default=1, metavar="K",
                    help="gradient accumulation: update params once every "
                         "K microbatches with their mean gradient; resume "
@@ -127,13 +134,21 @@ def main(argv=None) -> int:
         value = getattr(args, flag)
         if value not in (None, False):
             parser.error(f"--{flag} is not ported to svs_torch yet "
-                         f"(ROADMAP {item}); train_cli trains on one device")
+                         f"(ROADMAP {item})")
+    if args.dp and args.epoch_scan:
+        parser.error("--epoch_scan with --dp (a captured step over a mesh) "
+                     "is not ported to svs_torch yet (ROADMAP A.10.2)")
     if args.accum < 1:
         parser.error(f"--accum must be a positive microbatch count, "
                      f"got {args.accum}")
 
     from svs_torch.train.loop import TrainOptions, fit
     from svs_torch.utils.config import get_config
+
+    mesh = None
+    if args.dp:
+        from svs_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(device=args.device)
 
     cfg = get_config(args.preset)
     if args.samples_per_song is not None:
@@ -167,6 +182,7 @@ def main(argv=None) -> int:
         epoch_scan=args.epoch_scan,
         val_sdr=args.val_sdr,
         val_sdr_songs=args.val_sdr_songs,
+        mesh=mesh,
         device=args.device,
     )
     fit(opts, cfg)

@@ -23,8 +23,10 @@ The randomness is drawn on the host from a numpy generator per epoch
 same seed gives svs_tpu's draws exactly; :func:`apply_remix` is a handful
 of elementwise tensor ops and a row gather on the batch's device.  Zero-
 weight pad rows keep ``perm`` identity and unit gains, so they stay exactly
-zero.  The mesh variants (``out_shardings``, ``apply_sharded``) wait for
-the parallel layouts (ROADMAP A.10).
+zero.  Under a data mesh the loop remixes the global batch before each
+rank keeps its rows (``train/loop.py``), so the partners cross the
+global batch as svs_tpu's ``out_shardings`` variant's do; the multi-host
+``apply_sharded`` waits for ROADMAP A.10.7.
 """
 
 from __future__ import annotations

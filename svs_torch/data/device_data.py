@@ -23,9 +23,14 @@ Memory: 4 float32 planes of (S, F, T_max).  MUSDB18-scale (100 songs x
 ~2560 frames x 512 bins) is ~2.1 GB; ``resident_bytes`` lets callers gate on
 a cap first.
 
-The mesh modes of svs_tpu (``mesh=``, ``time_sharded``, ``gather_mesh`` and
-``MultiHostDeviceDataset``) are not yet ported: they come with the parallel
-layouts, and a ``mesh`` raises.
+With a data mesh (``mesh=``, one process per device), each rank keeps the
+planes on its own device and gathers the global batch's crops, the same on
+every rank; the training loop remixes that global batch (the partners
+cross it, as svs_tpu's do) and then keeps this rank's rows
+(``parallel.mesh.shard_batch``).  A DP epoch so consumes exactly the
+single-device epoch's batches.  svs_tpu's
+``time_sharded`` mode (ROADMAP A.10.6) and ``MultiHostDeviceDataset``
+(A.10.7) are not ported yet.
 """
 
 from __future__ import annotations
@@ -71,18 +76,18 @@ class DeviceDataset:
 
     Same ``batches`` signature and semantics as the host dataset; yields
     dicts of (B, F, L) float32 tensors on ``device`` (``cuda`` unless the
-    caller asks for the CPU) instead of numpy.  For single-device training
-    where the host-to-device link bounds the epoch.
+    caller asks for the CPU) instead of numpy.  For training where the
+    host-to-device link bounds the epoch.
+
+    ``mesh``: a data mesh, whose device then holds the planes; the batches
+    are the global batch's, the same on every rank.
     """
 
     def __init__(self, host: PatchDataset, mesh=None, *,
                  device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "DeviceDataset over a device mesh is not yet ported (it "
-                "comes with the parallel layouts); use one device")
         self.host = host
-        self.device = resolve_device(device)
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(device))
         self.planes = {k: torch.from_numpy(v).to(self.device)
                        for k, v in _pack_planes(host).items()}
         self.nbytes = sum(v.numel() * v.element_size()

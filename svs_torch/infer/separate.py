@@ -21,19 +21,25 @@ same padding is what keeps the two packages' outputs equal.
 :func:`separate_wav_stream` separates many songs in a row, optionally as
 PCM16 (int16 in and out, decoded and re-quantised on the device).  On the
 card it keeps the copies off the compute stream, so that one song's
-transfers overlap another's decode.
+transfers overlap another's decode.  :func:`separate_magnitude_mesh`
+spreads one song's windows over the ranks of a data mesh
+(``parallel.mesh``).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
+
+import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from svs_torch.ops import stft as dsp
+from svs_torch.parallel.mesh import Mesh, crosses
 from svs_torch.utils.config import SVSConfig
 from svs_torch.utils.device import DeviceLike, resolve_device
 
@@ -153,6 +159,95 @@ def separate_magnitude(
     mask = _mask_frames(model, m[1:], cfg, vocal_solo, mode)
     pred = torch.cat([torch.zeros_like(m[:1]), m[1:] * mask])  # DC row 0
     return pred[:, :t].cpu().numpy()
+
+
+def separate_magnitude_mesh(
+    model: nn.Module,
+    mag: np.ndarray,
+    mesh: Mesh,
+    *,
+    vocal_solo: bool = True,
+    mode: str = "segments",
+) -> Optional[np.ndarray]:
+    """:func:`separate_magnitude` over a data mesh (svs_tpu separate.py:
+    159-240): segment-parallel (SP), each rank masking its own contiguous
+    block of the song's windows on its device with no communication; the
+    masked windows then meet on rank 0, which puts the song back together
+    and returns it (the other ranks return None).  Every rank calls it
+    with the same ``mag`` and a model holding the same weights.
+
+    mode='segments': the reference's independent windows; 'overlap': the
+    50%-overlapping windows, whose triangular crossfade commutes with SP
+    because the blend is linear in the masked frames (the numpy
+    accumulation below).  The window count is padded with zero windows to
+    a multiple of ``lcm(size, 8)`` (the unsharded path's bucket of 8) and
+    their outputs sliced off, so no value changes.  mode='whole' is the
+    halo-exchange time-sharded forward, not ported yet.
+    """
+    if mode == "whole":
+        raise NotImplementedError(
+            "separate_magnitude_mesh(mode='whole') is the halo-exchange "
+            "time-sharded forward, not ported to svs_torch yet (ROADMAP "
+            "A.10.6)")
+    if mode not in ("segments", "overlap"):
+        raise ValueError(f"unknown mode {mode!r}; expected one of "
+                         f"{sorted(_MASK_MODES)}")
+    cfg = model.cfg
+    _check(model, mode)
+    dev = _model_device(model, mesh.device)
+
+    t = mag.shape[1]
+    seg = cfg.input_len
+    nodc = mag.astype(np.float32)[1:]
+    f = nodc.shape[0]
+    n_seg = max(_cdiv(t, seg), 1)
+    t_pad = n_seg * seg
+    if mode == "segments":
+        x = np.pad(nodc, ((0, 0), (0, t_pad - t)))
+        segs = x.reshape(f, n_seg, seg).transpose(1, 0, 2)
+    else:  # overlap: hop-stepped windows, half-window zero pad each side
+        hop = seg // 2
+        x = np.pad(nodc, ((0, 0), (hop, hop + t_pad - t)))
+        rows = x.reshape(f, -1, hop)                  # (F, t_pad/hop+2, hop)
+        segs = np.concatenate([rows[:, :-1], rows[:, 1:]],
+                              axis=-1).transpose(1, 0, 2)
+    n_win = len(segs)
+    granule = mesh.size * _SEG_BUCKET // math.gcd(mesh.size, _SEG_BUCKET)
+    n_rows = _cdiv(n_win, granule) * granule
+    per = n_rows // mesh.size
+    lo = mesh.rank * per
+    own = np.zeros((per, f, seg), np.float32)
+    have = segs[lo:min(lo + per, n_win)]
+    own[:len(have)] = have
+
+    from svs_torch.parallel.dp import make_sp_separate
+    fn = make_sp_separate(mesh, cfg, vocal_solo=vocal_solo)
+    out = fn(model, torch.from_numpy(own).to(dev))
+    if crosses(mesh):
+        # every rank's block in its place, zeros elsewhere, summed: an
+        # all-reduce, which NCCL and gloo both run on CUDA tensors
+        whole = out.new_zeros((n_rows, f, seg))
+        whole[lo:lo + per] = out
+        dist.all_reduce(whole, group=mesh.group)
+        out = whole
+    if not mesh.is_primary:
+        return None
+    masked = out.cpu().numpy()[:n_win]
+
+    if mode == "segments":
+        pred = masked.transpose(1, 0, 2).reshape(f, t_pad)
+    else:
+        # numpy mirror of _mask_overlap's triangular accumulation, applied
+        # to the already-masked frames
+        asc = (np.arange(hop, dtype=np.float32) + 0.5) / hop
+        tri = np.concatenate([asc, asc[::-1]])
+        weighted = masked * tri[None, None, :]
+        acc = np.zeros((t_pad // hop + 2, f, hop), np.float32)
+        acc[:-1] += weighted[:, :, :hop]
+        acc[1:] += weighted[:, :, hop:]
+        pred = acc[1:-1].transpose(1, 0, 2).reshape(f, t_pad)
+    return np.concatenate(
+        [np.zeros((1, t_pad), np.float32), pred])[:, :t]
 
 
 def _separate_padded(model, y: torch.Tensor, n: int, cfg: SVSConfig,

@@ -13,8 +13,11 @@ satisfies), so the experiments actually ran ``nn.L1Loss``.  Here:
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+
+from svs_torch.parallel.mesh import Mesh, all_sum
 
 
 def abs_like_jax(x: torch.Tensor) -> torch.Tensor:
@@ -25,29 +28,33 @@ def abs_like_jax(x: torch.Tensor) -> torch.Tensor:
 
 
 def l1(pred: torch.Tensor, target: torch.Tensor,
-       weight: torch.Tensor = None) -> torch.Tensor:
+       weight: torch.Tensor = None,
+       group: Optional[Mesh] = None) -> torch.Tensor:
     """``nn.L1Loss`` (mean reduction).
 
     ``weight`` is an optional per-example ``(B,)`` 0/1 validity mask: the
     mean then runs over real examples only, so a padded batch reproduces the
-    unpadded loss exactly.
+    unpadded loss exactly.  ``group``: the data mesh whose ranks hold the
+    rest of the batch (``weight`` is then required); the sums of
+    ``w*|diff|`` and of ``weight`` are then the global batch's.
     """
     diff = abs_like_jax(pred - target)
     if weight is None:
         return torch.mean(diff)
     w = weight.reshape(weight.shape + (1,) * (diff.ndim - 1))
     per_example = math.prod(diff.shape[1:])
-    return torch.sum(w * diff) / (torch.sum(weight) * per_example)
+    s = all_sum(torch.stack([torch.sum(w * diff), torch.sum(weight)]), group)
+    return s[0] / (s[1] * per_example)
 
 
-def masked_l1_pair(mask, mix, voc, weight=None):
+def masked_l1_pair(mask, mix, voc, weight=None, group=None):
     """L1(mask*mix, voc) + L1((1-mask)*mix, clamp(mix-voc, 0))
     (reference train.py:274-283). Returns (total, pred_vocal)."""
     pred_vocal = mask * mix
     pred_accomp = (1.0 - mask) * mix
     target_accomp = torch.clamp(mix - voc, min=0.0)
-    total = (l1(pred_vocal, voc, weight)
-             + l1(pred_accomp, target_accomp, weight))
+    total = (l1(pred_vocal, voc, weight, group)
+             + l1(pred_accomp, target_accomp, weight, group))
     return total, pred_vocal
 
 

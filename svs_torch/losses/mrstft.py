@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from svs_torch.losses.masked_l1 import abs_like_jax, masked_l1_pair
 from svs_torch.ops import stft as dsp
 from svs_torch.ops.cuda import diff_mag, fused_loss
+from svs_torch.parallel.mesh import Mesh, all_sum
 from svs_torch.utils.config import SVSConfig
 
 
@@ -114,7 +115,11 @@ def _norm0(x: torch.Tensor) -> torch.Tensor:
     gradient when x vanishes (an exactly-perfect prediction).  The inner
     where keeps the discarded sqrt branch finite (svs_tpu
     mrstft.py:126-137)."""
-    ss = torch.sum(torch.square(x))
+    return _root0(torch.sum(torch.square(x)))
+
+
+def _root0(ss: torch.Tensor) -> torch.Tensor:
+    """sqrt(ss) with the zero subgradient of :func:`_norm0` at 0."""
     live = ss > 0
     root = torch.sqrt(torch.where(live, ss, torch.ones_like(ss)))
     return torch.where(live, root, torch.zeros_like(ss))
@@ -123,12 +128,19 @@ def _norm0(x: torch.Tensor) -> torch.Tensor:
 def stft_loss(x: torch.Tensor, y: torch.Tensor, n_fft: int, hop: int,
               win: int, w_sc: float = 1.0, w_log_mag: float = 1.0,
               impl: str = "matmul_bf16",
-              weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+              weight: Optional[torch.Tensor] = None,
+              group: Optional[Mesh] = None) -> torch.Tensor:
     """Single-resolution STFT loss (auraloss STFTLoss defaults): spectral
     convergence + log-magnitude L1.  x = prediction, y = target.
 
     weight: optional per-example (B,) 0/1 validity mask (x, y shaped
     (B, T)); zeroed examples drop out of both norms and the log-mag mean.
+    group: the data mesh whose ranks hold the rest of the batch (``weight``
+    is then required).  Both
+    Frobenius norms are the global batch's (``||w(Y-X)||_F / ||wY||_F``,
+    svs_tpu mrstft.py:189-194), so their squared sums are all-reduced
+    before the square root (``_root0`` keeps the zero subgradient), and so
+    are the log-magnitude sum and ``sum(weight)``.
 
     Prediction and target run as separate magnitude calls on purpose: the
     target needs no gradient, so its backward never runs."""
@@ -140,7 +152,7 @@ def stft_loss(x: torch.Tensor, y: torch.Tensor, n_fft: int, hop: int,
                 raise ValueError(f"{impl}: weight needs (B, T) inputs")
         return fused_loss.stft_loss_fused(
             x, y, n_fft, hop, win, weight=weight, w_sc=w_sc,
-            w_log_mag=w_log_mag, wide=impl.endswith("_wide"))
+            w_log_mag=w_log_mag, wide=impl.endswith("_wide"), group=group)
     mag = _MAG_IMPLS[impl]
     x_mag = mag(x, n_fft, hop, win)
     y_mag = mag(y, n_fft, hop, win)
@@ -150,11 +162,13 @@ def stft_loss(x: torch.Tensor, y: torch.Tensor, n_fft: int, hop: int,
                                           - torch.log(y_mag)))
     else:
         w = weight.reshape(weight.shape + (1,) * (x_mag.ndim - 1))
-        sc = _norm0(w * (y_mag - x_mag)) / torch.linalg.norm(w * y_mag)
-        per_example = x_mag.shape[-1] * x_mag.shape[-2]
-        log_mag = (torch.sum(w * abs_like_jax(torch.log(x_mag)
-                                              - torch.log(y_mag)))
-                   / (torch.sum(weight) * per_example))
+        s = all_sum(torch.stack([
+            torch.sum(torch.square(w * (y_mag - x_mag))),
+            torch.sum(torch.square(w * y_mag)),
+            torch.sum(w * abs_like_jax(torch.log(x_mag) - torch.log(y_mag))),
+            torch.sum(weight)]), group)
+        sc = _root0(s[0]) / torch.sqrt(s[1])
+        log_mag = s[2] / (s[3] * x_mag.shape[-1] * x_mag.shape[-2])
     return w_sc * sc + w_log_mag * log_mag
 
 
@@ -163,20 +177,22 @@ def mr_stft_loss(x: torch.Tensor, y: torch.Tensor,
                  hop_sizes: Sequence[int] = (120, 240, 50),
                  win_lengths: Sequence[int] = (600, 1200, 240),
                  impl: str = "matmul_bf16",
-                 weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 weight: Optional[torch.Tensor] = None,
+                 group: Optional[Mesh] = None) -> torch.Tensor:
     """Multi-resolution STFT loss on waveforms ``(..., T)``; prediction
     first, target second (reference train.py:293 call order)."""
     total = 0.0
     for n_fft, hop, win in zip(fft_sizes, hop_sizes, win_lengths):
         total = total + stft_loss(x, y, n_fft, hop, win, impl=impl,
-                                  weight=weight)
+                                  weight=weight, group=group)
     return total / len(fft_sizes)
 
 
 def combined_loss(mask: torch.Tensor, mix: torch.Tensor, voc: torch.Tensor,
                   mix_angle: torch.Tensor, voc_angle: torch.Tensor,
                   cfg: Optional[SVSConfig] = None,
-                  weight: Optional[torch.Tensor] = None
+                  weight: Optional[torch.Tensor] = None,
+                  group: Optional[Mesh] = None
                   ) -> Tuple[torch.Tensor, dict]:
     """The reference's full training loss (train.py:274-296):
     alpha_L1 * (masked L1 pair) + alpha_MR * MR-STFT(pred_wav, target_wav).
@@ -185,15 +201,17 @@ def combined_loss(mask: torch.Tensor, mix: torch.Tensor, voc: torch.Tensor,
     the target wav the true vocal magnitude and phase (train.py:287-290).
     Inputs are (B, 512, T) patches.  Returns (total, aux dict).
     weight: optional (B,) 0/1 validity mask, excluded from every reduction.
+    group: the data mesh whose ranks hold the rest of the batch; every
+    reduction is then the global batch's, the same on every rank.
     """
     cfg = cfg or SVSConfig()
-    l1_total, pred_vocal = masked_l1_pair(mask, mix, voc, weight)
+    l1_total, pred_vocal = masked_l1_pair(mask, mix, voc, weight, group)
     pred_wav = patch_istft(pred_vocal, mix_angle, n_fft=cfg.window_size,
                            hop_length=cfg.hop_size)
     target_wav = patch_istft(voc, voc_angle, n_fft=cfg.window_size,
                              hop_length=cfg.hop_size)
     mr = mr_stft_loss(pred_wav, target_wav, cfg.mr_fft_sizes,
                       cfg.mr_hop_sizes, cfg.mr_win_lengths,
-                      impl=cfg.mr_mag_impl, weight=weight)
+                      impl=cfg.mr_mag_impl, weight=weight, group=group)
     total = cfg.alpha_l1 * l1_total + cfg.alpha_mr * mr
     return total, {"l1": l1_total, "mr": mr, "total": total}

@@ -41,6 +41,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from svs_torch.parallel.mesh import Mesh, all_sum
 from svs_torch.utils.config import SVSConfig
 from svs_torch.utils.device import torch_dtype
 
@@ -56,6 +57,7 @@ def batch_norm(
     eps: float,
     momentum: float,
     weight: Optional[torch.Tensor] = None,
+    group: Optional[Mesh] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """torch BatchNorm2d semantics on NCHW, after svs_tpu unet.py:166-211.
 
@@ -64,6 +66,14 @@ def batch_norm(
     optional per-example (B,) 0/1 validity mask: batch statistics are then
     taken over real examples only (``nn.BatchNorm2d`` cannot do that).
     Statistics stay float32; the normalisation runs in ``x``'s dtype.
+
+    ``group``: the data mesh whose ranks hold the rest of the batch.  The
+    statistics are then the global weighted batch's (sync-BN, svs_tpu
+    dp.py:6-10), in svs_tpu's two passes: the mean from the all-reduced
+    ``sum(w*x)`` and ``sum(w)``, then the variance from the all-reduced
+    ``sum(w*(x-mean)^2)`` (``weight`` is then required); the unbiased factor
+    takes the global count, and the backward all-reduces through the same
+    sums.
 
     Returns ``(y, new_mean, new_var)``.
     """
@@ -76,10 +86,14 @@ def batch_norm(
             n = x.shape[0] * x.shape[2] * x.shape[3]
         else:
             w = weight.to(torch.float32)[:, None, None, None]
-            n = weight.to(torch.float32).sum() * (x.shape[2] * x.shape[3])
-            batch_mean = (w * x32).sum(dim=axes) / n
-            batch_var = (w * (x32 - batch_mean[None, :, None, None]) ** 2
-                         ).sum(dim=axes) / n
+            s = all_sum(torch.cat([(w * x32).sum(dim=axes),
+                                   weight.to(torch.float32).sum()[None]]),
+                        group)
+            n = s[-1] * (x.shape[2] * x.shape[3])
+            batch_mean = s[:-1] / n
+            batch_var = all_sum(
+                (w * (x32 - batch_mean[None, :, None, None]) ** 2
+                 ).sum(dim=axes), group) / n
         if not isinstance(n, torch.Tensor):
             # made on the device (a fill, not a host copy: a CUDA graph
             # captures no pageable copy)
@@ -200,13 +214,20 @@ class UNet(nn.Module):
 
     def forward(self, mix: torch.Tensor, *,
                 weight: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
         """Sigmoid soft mask for magnitude patches.
 
         Args:
           mix: (B, F, T) magnitudes, F and T multiples of 64.
           weight: optional (B,) 0/1 validity mask for train-mode BatchNorm.
           generator: Dropout2d's random source in train mode.
+          mesh: the data mesh when ``mix`` is this rank's block of a global
+            batch (``parallel.mesh.shard_batch``): BatchNorm takes the
+            global batch's statistics, and each Dropout2d mask is drawn at
+            the global padded batch's shape, the same on every rank from
+            a generator seeded alike, and cut to this rank's rows (svs_tpu
+            draws one (B_global, C) mask from a replicated key).
 
         Returns the (B, F, T) float32 mask.  Train mode (``.train()``) uses
         batch statistics, updates the running stats and applies Dropout2d.
@@ -222,7 +243,7 @@ class UNet(nn.Module):
 
         skips = []
         for i in range(1, 7):
-            x, new_mean, new_var = run(self._enc_level, i, x, weight)
+            x, new_mean, new_var = run(self._enc_level, i, x, weight, mesh)
             if self.training:
                 getattr(self, f"conv{i}")[1].update(new_mean, new_var)
             skips.append(x)
@@ -233,17 +254,22 @@ class UNet(nn.Module):
                 break
             keep = None
             if self.training:
-                shape = (inp.shape[0],
+                b = inp.shape[0]
+                shape = (b * mesh.size if mesh is not None else b,
                          getattr(self, f"deconv{i}").weight.shape[1])
                 keep = dropout_keep(shape, cfg.dropout_rate, inp.device,
                                     generator)
-            x, new_mean, new_var = run(self._dec_level, i, inp, weight, keep)
+                if mesh is not None:
+                    keep = keep[mesh.rank * b:(mesh.rank + 1) * b]
+            x, new_mean, new_var = run(self._dec_level, i, inp, weight, keep,
+                                       mesh)
             if self.training:
                 getattr(self, f"deconv{i}_BAD")[0].update(new_mean, new_var)
         return torch.sigmoid(x.to(torch.float32))[:, 0]
 
     def _enc_level(self, i: int, x: torch.Tensor,
-                   weight: Optional[torch.Tensor]):
+                   weight: Optional[torch.Tensor],
+                   mesh: Optional[Mesh] = None):
         """Encoder level i: conv s2 -> BN -> LeakyReLU (reference model.py:
         42-77); returns the activation and BN's new running statistics."""
         cfg = self.cfg
@@ -255,7 +281,7 @@ class UNet(nn.Module):
         x, new_mean, new_var = batch_norm(
             x, bn.weight, bn.bias, bn.running_mean, bn.running_var,
             train=self.training, eps=bn.eps, momentum=bn.momentum,
-            weight=weight)
+            weight=weight, group=mesh)
         return (torch.where(x >= 0, x, cfg.leaky_slope * x),  # LeakyReLU
                 new_mean, new_var)
 
@@ -269,14 +295,15 @@ class UNet(nn.Module):
 
     def _dec_level(self, i: int, inp: torch.Tensor,
                    weight: Optional[torch.Tensor],
-                   keep: Optional[torch.Tensor]):
+                   keep: Optional[torch.Tensor],
+                   mesh: Optional[Mesh] = None):
         """Decoder level i < 6: deconv -> BN -> ReLU -> Dropout2d with the
         keep mask ``keep`` (train mode) (reference model.py:79-109)."""
         bn = getattr(self, f"deconv{i}_BAD")[0]
         x, new_mean, new_var = batch_norm(
             self._deconv(i, inp), bn.weight, bn.bias, bn.running_mean,
             bn.running_var, train=self.training, eps=bn.eps,
-            momentum=bn.momentum, weight=weight)
+            momentum=bn.momentum, weight=weight, group=mesh)
         # ReLU as jnp.maximum(x, 0): the gradient at an exact 0 is 0.5, as
         # JAX's (torch.clamp gives 1 there, torch.relu 0)
         x = torch.maximum(x, torch.zeros_like(x))

@@ -53,6 +53,7 @@ import torch
 
 from svs_torch.ops.cuda import build
 from svs_torch.ops.cuda import spectral as sp
+from svs_torch.parallel.mesh import all_sum
 
 KERNEL = "fused_loss"
 
@@ -237,10 +238,14 @@ def loss_partials(x: torch.Tensor, y: torch.Tensor, n_fft: int, hop: int,
 def stft_loss_fused(x: torch.Tensor, y: torch.Tensor, n_fft: int, hop: int,
                     win: int, weight: Optional[torch.Tensor] = None,
                     w_sc: float = 1.0, w_log_mag: float = 1.0,
-                    wide: bool = False) -> torch.Tensor:
+                    wide: bool = False, group=None) -> torch.Tensor:
     """Single-resolution SC + log-mag loss via the fused partials kernel
     (svs_tpu fused_loss.py:411-436); x = prediction (differentiated),
-    y = target (detached); both (B, T) waveforms."""
+    y = target (detached); both (B, T) waveforms.  ``group``: the data
+    mesh whose ranks hold the rest of the batch (``weight`` is then
+    required); the kernel's per-row
+    partials are then summed over the global batch's rows (with
+    ``sum(weight)``) before the square roots."""
     if x.ndim != 2:
         raise ValueError("stft_loss_fused expects (B, T) waveforms")
     p = loss_partials(x, y.detach(), n_fft, hop, win, wide)
@@ -249,8 +254,9 @@ def stft_loss_fused(x: torch.Tensor, y: torch.Tensor, n_fft: int, hop: int,
         s = torch.sum(p, dim=0)
         n_examples = x.shape[0] * 1.0
     else:
-        s = torch.sum(p * weight[:, None], dim=0)
-        n_examples = torch.sum(weight)
+        s = all_sum(torch.cat([torch.sum(p * weight[:, None], dim=0),
+                               torch.sum(weight)[None]]), group)
+        s, n_examples = s[:3], s[3]
     # zero-safe sqrt on the SC numerator: d sqrt/d s0 is inf at s0 == 0 (an
     # exactly-perfect prediction); both wheres keep the discarded branch
     # finite so its zero gradient stays zero, not NaN

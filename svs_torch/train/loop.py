@@ -32,8 +32,21 @@ then the ragged tail through the eager step; it needs the dataset on the
 device.  ``val_sdr`` scores the validation songs' separated vocals with
 BSS eval after each validation (:mod:`svs_torch.evaluation.val_sdr`).
 
-Not ported yet, and refused with ``NotImplementedError``: a mesh and every
-parallel layout (ROADMAP A.10).
+With ``mesh`` (a ``parallel.mesh.Mesh``, one process per device) and
+``parallel="dp"`` the loop is data-parallel (svs_tpu loop.py:393-447): each
+rank steps on its rows of every global batch through
+``parallel.dp.make_dp_train_step`` (sync-BN, global losses, the gradient
+summed over the ranks) from rank 0's replicated state, and validates
+through the global weighted eval step (remainder batches padded to the
+full batch's rows).  Every rank reads the checkpoint it resumes from; rank
+0 alone writes ``CKPT/`` and ``LOG/`` (svs_tpu's ``is_primary``) and scores
+``val_sdr``.  The SIGTERM flag is agreed across the ranks where the loop
+checks it, so that every rank stops at the same step.
+
+Not ported yet, and refused with ``NotImplementedError`` naming its
+ROADMAP item: ZeRO-1 and FSDP (A.10.3), TP (A.10.4), PP (A.10.5), CP
+(A.10.6), the ``device_put`` hook and multi-host runs (A.10.7), and
+``epoch_scan`` over a mesh (A.10.2).
 """
 
 from __future__ import annotations
@@ -50,6 +63,8 @@ import torch
 
 from svs_torch.data import device_data as dd
 from svs_torch.data.dataset import PatchDataset
+from svs_torch.parallel import dp
+from svs_torch.parallel import mesh as mesh_lib
 from svs_torch.train import checkpoint as ckpt_lib
 from svs_torch.train.step import (TrainState, batch_to_device,
                                   create_train_state, get_learning_rate,
@@ -81,18 +96,19 @@ class TrainOptions:
     progress: bool = True
     # latest-checkpoint cadence in epochs (the reference writes every epoch)
     save_every: int = 1
-    device_put: Optional[Callable] = None  # sharding hook: ROADMAP A.10
+    device_put: Optional[Callable] = None  # sharding hook: ROADMAP A.10.7
     # keep the spectrogram dataset on the device and gather crops there
     # (data/device_data.py): "auto" when it fits device_data_cap_mb
     device_data: str = "auto"  # "auto" | "on" | "off"
     device_data_cap_mb: float = 2048.0
     epoch_scan: bool = False   # the epoch as replays of a CUDA graph
-    mesh: Optional[object] = None  # ROADMAP A.10
-    parallel: str = "dp"       # only "dp" without a mesh: one device
+    # a parallel.mesh.Mesh: data-parallel training over its ranks
+    mesh: Optional[object] = None
+    parallel: str = "dp"       # "cp" / "tp" / "pp": ROADMAP A.10.6 / 4 / 5
     pp_micro: int = 4
     pp_split: int = 3
-    zero1: bool = False        # ROADMAP A.10
-    fsdp: bool = False         # ROADMAP A.10
+    zero1: bool = False        # ROADMAP A.10.3
+    fsdp: bool = False         # ROADMAP A.10.3
     # gradient accumulation: one Adam update every accum_steps microbatches
     # with their mean gradient; resume with the same value
     accum_steps: int = 1
@@ -111,15 +127,33 @@ class TrainOptions:
 def _refuse_unported(opts: TrainOptions) -> None:
     def no(what: str, item: str) -> None:
         raise NotImplementedError(f"{what} is not ported to svs_torch yet "
-                                  f"(ROADMAP {item}); fit runs on one device")
+                                  f"(ROADMAP {item})")
 
-    if (opts.mesh is not None or opts.parallel != "dp" or opts.zero1
-            or opts.fsdp or opts.device_put is not None):
-        no("a device mesh / parallel layout (mesh, parallel, zero1, fsdp, "
-           "device_put)", "A.10")
-    if (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        no("multi-process training", "A.10")
+    if opts.zero1 or opts.fsdp:
+        no("ZeRO-1 / FSDP (zero1, fsdp)", "A.10.3")
+    items = {"tp": "A.10.4", "pp": "A.10.5", "cp": "A.10.6"}
+    if opts.parallel in items:
+        no(f"parallel={opts.parallel!r}", items[opts.parallel])
+    if opts.parallel != "dp":
+        raise ValueError(f"unknown parallel layout {opts.parallel!r}")
+    if opts.device_put is not None:
+        no("a device_put sharding hook", "A.10.7")
+    if opts.mesh is None:
+        if (torch.distributed.is_available()
+                and torch.distributed.is_initialized()
+                and torch.distributed.get_world_size() > 1):
+            raise ValueError("multi-process training requires "
+                             "TrainOptions.mesh (parallel.mesh.make_mesh)")
+        return
+    if not isinstance(opts.mesh, mesh_lib.Mesh):
+        raise TypeError("TrainOptions.mesh must be a parallel.mesh.Mesh "
+                        f"(make_mesh), not {type(opts.mesh).__name__}")
+    if opts.epoch_scan:
+        no("epoch_scan over a mesh", "A.10.2")
+    if (opts.device is not None
+            and torch.device(opts.device).type != opts.mesh.device.type):
+        raise ValueError(f"device {opts.device!r} is not the mesh's "
+                         f"{opts.mesh.device}")
 
 
 def _dataset(folder: str, cfg: SVSConfig) -> PatchDataset:
@@ -139,9 +173,14 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
     _refuse_unported(opts)
     if opts.accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {opts.accum_steps}")
-    dev = resolve_device(opts.device)
-    os.makedirs(opts.ckpt_dir, exist_ok=True)
-    os.makedirs(opts.log_dir, exist_ok=True)
+    mesh = opts.mesh
+    # rank 0 alone writes files and prints (svs_tpu's is_primary)
+    primary = mesh is None or mesh.is_primary
+    say = print if primary else (lambda *a, **k: None)
+    dev = mesh.device if mesh is not None else resolve_device(opts.device)
+    if primary:
+        os.makedirs(opts.ckpt_dir, exist_ok=True)
+        os.makedirs(opts.log_dir, exist_ok=True)
     log_file = os.path.join(opts.log_dir, f"log_{opts.label}.txt")
     metrics_file = os.path.join(opts.log_dir, f"metrics_{opts.label}.jsonl")
     best_weight = os.path.join(opts.ckpt_dir, f"svs_best_{opts.label}.ckpt")
@@ -155,18 +194,18 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
         except FileNotFoundError:
             valid_ds = None
     if valid_ds is None:
-        print(f"Warning: no validation folder {opts.valid_folder}; skipping "
-              "validation.")
+        say(f"Warning: no validation folder {opts.valid_folder}; skipping "
+            "validation.")
     if opts.device_data != "off":
         train_ds = dd.maybe_device_dataset(train_ds, opts.device_data,
                                            opts.device_data_cap_mb,
-                                           device=dev)
+                                           mesh=mesh, device=dev)
         valid_ds = dd.maybe_device_dataset(valid_ds, opts.device_data,
                                            opts.device_data_cap_mb,
-                                           device=dev)
+                                           mesh=mesh, device=dev)
         if isinstance(train_ds, dd.DeviceDataset):
-            print(f"[svs-torch] device-resident dataset: "
-                  f"{train_ds.nbytes / 2**20:.0f} MiB on {dev}")
+            say(f"[svs-torch] device-resident dataset: "
+                f"{train_ds.nbytes / 2**20:.0f} MiB on {dev}")
 
     epoch_fn = None
     if opts.epoch_scan:
@@ -184,15 +223,22 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
     optimizer = make_optimizer(cfg, accum_steps=opts.accum_steps,
                                capturable=opts.epoch_scan)
     state = create_train_state(opts.seed, cfg, optimizer, device=dev)
-    train_step = make_train_step(cfg)
-    eval_step = make_eval_step(cfg)
+    if mesh is None:
+        train_step = make_train_step(cfg)
+        eval_step = make_eval_step(cfg)
+    else:
+        train_step = dp.make_dp_train_step(mesh, cfg)
+        eval_step = dp.make_dp_eval_step(mesh, cfg)
 
     start_epoch = 0
     extras = {}
     if os.path.exists(opts.load_path):
+        # every rank reads it
         state, start_epoch, extras = ckpt_lib.resume(opts.load_path, state)
-        print(f"Loaded checkpoint from {opts.load_path} "
-              f"(epoch {start_epoch})")
+        say(f"Loaded checkpoint from {opts.load_path} "
+            f"(epoch {start_epoch})")
+    if mesh is not None:
+        dp.replicate_state(state, mesh)
 
     augmenter = None
     if opts.augment:
@@ -200,12 +246,41 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
         augmenter = Augmenter(opts.remix_p, opts.aug_gain_lo,
                               opts.aug_gain_hi)
 
+    def _local(batch, n_real: int):
+        """A host or device batch as this rank's step input: remixed
+        whole, then (with a mesh) cut to this rank's rows."""
+        if augmenter is not None:
+            batch = augmenter(_on_device(batch, dev), n_real=n_real)
+        if mesh is None:
+            return _on_device(batch, dev)
+        return mesh_lib.shard_batch(mesh, batch)
+
+    def _val_local(batch):
+        """A validation batch as this rank's eval input (with a mesh, a
+        remainder batch padded to the full batch's rows)."""
+        if mesh is None:
+            return _on_device(batch, dev)
+        return mesh_lib.global_batch_from_global(mesh, batch,
+                                                 opts.batch_size)
+
+    def _record(record: dict) -> None:
+        if primary:
+            with open(metrics_file, "a") as f:
+                f.write(json.dumps(record) + "\n")
+
     # 100.0 per reference train.py:209, restored on resume so that a
     # resumed run cannot overwrite svs_best with a worse model
     best_val_loss = float(extras.get("best_val_loss", 100.0))
-    saver = ckpt_lib.AsyncSaver() if opts.async_save else None
-    save_ckpt = saver.save if saver else ckpt_lib.save
-    export_ckpt = saver.export_pth if saver else ckpt_lib.export_pth
+    saver = ckpt_lib.AsyncSaver() if opts.async_save and primary else None
+
+    def save_ckpt(*args, **kw):
+        if primary:
+            (saver.save if saver else ckpt_lib.save)(*args, **kw)
+
+    def export_ckpt(*args, **kw):
+        if primary:
+            (saver.export_pth if saver else ckpt_lib.export_pth)(*args, **kw)
+
     log_buffer: List[str] = []
     # the per-epoch loss history, persisted like the reference's
     # loss_list_total (model.py:112-114, train.py:377-379)
@@ -215,7 +290,7 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
 
     def _flush_log():
         nonlocal log_buffer
-        if log_buffer:
+        if log_buffer and primary:
             with open(log_file, "a") as f:
                 f.writelines(log_buffer)
         log_buffer = []
@@ -252,8 +327,8 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
                 save_ckpt(os.path.join(opts.ckpt_dir,
                                        f"svs_{opts.label}_400.ckpt"),
                           state, epoch=ep + 1)
-                print(f"\n[Info] Epoch {ep}: learning rate set to "
-                      f"{cfg.lr_after_drop}\n")
+                say(f"\n[Info] Epoch {ep}: learning rate set to "
+                    f"{cfg.lr_after_drop}\n")
 
             t0 = time.time()
             losses: List[torch.Tensor] = []
@@ -278,20 +353,17 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
                           f"{n_steps}/{n_steps}", flush=True)
                 # a stop request is served at the epoch's end, below
             else:
-                batches = train_ds.batches(opts.batch_size, shuffle=True,
-                                           seed=epoch_seed)
-                for i, batch in enumerate(batches):
-                    b = _on_device(batch, dev)
-                    if augmenter is not None:
-                        b = augmenter(b, n_real=min(
-                            opts.batch_size, n_items - i * opts.batch_size))
+                for i, batch in enumerate(train_ds.batches(
+                        opts.batch_size, shuffle=True, seed=epoch_seed)):
+                    b = _local(batch, min(opts.batch_size,
+                                          n_items - i * opts.batch_size))
                     state, aux = train_step(state, b, gen)
                     losses.append(aux["total"])  # stays on the device
-                    if opts.progress and ((i + 1) % every == 0
-                                          or i + 1 == n_steps):
+                    if opts.progress and primary and (
+                            (i + 1) % every == 0 or i + 1 == n_steps):
                         print(f"Epoch {ep + 1}/{opts.epoch} [Train] "
                               f"{i + 1}/{n_steps}", flush=True)
-                    if stop_requested:
+                    if mesh_lib.agree(stop_requested, mesh):
                         # mid-epoch: epoch=ep, so resume re-runs this epoch
                         _preempt_exit(ep)
 
@@ -303,25 +375,22 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
             log_buffer.append(f"{avg_train_loss}\n")
             loss_history.append(avg_train_loss)
             epoch_secs = time.time() - t0
-            with open(metrics_file, "a") as f:
-                f.write(json.dumps({
-                    "epoch": ep + 1, "train_loss": avg_train_loss,
-                    "lr": get_learning_rate(state),
-                    "steps": len(values), "secs": round(epoch_secs, 3),
-                }) + "\n")
+            _record({"epoch": ep + 1, "train_loss": avg_train_loss,
+                     "lr": get_learning_rate(state),
+                     "steps": len(values), "secs": round(epoch_secs, 3)})
 
             if valid_ds is not None and (ep + 1) % opts.val_interval == 0:
                 # fixed crop seed: the same validation patches every pass
                 # (svs_tpu's choice; the reference re-rolls them)
-                val_losses = [eval_step(state, _on_device(batch, dev))["total"]
+                val_losses = [eval_step(state, _val_local(batch))["total"]
                               for batch in valid_ds.batches(
                                   opts.batch_size, shuffle=False,
                                   seed=opts.seed)]
                 avg_val_loss = float(np.mean(
                     torch.stack(val_losses).cpu().tolist()))
                 log_buffer.append(f"Val {avg_val_loss}\n")
-                print(f"\n[Epoch {ep + 1}] Train Loss: {avg_train_loss:.4e} "
-                      f"| Val Loss: {avg_val_loss:.4e}")
+                say(f"\n[Epoch {ep + 1}] Train Loss: {avg_train_loss:.4e} "
+                    f"| Val Loss: {avg_val_loss:.4e}")
                 if avg_val_loss < best_val_loss:
                     best_val_loss = avg_val_loss
                     save_ckpt(best_weight, state, epoch=ep + 1,
@@ -331,7 +400,7 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
                         export_ckpt(best_weight[:-5] + ".pth", state,
                                     epoch=ep + 1)
                 val_record = {"epoch": ep + 1, "val_loss": avg_val_loss}
-                if opts.val_sdr:
+                if opts.val_sdr and primary:
                     # after the best-checkpoint decision, so the scoring
                     # never moves the loss-based contract; a song that
                     # fails is skipped inside validation_sdr
@@ -347,11 +416,10 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
                               f"{sdr['SDR']:.3f} dB | NSDR "
                               f"{sdr['NSDR']:.3f} dB "
                               f"({len(sdr['per_song'])} songs)")
-                with open(metrics_file, "a") as f:
-                    f.write(json.dumps(val_record) + "\n")
+                _record(val_record)
                 _flush_log()
             else:
-                print(f"Epoch {ep + 1} Avg Loss: {avg_train_loss:.4e}")
+                say(f"Epoch {ep + 1} Avg Loss: {avg_train_loss:.4e}")
 
             saved_latest = ((ep + 1) % opts.save_every == 0
                             or ep + 1 == opts.epoch)
@@ -362,11 +430,11 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
                 if opts.export_pth:
                     export_ckpt(ckpt_weight[:-5] + ".pth", state,
                                 epoch=ep + 1)
-            if stop_requested:
+            if mesh_lib.agree(stop_requested, mesh):
                 # epoch complete: no second write of the same latest ckpt
                 _preempt_exit(ep + 1, already_saved=saved_latest)
 
-        print("Finish training!")
+        say("Finish training!")
         return state
     finally:
         # drain the checkpoint writes and flush the text log on every exit

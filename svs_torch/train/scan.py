@@ -42,8 +42,8 @@ On the CPU (the tests) ``epoch`` runs the same per-step body eagerly, with
 no graph.  On a CUDA device it captures, and a failed capture raises: it
 never falls back to eager steps on the card.  :func:`run_epoch` is one
 epoch as ``fit`` runs it: the replays, then the ragged tail batch through
-the eager step (as svs_tpu's loop does).  The mesh variant waits for the
-parallel layouts (ROADMAP A.10).
+the eager step (as svs_tpu's loop does).  The mesh variant, a captured
+step with its collectives, is not ported yet (ROADMAP A.10.2).
 """
 
 from __future__ import annotations
@@ -73,8 +73,9 @@ def make_epoch_scan(cfg: Optional[SVSConfig] = None, augment: bool = False,
     is the ``(n_steps,)`` per-step total on the planes' device."""
     if mesh is not None:
         raise NotImplementedError(
-            "epoch_scan over a device mesh is not ported to svs_torch yet "
-            "(ROADMAP A.10); make_epoch_scan runs on one device")
+            "epoch_scan over a device mesh (a captured step with its "
+            "collectives) is not ported to svs_torch yet (ROADMAP A.10.2); "
+            "make_epoch_scan runs on one device")
     return _EpochScan(cfg or SVSConfig(), augment)
 
 

@@ -16,6 +16,7 @@ import os
 
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 
 import jax
@@ -34,6 +35,18 @@ from svs_tpu.utils.config import SVSConfig as JConfig
 NARROW = dict(enc_channels=(4, 8, 8, 16, 16, 16), dropout_rate=0.0,
               mr_mag_impl="fft")
 EXTRAS = {"best_val_loss": 0.75, "loss_list_total": [1.5, 1.25]}
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One OpenMP thread (torch's intra-op pool) while a case runs,
+    restored after it: Tier-1 runs six test files at once on eight cores,
+    where a thread a core in each oversubscribes the CPU several times
+    over.  Set through threadpoolctl: ``torch.set_num_threads`` also sets
+    MKL's count, and once it has, MKL's float64 solve in ``bss_torch``
+    hangs."""
+    with threadpoolctl.threadpool_limits(1, user_api="openmp"):
+        yield
 
 
 def _batch(seed, b=2, t=128):

@@ -10,6 +10,7 @@ import torch
 
 from svs_torch.data import device_data as tdd
 from svs_torch.data.dataset import PatchDataset as TPatchDataset
+from svs_torch.parallel.mesh import Mesh
 from svs_tpu.data import device_data as jdd
 from svs_tpu.data.dataset import PatchDataset as JPatchDataset
 
@@ -106,10 +107,19 @@ def test_gate_and_the_mesh_modes(root):
     assert tdd.maybe_device_dataset(None, "on", 1e9, **cpu) is None
     with pytest.raises(ValueError):
         tdd.maybe_device_dataset(host, "yes", 1e9, **cpu)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tdd.DeviceDataset(host, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tdd.maybe_device_dataset(host, "on", 1e9, mesh=object(), **cpu)
+    # a mesh: the planes on the mesh's device, and every rank's batches the
+    # global batch's (tests/test_torch_dp.py cuts them with shard_batch)
+    want = next(iter(tdd.DeviceDataset(host, device="cpu").batches(
+        3, seed=0)))
+    for rank in (0, 1):
+        mesh = Mesh(None, rank, 2, torch.device("cpu"))
+        ds = tdd.maybe_device_dataset(host, "on", 1e9, mesh=mesh)
+        assert isinstance(ds, tdd.DeviceDataset)
+        assert ds.device == mesh.device
+        batch = next(iter(ds.batches(3, seed=0)))
+        assert sorted(batch) == sorted(want)
+        for k in want:
+            assert torch.equal(batch[k], want[k]), k
 
 
 def test_raises_without_gpu(root, monkeypatch):

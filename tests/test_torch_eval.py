@@ -21,6 +21,7 @@ import os
 
 import numpy as np
 import pytest
+import threadpoolctl
 
 import jax
 
@@ -41,6 +42,18 @@ from svs_tpu.utils.config import SVSConfig as JConfig
 SR = 8192
 NARROW = dict(enc_channels=(4, 8, 8, 16, 16, 16), dropout_rate=0.0,
               input_len=128, samples_per_song=2, compute_dtype="float32")
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One OpenMP thread (torch's intra-op pool) while a case runs,
+    restored after it: Tier-1 runs six test files at once on eight cores,
+    where a thread a core in each oversubscribes the CPU several times
+    over.  Set through threadpoolctl: ``torch.set_num_threads`` also sets
+    MKL's count, and once it has, MKL's float64 solve in ``bss_torch``
+    hangs."""
+    with threadpoolctl.threadpool_limits(1, user_api="openmp"):
+        yield
 
 
 @pytest.fixture(scope="module")

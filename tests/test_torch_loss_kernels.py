@@ -26,6 +26,7 @@ tests/test_torch_cuda.py and ``python3 chip_smoke.py``.
 
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 
 import jax
@@ -40,6 +41,18 @@ from svs_tpu.ops.pallas import diff_mag as jdm
 from svs_tpu.ops.pallas import fused_loss as jfl
 
 RESOLUTIONS = [(1024, 120, 600), (2048, 240, 1200), (512, 50, 240)]
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One OpenMP thread (torch's intra-op pool) while a case runs,
+    restored after it: Tier-1 runs six test files at once on eight cores,
+    where a thread a core in each oversubscribes the CPU several times
+    over.  Set through threadpoolctl: ``torch.set_num_threads`` also sets
+    MKL's count, and once it has, MKL's float64 solve in ``bss_torch``
+    hangs."""
+    with threadpoolctl.threadpool_limits(1, user_api="openmp"):
+        yield
 
 
 @pytest.fixture(autouse=True)

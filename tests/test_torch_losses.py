@@ -15,6 +15,7 @@ through both packages from the same numpy-seeded inputs.  Tolerances:
 
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 
 import jax
@@ -31,6 +32,18 @@ from svs_tpu.utils.config import SVSConfig as JConfig
 
 IMPLS = ["fft", "matmul_bf16", "pallas_bf16", "pallas_fused",
          "pallas_fused_wide"]
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One OpenMP thread (torch's intra-op pool) while a case runs,
+    restored after it: Tier-1 runs six test files at once on eight cores,
+    where a thread a core in each oversubscribes the CPU several times
+    over.  Set through threadpoolctl: ``torch.set_num_threads`` also sets
+    MKL's count, and once it has, MKL's float64 solve in ``bss_torch``
+    hangs."""
+    with threadpoolctl.threadpool_limits(1, user_api="openmp"):
+        yield
 
 
 @pytest.fixture(autouse=True)

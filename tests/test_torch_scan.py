@@ -30,6 +30,7 @@ import textwrap
 
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 
 import jax
@@ -55,6 +56,18 @@ NARROW = dict(enc_channels=(4, 8, 8, 16, 16, 16), dropout_rate=0.0,
               mr_mag_impl="fft", samples_per_song=5, input_len=128,
               lr_drop_epoch=1, lr_after_drop=5e-4)
 B = 3
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One OpenMP thread (torch's intra-op pool) while a case runs,
+    restored after it: Tier-1 runs six test files at once on eight cores,
+    where a thread a core in each oversubscribes the CPU several times
+    over.  Set through threadpoolctl: ``torch.set_num_threads`` also sets
+    MKL's count, and once it has, MKL's float64 solve in ``bss_torch``
+    hangs."""
+    with threadpoolctl.threadpool_limits(1, user_api="openmp"):
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -227,6 +240,8 @@ def test_resumed_scan_fit_equals_an_uninterrupted_one(songs, tmp_path):
 _SIGTERM_SCRIPT = textwrap.dedent("""
     import os, signal, sys
     sys.path.insert(0, {root!r})
+    import torch
+    torch.set_num_threads(1)
     from svs_torch.train import loop, scan
     from svs_torch.utils.config import SVSConfig
     make = scan.make_epoch_scan

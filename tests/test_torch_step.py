@@ -21,6 +21,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 
 import jax
@@ -36,6 +37,18 @@ from svs_tpu.train import step as jstep
 from svs_tpu.utils.config import SVSConfig as JConfig
 
 NARROW = dict(enc_channels=(4, 8, 8, 16, 16, 16), dropout_rate=0.0)
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One OpenMP thread (torch's intra-op pool) while a case runs,
+    restored after it: Tier-1 runs six test files at once on eight cores,
+    where a thread a core in each oversubscribes the CPU several times
+    over.  Set through threadpoolctl: ``torch.set_num_threads`` also sets
+    MKL's count, and once it has, MKL's float64 solve in ``bss_torch``
+    hangs."""
+    with threadpoolctl.threadpool_limits(1, user_api="openmp"):
+        yield
 
 
 def _batch(seed, b=2, t=128):

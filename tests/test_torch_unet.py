@@ -13,6 +13,7 @@ cross with ``torch_import.state_dict_from_jax``.  Tolerances:
 
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 
 import jax
@@ -30,6 +31,18 @@ NARROW = dict(enc_channels=(4, 8, 8, 16, 16, 16))
 
 # one compiled program instead of ~50 eagerly dispatched random ops
 _init = jax.jit(junet.init, static_argnums=1)
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One OpenMP thread (torch's intra-op pool) while a case runs,
+    restored after it: Tier-1 runs six test files at once on eight cores,
+    where a thread a core in each oversubscribes the CPU several times
+    over.  Set through threadpoolctl: ``torch.set_num_threads`` also sets
+    MKL's count, and once it has, MKL's float64 solve in ``bss_torch``
+    hangs."""
+    with threadpoolctl.threadpool_limits(1, user_api="openmp"):
+        yield
 
 
 def _jax_weights(cfg, seed=0):
