@@ -120,7 +120,17 @@ Phases, each printing what it found on its own line:
              refuses) stepping B = 2 x 16 of the float32 ``default`` model
              against the single-process B = 32 step, the ranks' states the
              same bits; any failure fails the run;
-13. parity — the U-Net at float32 on the card (cuDNN, TF32 off) against the
+13. zero   — ZeRO-1 and FSDP (``svs_torch.parallel.zero``) beside DP, cuDNN
+             deterministic: a world of one over NCCL, the full-width
+             ``default`` step at B = 32 under ``pallas_fused`` and
+             ``pallas_bf16`` (counts zeroed just before each step and read
+             just after; each sharded step must be ``make_train_step``'s
+             bits, Adam's moments included), then two ranks on the card
+             over dp's backend, float32, 2 x 16: each sharded step the DP
+             two-rank step's bits, each rank's resting state within 1 % of
+             117.9 / 78.6 / 58.9 MB (DP / ZeRO-1 / FSDP), its peak memory
+             and the steps' ms (CUDA events, in turns) printed beside;
+14. parity — the U-Net at float32 on the card (cuDNN, TF32 off) against the
              same weights and input on the CPU, and one float32 ``fft``
              train step (B = 4, no dropout) on the card against the CPU.
 
@@ -207,6 +217,11 @@ DP_PER_STEP = {"pallas_fused": (0, 0, 3, 3), "pallas_bf16": (6, 3, 0, 0)}
 # the SP decode's song (seconds at 8192 Hz) and its bound against the
 # unsharded decode: tests/test_infer_mesh.py's, float32 on both sides
 SP_SECONDS, SP_ATOL = 240, 2e-5
+# the state a rank holds between steps at the default preset's full width
+# over two ranks (9,823,313 float32 parameters and Adam's two moments,
+# counted from their shapes), MB of 1e6 bytes, and the bound on a reading
+ZERO_MB = {"dp": 117.9, "zero1": 78.6, "fsdp": 58.9}
+ZERO_MB_RTOL = 0.01
 
 
 def check(ok: bool, what: str) -> None:
@@ -1542,7 +1557,9 @@ def _ms(pair) -> str:
 
 def dp_phase(torch, np, spec: str) -> dict:
     """The data-parallel layer on the card; returns the loss kernels'
-    launches in the world-of-one DP steps."""
+    launches in the world-of-one DP steps, and the backend two ranks on
+    the card run over (NCCL, or gloo where NCCL refuses a duplicate
+    GPU)."""
     import torch.distributed as dist
 
     from svs_torch.data.dataset import PatchDataset
@@ -1565,7 +1582,8 @@ def dp_phase(torch, np, spec: str) -> dict:
     total = [0, 0, 0, 0]
     for impl in DP_PER_STEP:
         cfg = dataclasses.replace(default, mr_mag_impl=impl)
-        r = dryrun.dp_parity(mesh, cfg, host, time_reps=5)
+        r = dryrun.layout_parity(mesh, cfg, host, ("dp",), time_reps=5)["dp"]
+        r["dp_ms"] = [t[0] for t in r["ms"]]
         counts = tuple(r["kernels"])
         check(counts == DP_PER_STEP[impl], f"dp {impl}: loss-kernel launches "
               f"{counts} == {DP_PER_STEP[impl]} in one DP step")
@@ -1638,7 +1656,9 @@ def dp_phase(torch, np, spec: str) -> dict:
         ranks.run(dryrun.no_tf32)
         for impl in DP_PER_STEP:
             cfg = dataclasses.replace(cfg32, mr_mag_impl=impl)
-            r = ranks.run(dryrun.dp_parity, cfg, host, time_reps=3)[0]
+            r = ranks.run(dryrun.layout_parity, cfg, host, ("dp",),
+                          time_reps=3)[0]["dp"]
+            r["dp_ms"] = [t[0] for t in r["ms"]]
             print(f"dp world 2 ({backend}, one card) {impl}: float32 default "
                   f"preset, B = 2 x {TRAIN_B // 2} against the single-process "
                   f"B={TRAIN_B} step: loss rel {r['loss_rel']:.2e}, "
@@ -1656,9 +1676,118 @@ def dp_phase(torch, np, spec: str) -> dict:
                   "dry-run envelope, the ranks the same bits")
             line[f"w2_{impl}"] = dict(r, backend=backend)
     print("dp: " + json.dumps(line))
-    names = ("spectral_mag_fwd", "spectral_mag_bwd", "loss_partials_fwd",
-             "loss_partials_bwd")
-    return dict(zip(names, total))
+    return dict(zip(LOSS_NAMES, total)), backend
+
+
+def _mb(values) -> str:
+    return " / ".join(f"{v / 1e6:.3f}" for v in values)
+
+
+def zero_phase(torch, np, spec: str, backend: str) -> dict:
+    """ZeRO-1 and FSDP on the card (``svs_torch.parallel.zero``, through
+    ``dryrun.layout_parity``): a world of one over NCCL at the ``default``
+    preset, B = 32, under ``pallas_fused`` and ``pallas_bf16`` (each
+    sharded step ``make_train_step``'s bits, the loss kernels launched
+    inside it at ``DP_PER_STEP``'s counts), then two ranks on the card over
+    ``backend`` (dp_phase's: gloo where NCCL refused a duplicate GPU),
+    float32, 2 x 16 (each sharded step the DP step's bits, each rank's
+    resting state within ``ZERO_MB_RTOL`` of ``ZERO_MB``).  cuDNN's
+    deterministic algorithms throughout, TF32 off.  Returns the loss
+    kernels' launches in the world-of-one sharded steps."""
+    import torch.distributed as dist
+
+    from svs_torch.data.dataset import PatchDataset
+    from svs_torch.parallel import dryrun, mesh as mesh_lib
+    from svs_torch.parallel.launch import Ranks
+    from svs_torch.utils.config import get_config
+
+    ds = PatchDataset(spec, samples_per_song=64, input_len=128)
+    host = {k: np.asarray(v) for k, v in
+            next(iter(ds.batches(TRAIN_B, seed=11))).items()}
+    default = get_config("default")
+    line = {"smi": nvidia_smi_line()}
+    total = [0, 0, 0, 0]
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mesh = mesh_lib.make_mesh()
+        check(mesh.size == 1 and mesh.backend == "nccl",
+              f"make_mesh alone: a world of one over NCCL ({mesh})")
+        for impl in DP_PER_STEP:
+            cfg = dataclasses.replace(default, mr_mag_impl=impl)
+            r = dryrun.layout_parity(mesh, cfg, host, time_reps=5)
+            for kind in ("zero1", "fsdp"):
+                x = r[kind]
+                counts = tuple(x["kernels"])
+                check(counts == DP_PER_STEP[impl], f"zero {kind} {impl}: "
+                      f"loss-kernel launches {counts} == "
+                      f"{DP_PER_STEP[impl]} in one step")
+                total = [a + c for a, c in zip(total, counts)]
+                check(all(x[k] == 0.0 for k in ("loss_rel", "grad_norm_rel",
+                                                "bn_abs", "params_max"))
+                      and x["vs_dp"] == 0.0 and x["shards_ok"],
+                      f"zero {kind} {impl}: the world-of-one step gives "
+                      "make_train_step's bits (metrics, parameters, BN, "
+                      "Adam's moments)")
+            print(f"zero world 1 (nccl) {impl}: default preset B={TRAIN_B}, "
+                  "the same bits as make_train_step and the DP step; ms "
+                  "(CUDA events, means of 5 steps in turns single, DP, "
+                  "ZeRO-1, FSDP, FSDP, ZeRO-1, DP, single; cudnn "
+                  f"deterministic): single {_ms(r['dp']['ref_ms'])}; "
+                  + "; ".join(f"{k} {_ms([t[0] for t in r[k]['ms']])}"
+                              for k in dryrun.LAYOUTS)
+                  + "; peak MB " + ", ".join(
+                      f"{k} {_mb(r[k]['peak'])}" for k in dryrun.LAYOUTS)
+                  + "; launches " + ", ".join(
+                      f"{k} {r[k]['kernels']}" for k in dryrun.LAYOUTS))
+            line[f"w1_{impl}"] = r
+        dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+    cfg32 = dataclasses.replace(default, compute_dtype="float32")
+    with Ranks(2, device="cuda:0", backend=backend, timeout=900) as ranks:
+        ranks.run(dryrun.no_tf32)
+        ranks.run(dryrun.deterministic)
+        for impl in DP_PER_STEP:
+            cfg = dataclasses.replace(cfg32, mr_mag_impl=impl)
+            r = ranks.run(dryrun.layout_parity, cfg, host, time_reps=3)[0]
+            print(f"zero world 2 ({backend}, one card) {impl}: float32 "
+                  f"default preset, B = 2 x {TRAIN_B // 2}: vs DP "
+                  + ", ".join(f"{k} {r[k]['vs_dp']:g}"
+                              for k in ("zero1", "fsdp"))
+                  + "; spread " + ", ".join(f"{k} {r[k]['spread']:g}"
+                                            for k in dryrun.LAYOUTS)
+                  + "; resting MB a rank " + ", ".join(
+                      f"{k} {_mb(r[k]['bytes'])}" for k in dryrun.LAYOUTS)
+                  + "; peak MB a rank " + ", ".join(
+                      f"{k} {_mb(r[k]['peak'])}" for k in dryrun.LAYOUTS)
+                  + f"; ms a step, ranks 0 / 1 (CUDA events, means of 3 "
+                  f"steps in turns; {backend}'s and the host's time, not "
+                  f"checked): single B={TRAIN_B} {_ms(r['dp']['ref_ms'])}; "
+                  + "; ".join(
+                      f"{k} " + ", ".join(_ms(t) for t in r[k]["ms"])
+                      for k in dryrun.LAYOUTS)
+                  + f"; envelope vs the single B={TRAIN_B} step: params "
+                  "max " + ", ".join(f"{k} {r[k]['params_max']:.2e}"
+                                     for k in dryrun.LAYOUTS))
+            for kind in ("zero1", "fsdp"):
+                x = r[kind]
+                check(x["vs_dp"] == 0.0 and x["spread"] == 0.0
+                      and x["shards_ok"] and x["ok"],
+                      f"zero world 2 {kind} {impl}: the DP two-rank step's "
+                      "bits, the ranks' gathered states the same, each "
+                      "leaf the channel rule's slice")
+            for kind in dryrun.LAYOUTS:
+                want = ZERO_MB[kind] * 1e6
+                check(all(abs(b - want) <= ZERO_MB_RTOL * want
+                          for b in r[kind]["bytes"]),
+                      f"zero world 2 {kind}: resting bytes a rank "
+                      f"{r[kind]['bytes']} within {ZERO_MB_RTOL:g} of "
+                      f"{want:g}")
+            line[f"w2_{impl}"] = dict(r, backend=backend)
+    print("zero: " + json.dumps(line))
+    return dict(zip(LOSS_NAMES, total))
 
 
 def step_parity_phase(torch, np, host_batch) -> None:
@@ -2414,8 +2543,12 @@ def main(argv=None) -> int:
         eval_phase(torch, np, work)
         seconds["eval"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        dp_counts = dp_phase(torch, np, os.path.join(work, "spec"))
+        dp_counts, backend = dp_phase(torch, np, os.path.join(work, "spec"))
         seconds["dp"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        zero_counts = zero_phase(torch, np, os.path.join(work, "spec"),
+                                 backend)
+        seconds["zero"] = time.perf_counter() - t0
     print("train phase launches: " + json.dumps(train_launches))
     # the loss kernels' launches on the paths that run them: fit under the
     # kernel loss paths (the fit phase's eager fit), and fit with
@@ -2438,6 +2571,11 @@ def main(argv=None) -> int:
             entry["dp_launches"] = dp_counts[entry["name"]]
             check(entry["dp_launches"] > 0,
                   f"{entry['name']} launched inside the DP step")
+        if entry["name"] in zero_counts:
+            # the world-of-one ZeRO-1 and FSDP steps' own count
+            entry["zero_launches"] = zero_counts[entry["name"]]
+            check(entry["zero_launches"] > 0,
+                  f"{entry['name']} launched inside the sharded steps")
 
     t0 = time.perf_counter()
     parity_phase(torch)

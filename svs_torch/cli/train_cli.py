@@ -6,15 +6,18 @@ Flag surface preserved from reference train.py:157-167:
 and svs_tpu's extensions (--preset --seed --export_pth --ckpt_dir --log_dir
 --samples_per_song --dtype --remat --save_every --async_save --device_data
 --device_data_cap_mb --accum --augment --remix_p --aug_gain --epoch_scan
---val_sdr --val_sdr_songs --dp), plus --device (default cuda; ``--device
-cpu`` runs on the host).  ``--epoch_scan`` replays a captured CUDA graph of
-the step for each epoch's full batches (it needs the dataset on the
-device).  ``--dp`` trains data-parallel over the ranks of ``torchrun``
-(``torchrun --nproc_per_node N -m svs_torch.cli.train_cli --dp ...``: NCCL
-on the cards, gloo with ``--device cpu``), or alone at world size 1
-(``parallel.mesh.make_mesh``).  The other parallel and multi-host flags
-(--multihost --coordinator --num_hosts --host_id --cp --tp --pp --zero1
---fsdp, and --epoch_scan with --dp) exit 2 with a message that names
+--val_sdr --val_sdr_songs --dp --zero1 --fsdp), plus --device (default
+cuda; ``--device cpu`` runs on the host).  ``--epoch_scan`` replays a
+captured CUDA graph of the step for each epoch's full batches (it needs
+the dataset on the device).  ``--dp`` trains data-parallel over the ranks
+of ``torchrun`` (``torchrun --nproc_per_node N -m svs_torch.cli.train_cli
+--dp ...``: NCCL on the cards, gloo with ``--device cpu``), or alone at
+world size 1 (``parallel.mesh.make_mesh``); with it ``--zero1`` shards
+Adam's moments over the ranks and ``--fsdp`` the parameters and BN
+statistics too (``parallel.zero``); either needs ``--dp``, as svs_tpu's
+does, and neither goes with ``--epoch_scan``.  The other parallel and
+multi-host flags (--multihost --coordinator --num_hosts --host_id --cp
+--tp --pp, and --epoch_scan with --dp) exit 2 with a message that names
 their ROADMAP item.
 
 Run as ``python -m svs_torch.cli.train_cli``.
@@ -29,7 +32,6 @@ import dataclasses
 UNPORTED = {
     "multihost": "A.10.7", "coordinator": "A.10.7", "num_hosts": "A.10.7",
     "host_id": "A.10.7", "cp": "A.10.6", "tp": "A.10.4", "pp": "A.10.5",
-    "zero1": "A.10.3", "fsdp": "A.10.3",
 }
 
 
@@ -74,9 +76,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pp_split", type=int, default=3, metavar="K",
                    help="with --pp (not ported)")
     p.add_argument("--zero1", action="store_true",
-                   help="not ported (ROADMAP A.10.3)")
+                   help="with --dp: shard Adam's moments over the ranks "
+                        "(ZeRO-1)")
     p.add_argument("--fsdp", action="store_true",
-                   help="not ported (ROADMAP A.10.3)")
+                   help="with --dp: shard the parameters, BN statistics and "
+                        "Adam's moments over the ranks (FSDP)")
     p.add_argument("--accum", type=int, default=1, metavar="K",
                    help="gradient accumulation: update params once every "
                         "K microbatches with their mean gradient; resume "
@@ -130,6 +134,16 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
+    # svs_tpu's rules for the sharded layouts (svs_tpu train_cli.py:196-201)
+    if (args.zero1 or args.fsdp) and not args.dp:
+        parser.error("--zero1/--fsdp shard training state across a DP "
+                     "mesh; pass --dp with them")
+    if (args.zero1 or args.fsdp) and args.tp is not None:
+        parser.error("--zero1/--fsdp compose with --dp only (TP already "
+                     "shards the state with its channels)")
+    if (args.zero1 or args.fsdp) and args.epoch_scan:
+        from svs_torch.train.loop import SCAN_REFUSAL
+        parser.error(f"--epoch_scan with --zero1/--fsdp: {SCAN_REFUSAL}")
     for flag, item in UNPORTED.items():
         value = getattr(args, flag)
         if value not in (None, False):
@@ -183,6 +197,8 @@ def main(argv=None) -> int:
         val_sdr=args.val_sdr,
         val_sdr_songs=args.val_sdr_songs,
         mesh=mesh,
+        zero1=args.zero1,
+        fsdp=args.fsdp,
         device=args.device,
     )
     fit(opts, cfg)

@@ -97,6 +97,32 @@ def _sum_over_ranks(grads: List[torch.Tensor], mesh: Mesh
             zip(flat.split([g.numel() for g in grads]), grads)]
 
 
+def dp_loss(cfg: SVSConfig, model: torch.nn.Module,
+            batch: Dict[str, torch.Tensor],
+            generator: Optional[torch.Generator], mesh: Mesh,
+            tensors: Optional[Dict[str, torch.Tensor]] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The train-mode forward and the combined loss of this rank's block
+    ``batch`` (with its ``weight``): the loss to backpropagate on this
+    rank (``L / size``, the module's gradient rule) and the global
+    metrics.  ``tensors``: parameters and buffers by state-dict name that
+    the forward uses in place of the module's own
+    (``torch.func.functional_call``; the FSDP step's gathered ones)."""
+    model.train()
+    weight = batch["weight"]
+    kw = dict(weight=weight, generator=generator, mesh=mesh)
+    if tensors:
+        mask = torch.func.functional_call(model, tensors, (batch["mix"],),
+                                          kw)
+    else:
+        mask = model(batch["mix"], **kw)
+    total, aux = combined_loss(mask, batch["mix"], batch["voc"],
+                               batch["mix_angle"], batch["voc_angle"], cfg,
+                               weight=weight, group=mesh)
+    seed = total / mesh.size if mesh.size > 1 else total
+    return seed, {k: v.detach() for k, v in aux.items()}
+
+
 def dp_loss_and_grads(cfg: SVSConfig, state: TrainState,
                       batch: Dict[str, torch.Tensor],
                       generator: Optional[torch.Generator], mesh: Mesh
@@ -105,17 +131,9 @@ def dp_loss_and_grads(cfg: SVSConfig, state: TrainState,
     block (with its ``weight``); the metrics are the global batch's and
     the gradients ``dL/dparams`` of the global loss, the same on every
     rank (the module's gradient rule)."""
-    model = state.model.train()
-    weight = batch["weight"]
-    params = list(model.parameters())
-    mask = model(batch["mix"], weight=weight, generator=generator,
-                 mesh=mesh)
-    total, aux = combined_loss(mask, batch["mix"], batch["voc"],
-                               batch["mix_angle"], batch["voc_angle"], cfg,
-                               weight=weight, group=mesh)
-    seed = total / mesh.size if mesh.size > 1 else total
+    params = list(state.model.parameters())
+    seed, metrics = dp_loss(cfg, state.model, batch, generator, mesh)
     grads = _sum_over_ranks(list(torch.autograd.grad(seed, params)), mesh)
-    metrics = {k: v.detach() for k, v in aux.items()}
     metrics["grad_norm"] = global_norm(grads)
     return grads, metrics
 

@@ -7,9 +7,15 @@
 dropout 0.5, one patch a rank):
 
 - one DP train step of a global batch, held on rank 0 against the
-  unsharded step of the same batch, state and dropout generator
-  (:func:`dp_parity`) under svs_tpu's envelope (:data:`ENVELOPE`), and
-  every rank's state against rank 0's, bit for bit;
+  unsharded step of the same batch, state and dropout generator under
+  svs_tpu's envelope (:data:`ENVELOPE`), and every rank's state against
+  rank 0's, bit for bit;
+- where ``n > 1`` and ``128 % n == 0`` (``dryrun_multichip``'s guard), the
+  same step under ZeRO-1 and under FSDP (:mod:`~svs_torch.parallel.zero`):
+  the layout must shard (each leaf a rank holds is the channel rule's
+  slice), the step stay within the envelope of the unsharded step, and
+  the gathered state be the same bits on every rank
+  (:func:`layout_parity`);
 - the segment-parallel decode (``separate_magnitude_mesh``, both modes)
   against ``separate_magnitude`` on rank 0.
 
@@ -29,6 +35,7 @@ import torch.distributed as dist
 
 from svs_torch.parallel import dp
 from svs_torch.parallel import mesh as mesh_lib
+from svs_torch.parallel import zero
 from svs_torch.train import step as tstep
 from svs_torch.utils.config import SVSConfig
 
@@ -40,8 +47,10 @@ from svs_torch.utils.config import SVSConfig
 ENVELOPE = {"loss": 1e-5, "grad_norm": 1e-3, "bn": 1e-4, "params_max_lr": 2.1,
             "params_mean": 2e-4}
 # the layouts this dry run checks, and svs_tpu's that it does not yet
-CHECKED = ("dp", "sp")
-NOT_PORTED = ("zero1", "fsdp", "tp", "pp", "cp", "multihost")
+CHECKED = ("dp", "sp", "zero1", "fsdp")
+NOT_PORTED = ("tp", "pp", "cp", "multihost")
+# the training layouts of one data mesh
+LAYOUTS = ("dp", "zero1", "fsdp")
 # the SP decode's atol against the unsharded one (tests/test_infer_mesh.py)
 SP_ATOL = 2e-5
 
@@ -68,25 +77,22 @@ def _host_max(value: float, mesh: mesh_lib.Mesh) -> float:
     return float(t)
 
 
-def rank_spread(state: tstep.TrainState, mesh: mesh_lib.Mesh) -> float:
-    """The largest |difference| between any rank's parameters and BN
-    buffers and rank 0's (0.0: the same bits everywhere)."""
-    flat = torch.cat([v.detach().reshape(-1).double() for v in
-                      state.model.state_dict().values()])
-    ref = flat.clone()
-    if mesh_lib.crosses(mesh):
-        dist.broadcast(ref, src=mesh.src, group=mesh.group)
-    return _host_max(float((flat - ref).abs().max()), mesh)
+def _state_dict(state) -> Dict[str, torch.Tensor]:
+    """A state's full state dict (a :class:`TrainState`'s, or given)."""
+    return (state.model.state_dict() if isinstance(state, tstep.TrainState)
+            else state)
 
 
-def envelope(got: Dict[str, torch.Tensor], got_state: tstep.TrainState,
-             want: Dict[str, torch.Tensor], want_state: tstep.TrainState,
+def envelope(got: Dict[str, torch.Tensor], got_state,
+             want: Dict[str, torch.Tensor], want_state,
              lr: float) -> Dict[str, object]:
-    """One step's metrics and state against another's, under
-    :data:`ENVELOPE`: the deltas and ``ok``."""
+    """One step's metrics and state (a :class:`TrainState` or a full state
+    dict) against another's, under :data:`ENVELOPE`: the deltas and
+    ``ok``."""
     total, ref_total = float(got["total"]), float(want["total"])
     gn, ref_gn = float(got["grad_norm"]), float(want["grad_norm"])
-    a, b = got_state.model.state_dict(), want_state.model.state_dict()
+    b = _state_dict(want_state)
+    a = {k: v.to(b[k].device) for k, v in _state_dict(got_state).items()}
     bn = max(float((a[k].float() - b[k].float()).abs().max()) for k in a
              if "running" in k)
     params = [(a[k] - b[k]).abs() for k in a
@@ -122,65 +128,18 @@ def no_tf32(mesh: mesh_lib.Mesh) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def deterministic(mesh: mesh_lib.Mesh) -> None:
+    """cuDNN's deterministic algorithms in this rank's process: two steps
+    held against each other bit for bit on the card."""
+    torch.backends.cudnn.deterministic = True
+
+
 def collective_probe(mesh: mesh_lib.Mesh) -> float:
     """One all-reduce of a 1 from every rank on the mesh's device: the
     rank count where the backend runs it."""
     t = torch.ones(1, device=mesh.device)
     dist.all_reduce(t, group=mesh.group)
     return float(t)
-
-
-def dp_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig,
-              batch: Dict[str, np.ndarray], time_reps: int = 0
-              ) -> Optional[Dict[str, object]]:
-    """One DP step of the global host ``batch`` (the same on every rank)
-    from the state of seed 0, against the unsharded step of the same batch
-    (all-ones ``weight``), state and dropout generator on rank 0.  Returns
-    on rank 0 the envelope's deltas, ``spread`` (:func:`rank_spread`
-    after the step) and ``kernels``, the loss kernels' launches in the DP
-    step (spectral_mag fwd / bwd, loss_partials fwd / bwd); None
-    elsewhere.  ``time_reps`` > 0 on a CUDA mesh: then ``dp_ms`` and
-    ``ref_ms``, each a pair of means of that many more DP and unsharded
-    steps by CUDA events on rank 0, taken in turns (unsharded, DP, DP,
-    unsharded)."""
-    from svs_torch.ops.cuda import diff_mag as cdm
-    from svs_torch.ops.cuda import fused_loss as cfl
-
-    dev = mesh.device
-    seed = 0
-    state = dp.replicate_state(
-        tstep.create_train_state(seed, cfg, device=dev), mesh)
-    step = dp.make_dp_train_step(mesh, cfg)
-    local = mesh_lib.shard_batch(mesh, batch)
-    cdm.reset_counts()
-    cfl.reset_counts()
-    state, metrics = step(state, local,
-                          torch.Generator(dev).manual_seed(seed + 1))
-    kernels = _loss_kernel_counts()
-    spread = rank_spread(state, mesh)
-    out = None
-    if mesh.is_primary:  # the others wait in the timing's first collective
-        ref_state = tstep.create_train_state(seed, cfg, device=dev)
-        ref_step = tstep.make_train_step(cfg)
-        ref_batch = tstep.batch_to_device(batch, dev)
-        ref_batch["weight"] = torch.ones(len(batch["mix"]), device=dev)
-        ref_state, ref = ref_step(ref_state, ref_batch,
-                                  torch.Generator(dev).manual_seed(seed + 1))
-        out = envelope(metrics, state, ref, ref_state, cfg.learning_rate)
-        out.update(spread=spread, kernels=list(kernels), dp_ms=[],
-                   ref_ms=[])
-    for kind in ("ref", "dp", "dp", "ref") if time_reps else ():
-        if kind == "dp":  # every rank, in step
-            ms = _event_ms(lambda g: step(state, local, g), dev, time_reps,
-                           seed)
-        elif mesh.is_primary:
-            ms = _event_ms(lambda g: ref_step(ref_state, ref_batch, g), dev,
-                           time_reps, seed)
-        else:
-            continue
-        if out is not None:
-            out[f"{kind}_ms"].append(ms)
-    return out
 
 
 def _event_ms(step, dev, reps: int, seed: int) -> float:
@@ -194,6 +153,170 @@ def _event_ms(step, dev, reps: int, seed: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def layout_state(kind: str, cfg: SVSConfig, mesh: mesh_lib.Mesh,
+                 seed: int = 0, state: Optional[tstep.TrainState] = None):
+    """The state of ``seed`` (or ``state``, rank 0's) on every rank in
+    layout ``kind`` (``dp``, ``zero1``, ``fsdp``) and its train step."""
+    state = dp.replicate_state(
+        state or tstep.create_train_state(seed, cfg, device=mesh.device),
+        mesh)
+    if kind == "dp":
+        return state, dp.make_dp_train_step(mesh, cfg)
+    fsdp = kind == "fsdp"
+    return (zero.shard_state(state, mesh, fsdp=fsdp),
+            zero.make_zero1_train_step(mesh, cfg, fsdp=fsdp))
+
+
+def _per_rank(value: float, mesh: mesh_lib.Mesh) -> list:
+    """Every rank's ``value``, in rank order."""
+    if not mesh_lib.crosses(mesh):
+        return [value]
+    t = torch.zeros(mesh.size, dtype=torch.float64)
+    t[mesh.rank] = value
+    dist.all_reduce(t, group=mesh.host_group or mesh.group)
+    return t.tolist()
+
+
+def _max_diff(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]
+              ) -> float:
+    """The largest |difference| between two dicts of tensors (0.0: the
+    same values)."""
+    if sorted(a) != sorted(b):
+        return float("inf")
+    return max([float((a[k].double() - b[k].double()).abs().max())
+                for k in a if a[k].numel()] or [0.0])
+
+
+def _spread(sd: Dict[str, torch.Tensor], mesh: mesh_lib.Mesh) -> float:
+    """The largest |difference| between any rank's host state dict and
+    rank 0's."""
+    flat = torch.cat([v.reshape(-1).double() for v in sd.values()])
+    ref = flat.clone()
+    if mesh_lib.crosses(mesh):
+        dist.broadcast(ref, src=mesh.src, group=mesh.host_group or mesh.group)
+    return _host_max(float((flat - ref).abs().max()), mesh)
+
+
+def _shards_ok(state, snap, mesh: mesh_lib.Mesh) -> bool:
+    """Whether each parameter's moments (and under FSDP the parameter and
+    the running statistics) this rank holds are the channel rule's slice
+    of the full leaf, and at least one leaf is cut where the mesh has
+    more than one rank."""
+    if not isinstance(state, zero.ZeroState):
+        return True
+
+    def cut(shape, dim):
+        shape = list(shape)
+        if dim is not None:
+            shape[dim] //= mesh.size
+        return shape
+
+    opt = state.optimizer
+    names = [n for n, _ in state.model.named_parameters()]
+    ok = all(list(opt.state[p][k].shape) == cut(snap.state_dict[n].shape,
+                                                   state.dims[n])
+             for n, p in zip(names, opt.param_groups[0]["params"])
+             for k in ("exp_avg", "exp_avg_sq"))
+    held = state.model.state_dict()
+    ok = ok and all(list(held[n].shape) == (
+        cut(snap.state_dict[n].shape, state.dims[n]) if state.fsdp
+        else list(snap.state_dict[n].shape)) for n in held)
+    return ok and (mesh.size == 1 or any(
+        d is not None for d in state.dims.values()))
+
+
+def layout_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig,
+                  batch: Dict[str, np.ndarray], layouts=LAYOUTS,
+                  time_reps: int = 0) -> Optional[Dict[str, object]]:
+    """One train step of the global host ``batch`` under each of
+    ``layouts`` from the state of seed 0 and one dropout seed.  Returns on
+    rank 0, by layout: the envelope's deltas against the unsharded step
+    (rank 0, all-ones ``weight``), ``vs_dp`` (the largest |difference| of
+    the metrics, the gathered state and Adam's moments from the DP step's;
+    0.0: the same bits), ``spread`` (of the gathered state over the
+    ranks), ``shards_ok`` (:func:`_shards_ok`), ``bytes`` (each rank's
+    ``zero.state_bytes`` after the step, Adam's moments made), ``peak``
+    (each rank's ``torch.cuda.max_memory_allocated`` over the step, on a
+    CUDA mesh), ``kernels`` (the loss kernels' launches in the step on
+    rank 0: spectral_mag fwd / bwd, loss_partials fwd / bwd) and the
+    shapes of enc4's weight and moment on rank 0; with ``time_reps`` on a
+    CUDA mesh ``ms``, each rank's means of that many more steps by CUDA
+    events, and ``ref_ms``, rank 0's of the unsharded step, in turns
+    (unsharded, each layout, each layout back, unsharded).  None
+    elsewhere."""
+    from svs_torch.ops.cuda import diff_mag as cdm
+    from svs_torch.ops.cuda import fused_loss as cfl
+
+    dev, seed = mesh.device, 0
+    cuda = dev.type == "cuda"
+    local = mesh_lib.shard_batch(mesh, batch)
+    out, full = {}, {}
+    for kind in layouts:
+        state, step = layout_state(kind, cfg, mesh, seed)
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        cdm.reset_counts()
+        cfl.reset_counts()
+        state, metrics = step(state, local,
+                              torch.Generator(dev).manual_seed(seed + 1))
+        kernels = _loss_kernel_counts()
+        peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+        snap = zero.unshard_state(state)
+        w = "conv4.0.weight"
+        mu = dict(zip((n for n, _ in state.model.named_parameters()),
+                      state.optimizer.param_groups[0]["params"]))[w]
+        full[kind] = ({k: v.detach().cpu() for k, v in metrics.items()},
+                      snap)
+        out[kind] = {
+            "spread": _spread(snap.state_dict, mesh),
+            "shards_ok": _shards_ok(state, snap, mesh),
+            "bytes": _per_rank(zero.state_bytes(state), mesh),
+            "peak": _per_rank(peak, mesh), "kernels": list(kernels),
+            "enc4": [list(state.model.state_dict()[w].shape),
+                     list(state.optimizer.state[mu]["exp_avg"].shape)]}
+        del state, step
+    ref_batch = tstep.batch_to_device(batch, dev)
+    ref_batch["weight"] = torch.ones(len(batch["mix"]), device=dev)
+    ref_step = tstep.make_train_step(cfg)
+    if time_reps and cuda:
+        runs = {k: (*layout_state(k, cfg, mesh, seed), local)
+                for k in layouts}
+        runs["ref"] = (tstep.create_train_state(seed, cfg, device=dev),
+                       ref_step, ref_batch)
+        ref_ms = []
+        for kind in ("ref", *layouts, *reversed(layouts), "ref"):
+            if kind == "ref" and not mesh.is_primary:
+                continue  # the others wait in the next layout's collectives
+            state, step, inp = runs[kind]
+            ms = _event_ms(lambda g: step(state, inp, g), dev, time_reps,
+                           seed)
+            if kind == "ref":
+                ref_ms.append(ms)
+            else:
+                out[kind].setdefault("ms", []).append(_per_rank(ms, mesh))
+        del runs
+        for kind in layouts:
+            out[kind]["ref_ms"] = ref_ms
+    if not mesh.is_primary:
+        return None
+    ref_state, ref = ref_step(tstep.create_train_state(seed, cfg, device=dev),
+                              ref_batch,
+                              torch.Generator(dev).manual_seed(seed + 1))
+    for kind in layouts:
+        metrics, snap = full[kind]
+        out[kind].update(envelope(metrics, snap.state_dict, ref, ref_state,
+                                  cfg.learning_rate))
+        if "dp" in full:
+            dp_metrics, dp_snap = full["dp"]
+            out[kind]["vs_dp"] = max(
+                _max_diff(metrics, dp_metrics),
+                _max_diff(snap.state_dict, dp_snap.state_dict),
+                _max_diff(snap.exp_avg, dp_snap.exp_avg),
+                _max_diff(snap.exp_avg_sq, dp_snap.exp_avg_sq))
+    return out
 
 
 def sp_parity(mesh: mesh_lib.Mesh, model: torch.nn.Module, mag: np.ndarray
@@ -212,18 +335,26 @@ def sp_parity(mesh: mesh_lib.Mesh, model: torch.nn.Module, mag: np.ndarray
     return out if mesh.is_primary else None
 
 
+def sharded_layouts(n: int) -> tuple:
+    """The layouts the dry run checks over ``n`` ranks: ZeRO-1 and FSDP
+    where ``n > 1`` and ``128 % n == 0`` (``dryrun_multichip``'s guard:
+    the channel rule must find channels to cut)."""
+    return ("zero1", "fsdp") if n > 1 and 128 % n == 0 else ()
+
+
 def dp_smoke_rank(mesh: mesh_lib.Mesh) -> Optional[Dict[str, object]]:
     """The dry run's checks on one rank (see the module's docstring);
     rank 0 returns their numbers."""
     cfg = SVSConfig(input_len=64, dropout_rate=0.5)
-    step = dp_parity(mesh, cfg, dry_batch(mesh.size))
+    step = layout_parity(mesh, cfg, dry_batch(mesh.size),
+                         ("dp",) + sharded_layouts(mesh.size))
     model = tstep.create_train_state(0, cfg, device=mesh.device).model
     mag = np.abs(np.random.default_rng(3).standard_normal(
         (513, 150))).astype(np.float32)
     sp = sp_parity(mesh, model.eval(), mag)
     if not mesh.is_primary:
         return None
-    return {"dp": step, "sp": sp}
+    return dict(step, sp=sp)
 
 
 def dp_smoke(devices: int = 8, timeout: float = 1200.0) -> Dict[str, object]:
@@ -236,17 +367,30 @@ def dp_smoke(devices: int = 8, timeout: float = 1200.0) -> Dict[str, object]:
         with Ranks(devices, device="cpu", backend="gloo",
                    timeout=timeout) as ranks:
             res = ranks.run(dp_smoke_rank)[0]
-        step, sp = res["dp"], res["sp"]
-        ok = (step["ok"] and step["spread"] == 0.0
-              and all(v <= SP_ATOL for v in sp.values()))
-        detail = (f"checked {list(CHECKED)}: dp == unsharded step (loss rel "
-                  f"{step['loss_rel']:.2e}, grad_norm rel "
-                  f"{step['grad_norm_rel']:.2e}, bn {step['bn_abs']:.2e}, "
-                  f"params max {step['params_max']:.2e} mean "
-                  f"{step['params_mean']:.2e}; rank spread "
-                  f"{step['spread']:g}); sp == unsharded decode (max "
-                  + ", ".join(f"{k} {v:.2e}" for k, v in sp.items())
-                  + f"); not ported: {list(NOT_PORTED)}")
+        sp = res.pop("sp")
+        ok = all(v <= SP_ATOL for v in sp.values())
+        parts = []
+        for kind, step in res.items():
+            ok = ok and step["ok"] and step["spread"] == 0.0 \
+                and step["shards_ok"]
+            parts.append(
+                f"{kind} == unsharded step (loss rel "
+                f"{step['loss_rel']:.2e}, grad_norm rel "
+                f"{step['grad_norm_rel']:.2e}, bn {step['bn_abs']:.2e}, "
+                f"params max {step['params_max']:.2e} mean "
+                f"{step['params_mean']:.2e}; rank spread {step['spread']:g}"
+                + ("" if kind == "dp" else
+                   f"; enc4 weight / moment held {step['enc4'][0]} / "
+                   f"{step['enc4'][1]}, state bytes a rank "
+                   f"{step['bytes'][0]:.0f} against dp's "
+                   f"{res['dp']['bytes'][0]:.0f}") + ")")
+        skipped = [k for k in ("zero1", "fsdp") if k not in res]
+        detail = (f"checked {list(CHECKED)}: " + "; ".join(parts)
+                  + "; sp == unsharded decode (max "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in sp.items()) + ")"
+                  + (f"; {skipped} skipped (needs devices > 1 dividing "
+                     "128)" if skipped else "")
+                  + f"; not ported: {list(NOT_PORTED)}")
     except Exception as e:  # the line reports the failure
         ok, detail = False, f"{type(e).__name__}: {str(e)[-2000:]}"
     return {"metric": "dp_smoke", "ok": bool(ok), "devices": devices,

@@ -15,12 +15,18 @@ a process group, and each reduction over the batch axis is written out:
   ``weight`` and return this rank's contiguous block of rows;
 - :func:`all_sum` is the batch-crossing sum: a differentiable all-reduce
   whose adjoint is the all-reduce of the upstream gradient;
+- :func:`all_gather` puts the ranks' slices of a tensor back together, and
+  its adjoint gives each rank its slice of the all-reduced gradient;
+  :func:`gather_state` gathers a sharded state to the host, leaf by leaf;
 - :func:`agree` makes one host flag (a SIGTERM) the same on every rank.
 
 Every collective here is an all-reduce or a broadcast, the two that NCCL
-and gloo both run on CUDA tensors.  A group of one rank crosses no rank:
-its sums are the local ones, and the step then runs the single-device
-code and bits.
+and gloo both run on CUDA tensors (two ranks on one card must use gloo).
+So a gather is an all-reduce of zero-filled full tensors, each rank's
+block written into its own: adding zeros is exact, so every rank holds
+the same full tensor, at N times the bytes of a true all-gather over N
+ranks.  A group of one rank crosses no rank: its sums are the local ones,
+and the step then runs the single-device code and bits.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
-from typing import Dict, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -156,6 +162,73 @@ def all_sum(x: torch.Tensor, group: Optional[Mesh]) -> torch.Tensor:
     if not crosses(group):
         return x
     return _AllSum.apply(x, group.group)
+
+
+class _AllGather(torch.autograd.Function):
+    """The ranks' slices of a tensor along ``dim``, put back together (a
+    zero-padded all-reduce); the adjoint all-reduces the upstream gradient
+    and returns this rank's slice of it."""
+
+    @staticmethod
+    def forward(ctx, shard, dim, mesh, reduced):
+        ctx.dim, ctx.mesh, ctx.reduced = dim, mesh, reduced
+        return _gather(shard, dim, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.mesh.group)
+        if ctx.reduced is not None:
+            ctx.reduced.append(g)
+        return (local_block(g, ctx.dim, ctx.mesh).contiguous(), None, None,
+                None)
+
+
+def local_block(full: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of ``full`` along ``dim`` (a view)."""
+    k = full.shape[dim] // mesh.size
+    return full.narrow(dim, mesh.rank * k, k)
+
+
+def _gather(shard: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    shape = list(shard.shape)
+    shape[dim] *= mesh.size
+    full = shard.new_zeros(shape)
+    with torch.no_grad():
+        local_block(full, dim, mesh).copy_(shard)
+    dist.all_reduce(full, group=mesh.group)
+    return full
+
+
+def all_gather(shard: torch.Tensor, dim: int, mesh: Optional[Mesh],
+               reduced: Optional[List[torch.Tensor]] = None
+               ) -> torch.Tensor:
+    """The full tensor whose block ``rank`` along ``dim`` is each rank's
+    ``shard`` (every rank's of one shape), the same bits on every rank;
+    ``shard`` itself in a world of one.  Differentiable: every rank
+    backpropagates ``L / size`` (``dp.dp_loss_and_grads``' gradient rule),
+    so the adjoint's all-reduce of the upstream gradient is ``dL/dfull``,
+    and this rank's slice of it is the gradient of its shard.  ``reduced``,
+    if given, receives that all-reduced full gradient in the backward."""
+    if not crosses(mesh):
+        return shard
+    return _AllGather.apply(shard, dim, mesh, reduced)
+
+
+def gather_state(leaves: Iterable[Tuple[torch.Tensor, Optional[int]]],
+                 mesh: Optional[Mesh]) -> List[torch.Tensor]:
+    """Host copies of the full tensors of ``(tensor, dim)`` leaves: a leaf
+    with a ``dim`` is this rank's slice along it and is gathered, one
+    leaf at a time so that the device holds one full leaf beyond the
+    state; a leaf without one is held whole (svs_tpu multihost.py:251-275).
+    A collective: every rank calls it at the same point with the same
+    leaves, before rank 0 writes."""
+    out = []
+    with torch.no_grad():
+        for t, dim in leaves:
+            full = t if dim is None else all_gather(t.detach(), dim, mesh)
+            out.append(full.detach().to("cpu", copy=True))
+    return out
 
 
 def agree(flag: bool, mesh: Optional[Mesh]) -> bool:

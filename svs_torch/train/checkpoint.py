@@ -48,8 +48,9 @@ from svs_torch.train.step import TrainState, set_learning_rate
 @dataclasses.dataclass
 class Snapshot:
     """What a checkpoint holds of a :class:`TrainState`, by state-dict
-    name: the tensors are clones on the state's device (:class:`AsyncSaver`)
-    or the live ones (a synchronous save)."""
+    name: the tensors are clones on the state's device (:class:`AsyncSaver`),
+    the live ones (a synchronous save) or host copies of a sharded state's
+    gathered leaves (``parallel.zero.unshard_state``)."""
     state_dict: Dict[str, torch.Tensor]
     adam_count: int
     exp_avg: Dict[str, torch.Tensor]
@@ -281,6 +282,14 @@ def export_pth(path: str, state: Union[TrainState, Snapshot], *,
     torch_import.save_pth(path, sd, epoch=epoch)
 
 
+def _frozen(state: Union[TrainState, Snapshot]) -> Snapshot:
+    """A snapshot that the next step cannot change: a state's is cloned; a
+    :class:`Snapshot` (a gathered one, ``parallel.zero.unshard_state``)
+    is already a copy."""
+    return state if isinstance(state, Snapshot) else snapshot(state,
+                                                              clone=True)
+
+
 class AsyncSaver:
     """Checkpoint writes off the training thread.
 
@@ -295,17 +304,18 @@ class AsyncSaver:
         self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
         self._pending: List[concurrent.futures.Future] = []
 
-    def save(self, path: str, state: TrainState, *, epoch: int = 0,
-             extras: Optional[Dict[str, Any]] = None) -> None:
-        snap = snapshot(state, clone=True)
+    def save(self, path: str, state: Union[TrainState, Snapshot], *,
+             epoch: int = 0, extras: Optional[Dict[str, Any]] = None
+             ) -> None:
+        snap = _frozen(state)
         # callers pass live lists (loss_history) that keep growing
         extras = copy.deepcopy(extras) if extras else None
         self._pending.append(self._pool.submit(save, path, snap, epoch=epoch,
                                                extras=extras))
 
-    def export_pth(self, path: str, state: TrainState, *,
+    def export_pth(self, path: str, state: Union[TrainState, Snapshot], *,
                    epoch: int = 0) -> None:
-        snap = snapshot(state, clone=True)
+        snap = _frozen(state)
         self._pending.append(self._pool.submit(export_pth, path, snap,
                                                epoch=epoch))
 

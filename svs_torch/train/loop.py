@@ -43,10 +43,21 @@ full batch's rows).  Every rank reads the checkpoint it resumes from; rank
 ``val_sdr``.  The SIGTERM flag is agreed across the ranks where the loop
 checks it, so that every rank stops at the same step.
 
+With ``zero1`` or ``fsdp`` the DP mesh's state is sharded
+(:mod:`svs_torch.parallel.zero`, svs_tpu loop.py:395-406): the state is
+replicated from rank 0 and then cut into each rank's slices, so a resume
+is broadcast first and sharded after; the step is
+``zero.make_zero1_train_step``; every save site (latest, best, the
+learning-rate drop, preemption, the ``.pth`` export) gathers the full
+state on every rank (``zero.unshard_state``, svs_tpu loop.py:463-465)
+before rank 0 writes the canonical ``.ckpt``, so a checkpoint resumes
+into any layout; validation under FSDP runs on the gathered parameters.
+``epoch_scan`` is refused with either, as svs_tpu refuses it.
+
 Not ported yet, and refused with ``NotImplementedError`` naming its
-ROADMAP item: ZeRO-1 and FSDP (A.10.3), TP (A.10.4), PP (A.10.5), CP
-(A.10.6), the ``device_put`` hook and multi-host runs (A.10.7), and
-``epoch_scan`` over a mesh (A.10.2).
+ROADMAP item: TP (A.10.4), PP (A.10.5), CP (A.10.6), the ``device_put``
+hook and multi-host runs (A.10.7), and ``epoch_scan`` over a DP mesh
+(A.10.2).
 """
 
 from __future__ import annotations
@@ -65,6 +76,7 @@ from svs_torch.data import device_data as dd
 from svs_torch.data.dataset import PatchDataset
 from svs_torch.parallel import dp
 from svs_torch.parallel import mesh as mesh_lib
+from svs_torch.parallel import zero
 from svs_torch.train import checkpoint as ckpt_lib
 from svs_torch.train.step import (TrainState, batch_to_device,
                                   create_train_state, get_learning_rate,
@@ -107,8 +119,10 @@ class TrainOptions:
     parallel: str = "dp"       # "cp" / "tp" / "pp": ROADMAP A.10.6 / 4 / 5
     pp_micro: int = 4
     pp_split: int = 3
-    zero1: bool = False        # ROADMAP A.10.3
-    fsdp: bool = False         # ROADMAP A.10.3
+    # shard Adam's moments (zero1), and the parameters and BN statistics
+    # too (fsdp), over the mesh's ranks
+    zero1: bool = False
+    fsdp: bool = False
     # gradient accumulation: one Adam update every accum_steps microbatches
     # with their mean gradient; resume with the same value
     accum_steps: int = 1
@@ -124,13 +138,18 @@ class TrainOptions:
     device: Optional[str] = None
 
 
+# svs_tpu's refusal of epoch_scan off a single process or plain-DP mesh
+SCAN_REFUSAL = ("epoch_scan requires the device-resident dataset on a "
+                "single-process run, mesh-free or plain-DP mesh "
+                "(device_data='on'/'auto' with the dataset under the HBM "
+                "cap; not cp/tp/zero1/fsdp)")
+
+
 def _refuse_unported(opts: TrainOptions) -> None:
     def no(what: str, item: str) -> None:
         raise NotImplementedError(f"{what} is not ported to svs_torch yet "
                                   f"(ROADMAP {item})")
 
-    if opts.zero1 or opts.fsdp:
-        no("ZeRO-1 / FSDP (zero1, fsdp)", "A.10.3")
     items = {"tp": "A.10.4", "pp": "A.10.5", "cp": "A.10.6"}
     if opts.parallel in items:
         no(f"parallel={opts.parallel!r}", items[opts.parallel])
@@ -139,6 +158,10 @@ def _refuse_unported(opts: TrainOptions) -> None:
     if opts.device_put is not None:
         no("a device_put sharding hook", "A.10.7")
     if opts.mesh is None:
+        if opts.zero1 or opts.fsdp:
+            raise ValueError("zero1 / fsdp shard the training state across "
+                             "a DP mesh: pass TrainOptions.mesh "
+                             "(parallel.mesh.make_mesh)")
         if (torch.distributed.is_available()
                 and torch.distributed.is_initialized()
                 and torch.distributed.get_world_size() > 1):
@@ -149,6 +172,8 @@ def _refuse_unported(opts: TrainOptions) -> None:
         raise TypeError("TrainOptions.mesh must be a parallel.mesh.Mesh "
                         f"(make_mesh), not {type(opts.mesh).__name__}")
     if opts.epoch_scan:
+        if opts.zero1 or opts.fsdp:
+            raise ValueError(SCAN_REFUSAL)
         no("epoch_scan over a mesh", "A.10.2")
     if (opts.device is not None
             and torch.device(opts.device).type != opts.mesh.device.type):
@@ -210,11 +235,7 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
     epoch_fn = None
     if opts.epoch_scan:
         if not isinstance(train_ds, dd.DeviceDataset):
-            raise ValueError(
-                "epoch_scan requires the device-resident dataset on a "
-                "single-process run, mesh-free or plain-DP mesh "
-                "(device_data='on'/'auto' with the dataset under the HBM "
-                "cap; not cp/tp/zero1/fsdp)")
+            raise ValueError(SCAN_REFUSAL)
         from svs_torch.train.scan import make_epoch_scan, run_epoch
         epoch_fn = make_epoch_scan(cfg, augment=opts.augment)
 
@@ -223,9 +244,13 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
     optimizer = make_optimizer(cfg, accum_steps=opts.accum_steps,
                                capturable=opts.epoch_scan)
     state = create_train_state(opts.seed, cfg, optimizer, device=dev)
+    sharded = opts.zero1 or opts.fsdp  # on a mesh (_refuse_unported)
     if mesh is None:
         train_step = make_train_step(cfg)
         eval_step = make_eval_step(cfg)
+    elif sharded:
+        train_step = zero.make_zero1_train_step(mesh, cfg, fsdp=opts.fsdp)
+        eval_step = dp.make_dp_eval_step(mesh, cfg)
     else:
         train_step = dp.make_dp_train_step(mesh, cfg)
         eval_step = dp.make_dp_eval_step(mesh, cfg)
@@ -239,6 +264,8 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
             f"(epoch {start_epoch})")
     if mesh is not None:
         dp.replicate_state(state, mesh)
+    if sharded:
+        state = zero.shard_state(state, mesh, fsdp=opts.fsdp)
 
     augmenter = None
     if opts.augment:
@@ -272,14 +299,18 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
     # resumed run cannot overwrite svs_best with a worse model
     best_val_loss = float(extras.get("best_val_loss", 100.0))
     saver = ckpt_lib.AsyncSaver() if opts.async_save and primary else None
+    # what a save writes: a sharded state is gathered on every rank first
+    # (a collective), then rank 0 writes it
+    snap_state = zero.unshard_state if sharded else (lambda s: s)
 
-    def save_ckpt(*args, **kw):
+    def save_ckpt(path, snap, **kw):
         if primary:
-            (saver.save if saver else ckpt_lib.save)(*args, **kw)
+            (saver.save if saver else ckpt_lib.save)(path, snap, **kw)
 
-    def export_ckpt(*args, **kw):
+    def export_ckpt(path, snap, **kw):
         if primary:
-            (saver.export_pth if saver else ckpt_lib.export_pth)(*args, **kw)
+            (saver.export_pth if saver else ckpt_lib.export_pth)(path, snap,
+                                                                 **kw)
 
     log_buffer: List[str] = []
     # the per-epoch loss history, persisted like the reference's
@@ -314,7 +345,7 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
         if not already_saved:
             # resume re-runs the interrupted epoch: drop a half-filled
             # accumulation cycle (step.reset_accumulation)
-            save_ckpt(ckpt_weight, reset_accumulation(state),
+            save_ckpt(ckpt_weight, snap_state(reset_accumulation(state)),
                       epoch=epoch_to_save,
                       extras={"loss_list_total": loss_history,
                               "best_val_loss": best_val_loss})
@@ -326,7 +357,7 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
                 set_learning_rate(state, cfg.lr_after_drop)
                 save_ckpt(os.path.join(opts.ckpt_dir,
                                        f"svs_{opts.label}_400.ckpt"),
-                          state, epoch=ep + 1)
+                          snap_state(state), epoch=ep + 1)
                 say(f"\n[Info] Epoch {ep}: learning rate set to "
                     f"{cfg.lr_after_drop}\n")
 
@@ -382,10 +413,11 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
             if valid_ds is not None and (ep + 1) % opts.val_interval == 0:
                 # fixed crop seed: the same validation patches every pass
                 # (svs_tpu's choice; the reference re-rolls them)
-                val_losses = [eval_step(state, _val_local(batch))["total"]
-                              for batch in valid_ds.batches(
-                                  opts.batch_size, shuffle=False,
-                                  seed=opts.seed)]
+                with zero.gathered(state):
+                    val_losses = [
+                        eval_step(state, _val_local(batch))["total"]
+                        for batch in valid_ds.batches(
+                            opts.batch_size, shuffle=False, seed=opts.seed)]
                 avg_val_loss = float(np.mean(
                     torch.stack(val_losses).cpu().tolist()))
                 log_buffer.append(f"Val {avg_val_loss}\n")
@@ -393,21 +425,26 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
                     f"| Val Loss: {avg_val_loss:.4e}")
                 if avg_val_loss < best_val_loss:
                     best_val_loss = avg_val_loss
-                    save_ckpt(best_weight, state, epoch=ep + 1,
+                    snap = snap_state(state)
+                    save_ckpt(best_weight, snap, epoch=ep + 1,
                               extras={"best_val_loss": best_val_loss,
                                       "loss_list_total": loss_history})
                     if opts.export_pth:
-                        export_ckpt(best_weight[:-5] + ".pth", state,
+                        export_ckpt(best_weight[:-5] + ".pth", snap,
                                     epoch=ep + 1)
                 val_record = {"epoch": ep + 1, "val_loss": avg_val_loss}
-                if opts.val_sdr and primary:
+                sdr = None
+                if opts.val_sdr:
                     # after the best-checkpoint decision, so the scoring
                     # never moves the loss-based contract; a song that
                     # fails is skipped inside validation_sdr
                     from svs_torch.evaluation.val_sdr import validation_sdr
-                    sdr = validation_sdr(state.model, opts.valid_folder, cfg,
-                                         max_songs=opts.val_sdr_songs,
-                                         device=dev)
+                    with zero.gathered(state):
+                        if primary:
+                            sdr = validation_sdr(
+                                state.model, opts.valid_folder, cfg,
+                                max_songs=opts.val_sdr_songs, device=dev)
+                if sdr is not None:
                     for k in ("SDR", "SIR", "SAR", "NSDR"):
                         val_record[f"vocal_{k.lower()}"] = sdr[k]
                     val_record["sdr_songs"] = len(sdr["per_song"])
@@ -424,11 +461,12 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
             saved_latest = ((ep + 1) % opts.save_every == 0
                             or ep + 1 == opts.epoch)
             if saved_latest:
-                save_ckpt(ckpt_weight, state, epoch=ep + 1,
+                snap = snap_state(state)
+                save_ckpt(ckpt_weight, snap, epoch=ep + 1,
                           extras={"loss_list_total": loss_history,
                                   "best_val_loss": best_val_loss})
                 if opts.export_pth:
-                    export_ckpt(ckpt_weight[:-5] + ".pth", state,
+                    export_ckpt(ckpt_weight[:-5] + ".pth", snap,
                                 epoch=ep + 1)
             if mesh_lib.agree(stop_requested, mesh):
                 # epoch complete: no second write of the same latest ckpt

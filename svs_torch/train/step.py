@@ -135,10 +135,15 @@ def _accumulator(state: TrainState, like) -> List[torch.Tensor]:
     return state.acc_grads
 
 
-def _apply(state: TrainState, grads: List[torch.Tensor]) -> None:
+def _apply(state: TrainState, grads: List[torch.Tensor],
+           params: Optional[List[torch.Tensor]] = None) -> bool:
     """One optimiser call with ``grads``: Adam, or a MultiSteps
-    accumulation that reaches Adam on the k-th microbatch."""
-    params = list(state.model.parameters())
+    accumulation that reaches Adam on the k-th microbatch; whether Adam
+    stepped.  ``params``: the tensors Adam is bound to, in ``grads``'
+    order (the model's parameters unless given: the ZeRO-1 step's
+    slices)."""
+    if params is None:
+        params = list(state.model.parameters())
     if state.accum_steps > 1:
         n = state.mini_step
         with torch.no_grad():
@@ -148,13 +153,14 @@ def _apply(state: TrainState, grads: List[torch.Tensor]) -> None:
                 acc.add_((g - acc) / (n + 1))  # optax's running mean
         state.mini_step = (n + 1) % state.accum_steps
         if state.mini_step:
-            return
+            return False
         grads = state.acc_grads
         state.acc_grads = None
     for p, g in zip(params, grads):
         p.grad = g
     state.optimizer.step()
     state.optimizer.zero_grad(set_to_none=True)
+    return True
 
 
 def make_step_fn(cfg: Optional[SVSConfig] = None):

@@ -602,3 +602,39 @@ def test_capturable_adam_checkpoint_round_trip(card, tmp_path):
     second, losses = tscan.make_epoch_scan(cfg)(
         second, planes, songs, starts, torch.Generator(card).manual_seed(2))
     assert second.step == 2 * SCAN_STEPS and torch.isfinite(losses).all()
+
+
+@pytest.mark.cuda
+def test_world_of_one_sharded_steps_are_make_train_steps_bits(card):
+    """A world of one over NCCL: the ZeRO-1 and FSDP steps under
+    ``pallas_fused`` (dropout on, bf16 convs, cuDNN deterministic) are
+    ``make_train_step``'s bits, Adam's moments included, and launch the
+    loss kernels as it does."""
+    import torch.distributed as dist
+
+    from svs_torch.parallel import dryrun
+    from svs_torch.parallel import mesh as mesh_lib
+    from svs_torch.utils.config import SVSConfig
+
+    cfg = SVSConfig(enc_channels=(4, 8, 8, 16, 16, 16), input_len=128,
+                    mr_mag_impl="pallas_fused", compute_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    mix = rng.random((4, 512, 128)).astype(np.float32)
+    batch = {"mix": mix, "voc": mix * 0.5,
+             "mix_angle": rng.uniform(-3, 3, mix.shape).astype(np.float32),
+             "voc_angle": rng.uniform(-3, 3, mix.shape).astype(np.float32)}
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    mesh = mesh_lib.make_mesh()
+    try:
+        assert mesh.size == 1 and mesh.backend == "nccl"
+        r = dryrun.layout_parity(mesh, cfg, batch)
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = was
+    for kind in ("zero1", "fsdp"):
+        x = r[kind]
+        assert all(x[k] == 0.0 for k in ("loss_rel", "grad_norm_rel",
+                                         "bn_abs", "params_max")), (kind, x)
+        assert x["vs_dp"] == 0.0 and x["shards_ok"], (kind, x)
+        assert tuple(x["kernels"]) == (0, 0, 3, 3), (kind, x)

@@ -472,3 +472,9 @@ def test_train_cli_epoch_scan_with_dp_is_not_ported(capsys):
                         "--epoch_scan"])
     assert err.value.code == 2
     assert "ROADMAP A.10.2" in capsys.readouterr().err
+    # with ZeRO-1 it stays refused, with svs_tpu's message
+    with pytest.raises(SystemExit) as err:
+        train_cli.main(["--label", "x", "--device", "cpu", "--dp",
+                        "--zero1", "--epoch_scan"])
+    assert err.value.code == 2
+    assert "not cp/tp/zero1/fsdp" in capsys.readouterr().err

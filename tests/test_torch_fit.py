@@ -234,9 +234,15 @@ def test_sigterm_saves_exits_143_and_resumes(data, tmp_path):
 def test_fit_refuses_what_is_not_ported(data, tmp_path):
     songs, init = data
     one = Mesh(None, 0, 1, torch.device("cpu"))
-    for kw, item in ((dict(fsdp=True), "A.10.3"),
-                     (dict(device_put=lambda b: b), "A.10.7"),
-                     (dict(zero1=True), "A.10.3"),
+    # ZeRO-1 and FSDP are ported (tests/test_torch_zero.py): they need a
+    # mesh, and refuse epoch_scan with svs_tpu's message
+    for kw in (dict(fsdp=True), dict(zero1=True)):
+        with pytest.raises(ValueError, match="pass TrainOptions.mesh"):
+            _port_fit(songs, init, str(tmp_path), **kw)
+        with pytest.raises(ValueError, match="not cp/tp/zero1/fsdp"):
+            _port_fit(songs, init, str(tmp_path), mesh=one, epoch_scan=True,
+                      **kw)
+    for kw, item in ((dict(device_put=lambda b: b), "A.10.7"),
                      (dict(parallel="cp"), "A.10.6"),
                      (dict(parallel="tp"), "A.10.4"),
                      (dict(parallel="pp"), "A.10.5"),
@@ -279,7 +285,13 @@ def test_train_cli_unported_flags_exit_2(flag, item, capsys):
     with pytest.raises(SystemExit) as err:
         train_cli.main(["--label", "x", "--device", "cpu", *flag])
     assert err.value.code == 2
-    assert f"ROADMAP {item})" in capsys.readouterr().err
+    said = capsys.readouterr().err
+    if item == "A.10.3":
+        # ported (tests/test_torch_zero.py): without --dp they exit 2 as
+        # svs_tpu's do
+        assert "pass --dp with them" in said
+    else:
+        assert f"ROADMAP {item})" in said
 
 
 def test_remat_gives_the_same_loss_and_gradients():

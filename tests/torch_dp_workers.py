@@ -117,41 +117,55 @@ def sp_decode(mesh, cfg_kw, state_dict, cases):
 
 
 def fit(mesh, opts_kw, cfg_kw, stop=None):
-    """``fit`` over the mesh; the checkpoint paths this rank wrote, its
-    step count and final state dict, and its exit code (0, or 143 after a
-    stop).  ``stop``: ``(rank, after)`` sends that rank a SIGTERM after its
-    ``after``-th step."""
+    """``fit`` over the mesh (DP, or ZeRO-1 / FSDP with ``zero1`` /
+    ``fsdp`` in ``opts_kw``); the checkpoint paths this rank wrote, its
+    step count and final full state dict, and its exit code (0, or 143
+    after a stop).  ``stop``: ``(rank, after)`` sends that rank a SIGTERM
+    after its ``after``-th step, or, with ``after`` a file name, when it
+    first writes that checkpoint."""
+    from svs_torch.parallel import zero
     from svs_torch.train import checkpoint as ckpt_lib
     from svs_torch.train import loop
 
     written, calls = [], [0]
-    save, make = ckpt_lib.save, dp.make_dp_train_step
+    save = ckpt_lib.save
+    make = dp.make_dp_train_step, zero.make_zero1_train_step
+
+    def stop_at(mark):
+        if stop is not None and (mesh.rank, mark) == tuple(stop):
+            os.kill(os.getpid(), signal.SIGTERM)
 
     def recording_save(path, *args, **kw):
         written.append(os.path.basename(path))
-        return save(path, *args, **kw)
+        out = save(path, *args, **kw)
+        if written.count(written[-1]) == 1:
+            stop_at(written[-1])
+        return out
 
-    def stepping(m, cfg):
-        step = make(m, cfg)
+    def stepping(make_step):
+        def made(*a, **kw):
+            step = make_step(*a, **kw)
 
-        def run(*args):
-            out = step(*args)
-            calls[0] += 1
-            if stop is not None and (mesh.rank, calls[0]) == tuple(stop):
-                os.kill(os.getpid(), signal.SIGTERM)
-            return out
-        return run
+            def run(*args):
+                out = step(*args)
+                calls[0] += 1
+                stop_at(calls[0])
+                return out
+            return run
+        return made
 
-    ckpt_lib.save, dp.make_dp_train_step = recording_save, stepping
+    ckpt_lib.save = recording_save
+    dp.make_dp_train_step, zero.make_zero1_train_step = map(stepping, make)
     code = 0
     try:
         state = loop.fit(loop.TrainOptions(mesh=mesh, device="cpu",
                                            **opts_kw), SVSConfig(**cfg_kw))
-        sd = _np(state.model.state_dict())
+        sd = _np(zero.unshard_state(state).state_dict)
     except SystemExit as e:
         code, sd = e.code, None
     finally:
-        ckpt_lib.save, dp.make_dp_train_step = save, make
+        ckpt_lib.save = save
+        dp.make_dp_train_step, zero.make_zero1_train_step = make
     return {"written": written, "steps": calls[0], "code": code,
             "state": sd}
 
