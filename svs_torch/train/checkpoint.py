@@ -205,8 +205,11 @@ def _restore_opt(state: TrainState, opt: dict, path: str) -> None:
     tree_nu = {"params": adam["nu"]}
     optimizer = state.optimizer
     group = optimizer.param_groups[0]
-    group["betas"] = (float(hyper["b1"]), float(hyper["b2"]))
-    group["eps"] = float(hyper["eps"])
+    # the file's float32 values, which a fresh Adam holds too (step.BETAS,
+    # step.EPS): a resumed run updates as an uninterrupted one
+    group["betas"] = (float(np.float32(hyper["b1"])),
+                      float(np.float32(hyper["b2"])))
+    group["eps"] = float(np.float32(hyper["eps"]))
     # optax keeps the rate in float32; its shortest decimal is the rate the
     # run was configured with (1e-3, not 0.0010000000474974513), so that a
     # resumed run updates exactly as an uninterrupted one

@@ -3,8 +3,8 @@
 One optimisation step is U-Net forward with BatchNorm and dropout, the mask
 arithmetic, the patch iSTFT, the 3-resolution MR-STFT loss, backward and an
 Adam update (reference train.py:274-300; Adam with torch's defaults,
-reference model.py:116).  The names are svs_tpu's; inside, the idiom is
-PyTorch's:
+reference model.py:116, held as svs_tpu's float32 values).  The names are
+svs_tpu's; inside, the idiom is PyTorch's:
 
 - :class:`TrainState` holds the :class:`~svs_torch.models.unet.UNet`, its
   ``torch.optim.Adam`` and a step count.  A step UPDATES THE STATE IN
@@ -24,12 +24,21 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from svs_torch.losses.mrstft import combined_loss
 from svs_torch.models.unet import UNet
 from svs_torch.utils.config import SVSConfig
 from svs_torch.utils.device import DeviceLike, resolve_device
+
+
+# optax's Adam defaults (0.9, 0.999, 1e-8) as the float32 values that
+# svs_tpu's ``inject_hyperparams`` holds and a ``.ckpt`` stores: a fresh
+# Adam and one resumed from a checkpoint (``checkpoint._restore_opt``)
+# then update with the same bits
+BETAS = (float(np.float32(0.9)), float(np.float32(0.999)))
+EPS = float(np.float32(1e-8))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,8 +56,8 @@ class AdamSpec:
         replay it (``train/scan.py``).  Otherwise, and always on the CPU,
         the host form."""
         params = list(params)
-        # betas (0.9, 0.999) and eps 1e-8 are torch's defaults, and optax's
-        return torch.optim.Adam(params, lr=self.learning_rate,
+        return torch.optim.Adam(params, lr=self.learning_rate, betas=BETAS,
+                                eps=EPS,
                                 capturable=(self.capturable and bool(params)
                                             and params[0].is_cuda))
 
@@ -70,11 +79,11 @@ class TrainState:
 
 def make_optimizer(cfg: Optional[SVSConfig] = None, accum_steps: int = 1,
                    capturable: bool = False) -> AdamSpec:
-    """Adam with torch defaults at ``cfg.learning_rate``; ``accum_steps > 1``
-    updates once every ``accum_steps`` microbatches with their MEAN
-    gradient (``optax.MultiSteps``).  A run resumes with the same
-    ``accum_steps``.  ``capturable``: the form a CUDA graph replays
-    (``epoch_scan``)."""
+    """Adam (:data:`BETAS`, :data:`EPS`) at ``cfg.learning_rate``;
+    ``accum_steps > 1`` updates once every ``accum_steps`` microbatches
+    with their MEAN gradient (``optax.MultiSteps``).  A run resumes with
+    the same ``accum_steps``.  ``capturable``: the form a CUDA graph
+    replays (``epoch_scan``)."""
     cfg = cfg or SVSConfig()
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")

@@ -290,3 +290,55 @@ def test_async_saver_snapshots_before_the_next_step(tmp_path):
     with pytest.raises(OSError):
         saver.wait()
     saver.close()
+
+
+def _songs(root, n_songs=2, t=160):
+    rng = np.random.default_rng(0)
+    for folder in ("mixture", "vocal"):
+        os.makedirs(os.path.join(root, folder), exist_ok=True)
+    for i in range(n_songs):
+        for folder in ("mixture", "vocal"):
+            np.save(os.path.join(root, folder, f"{i:04d}_s{i}_spec.npy"),
+                    rng.random((513, t)).astype(np.float32))
+            ang = rng.uniform(-3, 3, (513, t)).astype(np.float32)
+            np.save(os.path.join(root, folder, f"{i:04d}_s{i}_phase.npy"),
+                    np.exp(1j * ang).astype(np.complex64))
+    return root
+
+
+def test_fresh_fit_equals_a_fit_resumed_from_its_checkpoint(tmp_path):
+    """A fresh 2-epoch ``fit`` (a fresh Adam, step.BETAS and EPS) and a
+    fresh 1-epoch ``fit`` resumed from its ``.ckpt`` for the second (the
+    file's float32 betas and eps) end with the same bits: parameters, BN
+    statistics, Adam's moments and step count, and the same log."""
+    from svs_torch.train import loop as tloop
+
+    songs = _songs(str(tmp_path / "songs"))
+    cfg = TConfig(**dict(NARROW, samples_per_song=3))
+
+    def fit(out, **kw):
+        return tloop.fit(tloop.TrainOptions(**dict(dict(
+            train_folder=songs, valid_folder=songs, load_path="none",
+            label="t", epoch=2, batch_size=4, val_interval=1,
+            ckpt_dir=os.path.join(out, "CKPT"),
+            log_dir=os.path.join(out, "LOG"), progress=False,
+            device="cpu"), **kw)), cfg)
+
+    full = fit(str(tmp_path / "full"))
+    half = str(tmp_path / "half")
+    fit(half, epoch=1)
+    resumed = fit(half, load_path=os.path.join(half, "CKPT", "svs_t.ckpt"))
+    assert full.step == resumed.step == 4
+    theirs = resumed.model.state_dict()
+    for k, v in full.model.state_dict().items():
+        if "num_batches" not in k:  # not in svs_tpu's format, never read
+            assert torch.equal(theirs[k], v), k
+    a, b = tck.snapshot(full), tck.snapshot(resumed)
+    assert a.adam_count == b.adam_count == 4
+    assert (a.betas, a.eps) == (b.betas, b.eps) == (tstep.BETAS, tstep.EPS)
+    for k in a.exp_avg:
+        assert torch.equal(a.exp_avg[k], b.exp_avg[k]), k
+        assert torch.equal(a.exp_avg_sq[k], b.exp_avg_sq[k]), k
+    with open(os.path.join(half, "LOG", "log_t.txt")) as f, \
+            open(str(tmp_path / "full" / "LOG" / "log_t.txt")) as g:
+        assert f.read() == g.read()
