@@ -10,9 +10,10 @@
 
 Each mode prints one JSON line.  ``--dp-smoke`` is svs_tpu's multi-device
 dry run: ``--devices`` gloo ranks on the CPU, the DP, ZeRO-1 and FSDP
-train steps against the unsharded step and the segment-parallel decode
-against the unsharded decode (``svs_torch.parallel.dryrun``); it exits 1
-when a check fails.
+train steps (and TP on a (2, devices / 2) mesh where ``--devices`` is
+even and at least 4) against the unsharded step and the segment-parallel
+decode against the unsharded decode (``svs_torch.parallel.dryrun``); it
+exits 1 when a check fails.
 """
 
 from __future__ import annotations
@@ -42,9 +43,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="train-bench batch size (reference docs use 32)")
     p.add_argument("--dp-smoke", action="store_true",
                    help="the multi-device dry run: --devices gloo ranks on "
-                        "the CPU, the DP, ZeRO-1 and FSDP train steps and "
-                        "the segment-parallel decode against the unsharded "
-                        "ones; pass/fail and wall time")
+                        "the CPU, the DP, ZeRO-1, FSDP and TP train steps "
+                        "and the segment-parallel decode against the "
+                        "unsharded ones; pass/fail and wall time")
     p.add_argument("--devices", type=int, default=8,
                    help="with --dp-smoke: the ranks to start (svs_tpu's "
                         "virtual mesh has 8)")

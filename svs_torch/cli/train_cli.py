@@ -6,7 +6,7 @@ Flag surface preserved from reference train.py:157-167:
 and svs_tpu's extensions (--preset --seed --export_pth --ckpt_dir --log_dir
 --samples_per_song --dtype --remat --save_every --async_save --device_data
 --device_data_cap_mb --accum --augment --remix_p --aug_gain --epoch_scan
---val_sdr --val_sdr_songs --dp --zero1 --fsdp), plus --device (default
+--val_sdr --val_sdr_songs --dp --zero1 --fsdp --tp), plus --device (default
 cuda; ``--device cpu`` runs on the host).  ``--epoch_scan`` replays a
 captured CUDA graph of the step for each epoch's full batches (it needs
 the dataset on the device).  ``--dp`` trains data-parallel over the ranks
@@ -15,10 +15,15 @@ of ``torchrun`` (``torchrun --nproc_per_node N -m svs_torch.cli.train_cli
 world size 1 (``parallel.mesh.make_mesh``); with it ``--zero1`` shards
 Adam's moments over the ranks and ``--fsdp`` the parameters and BN
 statistics too (``parallel.zero``); either needs ``--dp``, as svs_tpu's
-does, and neither goes with ``--epoch_scan``.  The other parallel and
-multi-host flags (--multihost --coordinator --num_hosts --host_id --cp
---tp --pp, and --epoch_scan with --dp) exit 2 with a message that names
-their ROADMAP item.
+does, and neither goes with ``--epoch_scan``.  ``--tp K`` trains
+tensor-parallel (``parallel.tp``): the conv channels cut K ways over a
+(n_data, K) mesh of torchrun's ranks (``torchrun --nproc_per_node N -m
+svs_torch.cli.train_cli --tp K [--dp] ...``), n_data = N / K with
+``--dp``, else 1 (then N must be K); it goes with none of --cp --pp
+--zero1 --fsdp --epoch_scan.  The other parallel and multi-host flags
+(--multihost --coordinator --num_hosts --host_id --cp --pp, and
+--epoch_scan with --dp) exit 2 with a message that names their ROADMAP
+item.
 
 Run as ``python -m svs_torch.cli.train_cli``.
 """
@@ -31,14 +36,28 @@ import dataclasses
 # flag -> the ROADMAP item that ports it
 UNPORTED = {
     "multihost": "A.10.7", "coordinator": "A.10.7", "num_hosts": "A.10.7",
-    "host_id": "A.10.7", "cp": "A.10.6", "tp": "A.10.4", "pp": "A.10.5",
+    "host_id": "A.10.7", "cp": "A.10.6", "pp": "A.10.5",
 }
+
+
+def tp_mesh_shape(world: int, k: int, dp: bool) -> int:
+    """The data axis of ``--tp k`` over ``world`` ranks (svs_tpu
+    train_cli.py:203-216): ``world // k`` with ``--dp``, else 1; every
+    rank is on the mesh."""
+    if world % k:
+        raise ValueError(f"--tp {k} does not divide the {world} ranks")
+    n_data = world // k if dp else 1
+    if n_data * k != world:
+        raise ValueError(f"--tp {k} without --dp is a (1, {k}) mesh of {k} "
+                         f"ranks, not {world}: pass --dp for a "
+                         f"({world // k}, {k}) mesh")
+    return n_data
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="Train the SVS U-Net (cuda by default; --dp over the "
-                    "ranks of torchrun).")
+        description="Train the SVS U-Net (cuda by default; --dp / --tp "
+                    "over the ranks of torchrun).")
     p.add_argument("--train_folder", type=str, default="./data/vocals")
     p.add_argument("--load_path", type=str, default="result.ckpt")
     p.add_argument("--label", type=str, required=True)
@@ -68,7 +87,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cp", action="store_true",
                    help="not ported (ROADMAP A.10.6)")
     p.add_argument("--tp", type=int, default=None, metavar="K",
-                   help="not ported (ROADMAP A.10.4)")
+                   help="tensor-parallel training: conv channels cut K-way "
+                        "over the mesh's 'model' axis (parallel/tp.py). "
+                        "Alone: a (1, K) mesh of K ranks; with --dp: a "
+                        "(ranks // K, K) data x model mesh"),
     p.add_argument("--pp", action="store_true",
                    help="not ported (ROADMAP A.10.5)")
     p.add_argument("--pp_micro", type=int, default=4, metavar="N",
@@ -141,6 +163,15 @@ def main(argv=None) -> int:
     if (args.zero1 or args.fsdp) and args.tp is not None:
         parser.error("--zero1/--fsdp compose with --dp only (TP already "
                      "shards the state with its channels)")
+    if args.tp is not None:
+        if args.tp < 1:
+            parser.error(f"--tp must be a positive shard count, got "
+                         f"{args.tp}")
+        if args.cp or args.pp:
+            parser.error("--tp is mutually exclusive with --cp/--pp")
+        if args.epoch_scan:
+            from svs_torch.train.loop import SCAN_REFUSAL
+            parser.error(f"--epoch_scan with --tp: {SCAN_REFUSAL}")
     if (args.zero1 or args.fsdp) and args.epoch_scan:
         from svs_torch.train.loop import SCAN_REFUSAL
         parser.error(f"--epoch_scan with --zero1/--fsdp: {SCAN_REFUSAL}")
@@ -160,7 +191,19 @@ def main(argv=None) -> int:
     from svs_torch.utils.config import get_config
 
     mesh = None
-    if args.dp:
+    parallel = "dp"
+    if args.tp is not None:
+        from svs_torch.parallel.mesh import make_2d_mesh, world_size
+        try:
+            n_data = tp_mesh_shape(world_size(), args.tp, args.dp)
+        except ValueError as e:
+            parser.error(str(e))
+        mesh = make_2d_mesh(n_data, args.tp, device=args.device)
+        parallel = "tp"
+        if mesh.is_primary:
+            print(f"Tensor-parallel over a ({n_data} data, {args.tp} model) "
+                  "mesh")
+    elif args.dp:
         from svs_torch.parallel.mesh import make_mesh
         mesh = make_mesh(device=args.device)
 
@@ -197,6 +240,7 @@ def main(argv=None) -> int:
         val_sdr=args.val_sdr,
         val_sdr_songs=args.val_sdr_songs,
         mesh=mesh,
+        parallel=parallel,
         zero1=args.zero1,
         fsdp=args.fsdp,
         device=args.device,

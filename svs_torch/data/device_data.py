@@ -23,12 +23,14 @@ Memory: 4 float32 planes of (S, F, T_max).  MUSDB18-scale (100 songs x
 ~2560 frames x 512 bins) is ~2.1 GB; ``resident_bytes`` lets callers gate on
 a cap first.
 
-With a data mesh (``mesh=``, one process per device), each rank keeps the
-planes on its own device and gathers the global batch's crops, the same on
-every rank; the training loop remixes that global batch (the partners
-cross it, as svs_tpu's do) and then keeps this rank's rows
-(``parallel.mesh.shard_batch``).  A DP epoch so consumes exactly the
-single-device epoch's batches.  svs_tpu's
+With a mesh (``mesh=``, one process per device: a data mesh, or under TP
+a 2-D ``(data, model)`` mesh), each rank keeps the planes on its own
+device and gathers the global batch's crops, the same on every rank; the
+training loop remixes that global batch (the partners cross it, as
+svs_tpu's do) and then keeps this rank's rows, or under TP its data row's
+(``parallel.mesh.shard_batch`` over the data axis; svs_tpu loop.py:
+228-234).  A DP or TP epoch so consumes exactly the single-device
+epoch's batches.  svs_tpu's
 ``time_sharded`` mode (ROADMAP A.10.6) and ``MultiHostDeviceDataset``
 (A.10.7) are not ported yet.
 """
@@ -79,8 +81,8 @@ class DeviceDataset:
     caller asks for the CPU) instead of numpy.  For training where the
     host-to-device link bounds the epoch.
 
-    ``mesh``: a data mesh, whose device then holds the planes; the batches
-    are the global batch's, the same on every rank.
+    ``mesh``: a data mesh or a 2-D mesh, whose device then holds the
+    planes; the batches are the global batch's, the same on every rank.
     """
 
     def __init__(self, host: PatchDataset, mesh=None, *,

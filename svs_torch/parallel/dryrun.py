@@ -16,6 +16,11 @@ dropout 0.5, one patch a rank):
   slice), the step stay within the envelope of the unsharded step, and
   the gathered state be the same bits on every rank
   (:func:`layout_parity`);
+- where ``n >= 4`` and ``n`` is even (``dryrun_multichip``'s guard), the
+  same step under TP (:mod:`~svs_torch.parallel.tp`) on a ``(2, n / 2)``
+  mesh: ``conv4.0.weight`` must be cut to ``128 / (n / 2)`` output
+  channels, the step stay within the envelope of the unsharded step and
+  the gathered state be the same bits on every rank;
 - the segment-parallel decode (``separate_magnitude_mesh``, both modes)
   against ``separate_magnitude`` on rank 0.
 
@@ -27,7 +32,7 @@ ported yet.
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +40,7 @@ import torch.distributed as dist
 
 from svs_torch.parallel import dp
 from svs_torch.parallel import mesh as mesh_lib
-from svs_torch.parallel import zero
+from svs_torch.parallel import tp, zero
 from svs_torch.train import step as tstep
 from svs_torch.utils.config import SVSConfig
 
@@ -47,8 +52,8 @@ from svs_torch.utils.config import SVSConfig
 ENVELOPE = {"loss": 1e-5, "grad_norm": 1e-3, "bn": 1e-4, "params_max_lr": 2.1,
             "params_mean": 2e-4}
 # the layouts this dry run checks, and svs_tpu's that it does not yet
-CHECKED = ("dp", "sp", "zero1", "fsdp")
-NOT_PORTED = ("tp", "pp", "cp", "multihost")
+CHECKED = ("dp", "sp", "zero1", "fsdp", "tp")
+NOT_PORTED = ("pp", "cp", "multihost")
 # the training layouts of one data mesh
 LAYOUTS = ("dp", "zero1", "fsdp")
 # the SP decode's atol against the unsharded one (tests/test_infer_mesh.py)
@@ -158,12 +163,15 @@ def _event_ms(step, dev, reps: int, seed: int) -> float:
 def layout_state(kind: str, cfg: SVSConfig, mesh: mesh_lib.Mesh,
                  seed: int = 0, state: Optional[tstep.TrainState] = None):
     """The state of ``seed`` (or ``state``, rank 0's) on every rank in
-    layout ``kind`` (``dp``, ``zero1``, ``fsdp``) and its train step."""
+    layout ``kind`` (``dp``, ``zero1``, ``fsdp``, or ``tp`` on a
+    ``Mesh2D``) and its train step."""
     state = dp.replicate_state(
         state or tstep.create_train_state(seed, cfg, device=mesh.device),
         mesh)
     if kind == "dp":
         return state, dp.make_dp_train_step(mesh, cfg)
+    if kind == "tp":
+        return tp.shard_state(state, mesh), tp.make_tp_train_step(mesh, cfg)
     fsdp = kind == "fsdp"
     return (zero.shard_state(state, mesh, fsdp=fsdp),
             zero.make_zero1_train_step(mesh, cfg, fsdp=fsdp))
@@ -199,18 +207,19 @@ def _spread(sd: Dict[str, torch.Tensor], mesh: mesh_lib.Mesh) -> float:
     return _host_max(float((flat - ref).abs().max()), mesh)
 
 
-def _shards_ok(state, snap, mesh: mesh_lib.Mesh) -> bool:
-    """Whether each parameter's moments (and under FSDP the parameter and
-    the running statistics) this rank holds are the channel rule's slice
-    of the full leaf, and at least one leaf is cut where the mesh has
-    more than one rank."""
+def _shards_ok(state, snap) -> bool:
+    """Whether each parameter's moments (and under FSDP and TP the
+    parameter and the running statistics) this rank holds are the channel
+    rule's slice of the full leaf, and at least one leaf is cut where the
+    state's mesh has more than one rank."""
     if not isinstance(state, zero.ZeroState):
         return True
+    n = state.mesh.size
 
     def cut(shape, dim):
         shape = list(shape)
         if dim is not None:
-            shape[dim] //= mesh.size
+            shape[dim] //= n
         return shape
 
     opt = state.optimizer
@@ -223,15 +232,15 @@ def _shards_ok(state, snap, mesh: mesh_lib.Mesh) -> bool:
     ok = ok and all(list(held[n].shape) == (
         cut(snap.state_dict[n].shape, state.dims[n]) if state.fsdp
         else list(snap.state_dict[n].shape)) for n in held)
-    return ok and (mesh.size == 1 or any(
-        d is not None for d in state.dims.values()))
+    return ok and (n == 1 or any(d is not None for d in state.dims.values()))
 
 
 def layout_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig,
                   batch: Dict[str, np.ndarray], layouts=LAYOUTS,
                   time_reps: int = 0) -> Optional[Dict[str, object]]:
     """One train step of the global host ``batch`` under each of
-    ``layouts`` from the state of seed 0 and one dropout seed.  Returns on
+    ``layouts`` (``tp`` on a ``Mesh2D``, which the others take as its
+    world) from the state of seed 0 and one dropout seed.  Returns on
     rank 0, by layout: the envelope's deltas against the unsharded step
     (rank 0, all-ones ``weight``), ``vs_dp`` (the largest |difference| of
     the metrics, the gathered state and Adam's moments from the DP step's;
@@ -251,7 +260,11 @@ def layout_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig,
 
     dev, seed = mesh.device, 0
     cuda = dev.type == "cuda"
-    local = mesh_lib.shard_batch(mesh, batch)
+
+    def local(kind):
+        return mesh_lib.shard_batch(mesh.data if kind == "tp" else mesh,
+                                    batch)
+
     out, full = {}, {}
     for kind in layouts:
         state, step = layout_state(kind, cfg, mesh, seed)
@@ -260,7 +273,7 @@ def layout_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig,
             torch.cuda.reset_peak_memory_stats(dev)
         cdm.reset_counts()
         cfl.reset_counts()
-        state, metrics = step(state, local,
+        state, metrics = step(state, local(kind),
                               torch.Generator(dev).manual_seed(seed + 1))
         kernels = _loss_kernel_counts()
         peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
@@ -272,7 +285,7 @@ def layout_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig,
                       snap)
         out[kind] = {
             "spread": _spread(snap.state_dict, mesh),
-            "shards_ok": _shards_ok(state, snap, mesh),
+            "shards_ok": _shards_ok(state, snap),
             "bytes": _per_rank(zero.state_bytes(state), mesh),
             "peak": _per_rank(peak, mesh), "kernels": list(kernels),
             "enc4": [list(state.model.state_dict()[w].shape),
@@ -282,7 +295,7 @@ def layout_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig,
     ref_batch["weight"] = torch.ones(len(batch["mix"]), device=dev)
     ref_step = tstep.make_train_step(cfg)
     if time_reps and cuda:
-        runs = {k: (*layout_state(k, cfg, mesh, seed), local)
+        runs = {k: (*layout_state(k, cfg, mesh, seed), local(k))
                 for k in layouts}
         runs["ref"] = (tstep.create_train_state(seed, cfg, device=dev),
                        ref_step, ref_batch)
@@ -319,6 +332,17 @@ def layout_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig,
     return out
 
 
+def tp_parity(mesh: mesh_lib.Mesh, shape: Tuple[int, int], cfg: SVSConfig,
+              batch: Dict[str, np.ndarray], layouts=("dp", "tp"),
+              time_reps: int = 0) -> Optional[Dict[str, object]]:
+    """:func:`layout_parity` on this pool's world viewed as the ``shape``
+    ``(data, model)`` mesh (``mesh.make_2d_mesh``), TP beside DP over the
+    same ranks by default."""
+    mesh2d = mesh_lib.make_2d_mesh(*shape, device=mesh.device,
+                                   backend=mesh.backend)
+    return layout_parity(mesh2d, cfg, batch, layouts, time_reps)
+
+
 def sp_parity(mesh: mesh_lib.Mesh, model: torch.nn.Module, mag: np.ndarray
               ) -> Optional[Dict[str, float]]:
     """``separate_magnitude_mesh`` against ``separate_magnitude`` in both
@@ -342,12 +366,24 @@ def sharded_layouts(n: int) -> tuple:
     return ("zero1", "fsdp") if n > 1 and 128 % n == 0 else ()
 
 
+def tp_mesh(n: int) -> Optional[Tuple[int, int]]:
+    """The ``(data, model)`` mesh the dry run checks TP on over ``n``
+    ranks: ``(2, n / 2)`` where ``n >= 4`` and ``n`` is even
+    (``dryrun_multichip``'s guard), else None."""
+    return (2, n // 2) if n >= 4 and n % 2 == 0 else None
+
+
 def dp_smoke_rank(mesh: mesh_lib.Mesh) -> Optional[Dict[str, object]]:
     """The dry run's checks on one rank (see the module's docstring);
     rank 0 returns their numbers."""
     cfg = SVSConfig(input_len=64, dropout_rate=0.5)
-    step = layout_parity(mesh, cfg, dry_batch(mesh.size),
+    batch = dry_batch(mesh.size)
+    step = layout_parity(mesh, cfg, batch,
                          ("dp",) + sharded_layouts(mesh.size))
+    if tp_mesh(mesh.size):
+        tp_step = tp_parity(mesh, tp_mesh(mesh.size), cfg, batch, ("tp",))
+        if mesh.is_primary:
+            step.update(tp_step)
     model = tstep.create_train_state(0, cfg, device=mesh.device).model
     mag = np.abs(np.random.default_rng(3).standard_normal(
         (513, 150))).astype(np.float32)
@@ -373,6 +409,9 @@ def dp_smoke(devices: int = 8, timeout: float = 1200.0) -> Dict[str, object]:
         for kind, step in res.items():
             ok = ok and step["ok"] and step["spread"] == 0.0 \
                 and step["shards_ok"]
+            if kind == "tp":
+                # the rule cuts enc4's 128 output channels n / 2 ways
+                ok = ok and step["enc4"][0][0] == 128 // tp_mesh(devices)[1]
             parts.append(
                 f"{kind} == unsharded step (loss rel "
                 f"{step['loss_rel']:.2e}, grad_norm rel "
@@ -383,13 +422,17 @@ def dp_smoke(devices: int = 8, timeout: float = 1200.0) -> Dict[str, object]:
                    f"; enc4 weight / moment held {step['enc4'][0]} / "
                    f"{step['enc4'][1]}, state bytes a rank "
                    f"{step['bytes'][0]:.0f} against dp's "
-                   f"{res['dp']['bytes'][0]:.0f}") + ")")
+                   f"{res['dp']['bytes'][0]:.0f}")
+                + (f"; mesh {tp_mesh(devices)}" if kind == "tp" else "")
+                + ")")
         skipped = [k for k in ("zero1", "fsdp") if k not in res]
         detail = (f"checked {list(CHECKED)}: " + "; ".join(parts)
                   + "; sp == unsharded decode (max "
                   + ", ".join(f"{k} {v:.2e}" for k, v in sp.items()) + ")"
                   + (f"; {skipped} skipped (needs devices > 1 dividing "
                      "128)" if skipped else "")
+                  + ("" if "tp" in res else "; ['tp'] skipped (needs an "
+                     "even count of devices >= 4)")
                   + f"; not ported: {list(NOT_PORTED)}")
     except Exception as e:  # the line reports the failure
         ok, detail = False, f"{type(e).__name__}: {str(e)[-2000:]}"

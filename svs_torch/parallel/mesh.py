@@ -10,6 +10,9 @@ a process group, and each reduction over the batch axis is written out:
   rank, the size, this rank's device and the axis name;
 - :func:`make_mesh` joins ``torchrun``'s group (``RANK``, ``WORLD_SIZE``,
   ``LOCAL_RANK``, ``MASTER_ADDR``), or makes a world of one;
+  :func:`make_2d_mesh` views that group as a ``(data, model)`` mesh whose
+  rows and columns are 1-D meshes of their own (:class:`Mesh2D`, for
+  tensor parallelism);
 - :func:`shard_batch` and :func:`global_batch_from_global` pad a global
   host batch with zero rows to a multiple of the size, append the 0/1
   ``weight`` and return this rank's contiguous block of rows;
@@ -90,6 +93,18 @@ def _local_device(dev: torch.device) -> torch.device:
     return dev
 
 
+def _torchrun() -> bool:
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def world_size() -> int:
+    """The ranks of the process group :func:`make_mesh` joins or makes,
+    known before it does: the group's, ``torchrun``'s, or one."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ["WORLD_SIZE"]) if _torchrun() else 1
+
+
 def make_mesh(n_devices: Optional[int] = None, axis_name: str = "data", *,
               device: DeviceLike = None,
               backend: Optional[str] = None) -> Mesh:
@@ -102,7 +117,7 @@ def make_mesh(n_devices: Optional[int] = None, axis_name: str = "data", *,
     dev = _local_device(resolve_device(device))
     if not dist.is_initialized():
         backend = backend or _default_backend(dev)
-        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        if _torchrun():
             dist.init_process_group(backend, init_method="env://",
                                     timeout=TIMEOUT)
         else:
@@ -125,6 +140,63 @@ def make_mesh(n_devices: Optional[int] = None, axis_name: str = "data", *,
             _host_groups[key] = dist.new_group(backend="gloo")
         host = _host_groups[key]
     return Mesh(dist.group.WORLD, rank, size, dev, axis_name, have, host)
+
+
+@dataclasses.dataclass
+class Mesh2D(Mesh):
+    """One rank's view of a 2-D ``(data, model)`` mesh (svs_tpu
+    ``tp.make_2d_mesh``): as a :class:`Mesh`, the whole world (its
+    flags, files and broadcasts); ``data`` and ``model``, the 1-D meshes
+    of this rank's column and row, which the collectives take.  Global
+    rank ``d * n_model + m`` is data row ``d``, model rank ``m``."""
+    data: Optional[Mesh] = None
+    model: Optional[Mesh] = None
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": self.data.size, "model": self.model.size}
+
+
+def _sub_mesh(world: Mesh, groups: List[List[int]], axis_name: str
+              ) -> Mesh:
+    """This rank's 1-D mesh among ``groups`` (disjoint lists of global
+    ranks that cover the world): every rank makes every group, in one
+    order, as ``dist.new_group`` needs; a group of the whole world is the
+    world's, and one of a single rank crosses nothing and needs none."""
+    mine = next(g for g in groups if world.rank in g)
+    if len(mine) == world.size:
+        group = world.group
+    elif len(mine) == 1:
+        group = None
+    else:
+        made = [dist.new_group(g) for g in groups]
+        group = made[groups.index(mine)]
+    return Mesh(group, mine.index(world.rank), len(mine), world.device,
+                axis_name, world.backend)
+
+
+def make_2d_mesh(n_data: int, n_model: int, *, device: DeviceLike = None,
+                 backend: Optional[str] = None) -> Mesh2D:
+    """The ``(data, model)`` mesh of the default process group
+    (:func:`make_mesh`'s, joined or made here), data-major: the ranks of
+    one model group are contiguous, as svs_tpu's process-major order
+    keeps a model axis within a host.  The group must have exactly
+    ``n_data * n_model`` ranks: a rank cannot sit idle as a spare JAX
+    device does."""
+    if n_data < 1 or n_model < 1:
+        raise ValueError(f"mesh dims must be positive, got "
+                         f"({n_data}, {n_model})")
+    world = make_mesh(device=device, backend=backend)
+    if world.size != n_data * n_model:
+        raise ValueError(f"a {n_data} x {n_model} mesh needs "
+                         f"{n_data * n_model} ranks, the process group has "
+                         f"{world.size}")
+    rows = [[d * n_model + m for m in range(n_model)] for d in range(n_data)]
+    cols = [[d * n_model + m for d in range(n_data)] for m in range(n_model)]
+    return Mesh2D(**{f.name: getattr(world, f.name)
+                     for f in dataclasses.fields(Mesh)},
+                  data=_sub_mesh(world, cols, "data"),
+                  model=_sub_mesh(world, rows, "model"))
 
 
 def crosses(group: Optional[Mesh]) -> bool:

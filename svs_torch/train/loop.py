@@ -54,14 +54,26 @@ before rank 0 writes the canonical ``.ckpt``, so a checkpoint resumes
 into any layout; validation under FSDP runs on the gathered parameters.
 ``epoch_scan`` is refused with either, as svs_tpu refuses it.
 
+With ``parallel="tp"`` and a 2-D mesh (``parallel.mesh.make_2d_mesh``) the
+loop is tensor-parallel (:mod:`svs_torch.parallel.tp`, svs_tpu loop.py:
+346-371): the state is replicated over the world from rank 0 and cut into
+each rank's channel slices (``tp.shard_state``), the step is
+``tp.make_tp_train_step`` on this data row's rows of each global batch
+(the crops and the remix the global batch's, as under DP), validation
+``tp.make_tp_eval_step``; every save site gathers the full state over the
+model sub-mesh (``zero.unshard_state``) before rank 0 writes the
+canonical ``.ckpt``, so a TP run resumes into DP and the other way round;
+the SIGTERM flag is agreed over the whole world.  ``epoch_scan``,
+``zero1`` and ``fsdp`` are refused with TP, as svs_tpu refuses them.
+
 Not ported yet, and refused with ``NotImplementedError`` naming its
-ROADMAP item: TP (A.10.4), PP (A.10.5), CP (A.10.6), the ``device_put``
-hook and multi-host runs (A.10.7), and ``epoch_scan`` over a DP mesh
-(A.10.2).
+ROADMAP item: PP (A.10.5), CP (A.10.6), the ``device_put`` hook and
+multi-host runs (A.10.7), and ``epoch_scan`` over a DP mesh (A.10.2).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -76,7 +88,7 @@ from svs_torch.data import device_data as dd
 from svs_torch.data.dataset import PatchDataset
 from svs_torch.parallel import dp
 from svs_torch.parallel import mesh as mesh_lib
-from svs_torch.parallel import zero
+from svs_torch.parallel import tp, zero
 from svs_torch.train import checkpoint as ckpt_lib
 from svs_torch.train.step import (TrainState, batch_to_device,
                                   create_train_state, get_learning_rate,
@@ -114,9 +126,10 @@ class TrainOptions:
     device_data: str = "auto"  # "auto" | "on" | "off"
     device_data_cap_mb: float = 2048.0
     epoch_scan: bool = False   # the epoch as replays of a CUDA graph
-    # a parallel.mesh.Mesh: data-parallel training over its ranks
+    # a parallel.mesh.Mesh: data-parallel training over its ranks; with
+    # parallel="tp" a Mesh2D (make_2d_mesh)
     mesh: Optional[object] = None
-    parallel: str = "dp"       # "cp" / "tp" / "pp": ROADMAP A.10.6 / 4 / 5
+    parallel: str = "dp"       # "dp" | "tp"; "cp" / "pp": ROADMAP A.10.6 / 5
     pp_micro: int = 4
     pp_split: int = 3
     # shard Adam's moments (zero1), and the parameters and BN statistics
@@ -150,11 +163,21 @@ def _refuse_unported(opts: TrainOptions) -> None:
         raise NotImplementedError(f"{what} is not ported to svs_torch yet "
                                   f"(ROADMAP {item})")
 
-    items = {"tp": "A.10.4", "pp": "A.10.5", "cp": "A.10.6"}
+    items = {"pp": "A.10.5", "cp": "A.10.6"}
     if opts.parallel in items:
         no(f"parallel={opts.parallel!r}", items[opts.parallel])
-    if opts.parallel != "dp":
+    if opts.parallel not in ("dp", "tp"):
         raise ValueError(f"unknown parallel layout {opts.parallel!r}")
+    if opts.parallel == "tp":
+        if not isinstance(opts.mesh, mesh_lib.Mesh2D):
+            raise ValueError("parallel='tp' needs a (data, model) mesh: "
+                             "TrainOptions.mesh = parallel.mesh."
+                             "make_2d_mesh(n_data, n_model)")
+        if opts.zero1 or opts.fsdp:
+            raise ValueError("zero1 / fsdp compose with dp only (TP "
+                             "already shards the state with its channels)")
+        if opts.epoch_scan:
+            raise ValueError(SCAN_REFUSAL)
     if opts.device_put is not None:
         no("a device_put sharding hook", "A.10.7")
     if opts.mesh is None:
@@ -245,9 +268,15 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
                                capturable=opts.epoch_scan)
     state = create_train_state(opts.seed, cfg, optimizer, device=dev)
     sharded = opts.zero1 or opts.fsdp  # on a mesh (_refuse_unported)
+    is_tp = opts.parallel == "tp"  # on a Mesh2D (_refuse_unported)
+    # the mesh a global batch's rows are cut over
+    rows = mesh.data if is_tp else mesh
     if mesh is None:
         train_step = make_train_step(cfg)
         eval_step = make_eval_step(cfg)
+    elif is_tp:
+        train_step = tp.make_tp_train_step(mesh, cfg)
+        eval_step = tp.make_tp_eval_step(mesh, cfg)
     elif sharded:
         train_step = zero.make_zero1_train_step(mesh, cfg, fsdp=opts.fsdp)
         eval_step = dp.make_dp_eval_step(mesh, cfg)
@@ -266,6 +295,8 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
         dp.replicate_state(state, mesh)
     if sharded:
         state = zero.shard_state(state, mesh, fsdp=opts.fsdp)
+    elif is_tp:
+        state = tp.shard_state(state, mesh)
 
     augmenter = None
     if opts.augment:
@@ -275,19 +306,19 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
 
     def _local(batch, n_real: int):
         """A host or device batch as this rank's step input: remixed
-        whole, then (with a mesh) cut to this rank's rows."""
+        whole, then (with a mesh) cut to this rank's (data row's) rows."""
         if augmenter is not None:
             batch = augmenter(_on_device(batch, dev), n_real=n_real)
         if mesh is None:
             return _on_device(batch, dev)
-        return mesh_lib.shard_batch(mesh, batch)
+        return mesh_lib.shard_batch(rows, batch)
 
     def _val_local(batch):
         """A validation batch as this rank's eval input (with a mesh, a
         remainder batch padded to the full batch's rows)."""
         if mesh is None:
             return _on_device(batch, dev)
-        return mesh_lib.global_batch_from_global(mesh, batch,
+        return mesh_lib.global_batch_from_global(rows, batch,
                                                  opts.batch_size)
 
     def _record(record: dict) -> None:
@@ -301,7 +332,8 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
     saver = ckpt_lib.AsyncSaver() if opts.async_save and primary else None
     # what a save writes: a sharded state is gathered on every rank first
     # (a collective), then rank 0 writes it
-    snap_state = zero.unshard_state if sharded else (lambda s: s)
+    snap_state = (zero.unshard_state if sharded or is_tp
+                  else (lambda s: s))
 
     def save_ckpt(path, snap, **kw):
         if primary:
@@ -412,8 +444,10 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
 
             if valid_ds is not None and (ep + 1) % opts.val_interval == 0:
                 # fixed crop seed: the same validation patches every pass
-                # (svs_tpu's choice; the reference re-rolls them)
-                with zero.gathered(state):
+                # (svs_tpu's choice; the reference re-rolls them); TP's
+                # eval step runs on the channel slices
+                with (contextlib.nullcontext() if is_tp
+                      else zero.gathered(state)):
                     val_losses = [
                         eval_step(state, _val_local(batch))["total"]
                         for batch in valid_ds.batches(

@@ -638,3 +638,37 @@ def test_world_of_one_sharded_steps_are_make_train_steps_bits(card):
                                          "bn_abs", "params_max")), (kind, x)
         assert x["vs_dp"] == 0.0 and x["shards_ok"], (kind, x)
         assert tuple(x["kernels"]) == (0, 0, 3, 3), (kind, x)
+
+
+@pytest.mark.cuda
+def test_world_of_one_tp_step_is_make_train_steps_bits(card):
+    """A (1, 1) mesh over NCCL: the TP step under ``pallas_bf16`` (dropout
+    on, bf16 convs, cuDNN deterministic) is ``make_train_step``'s bits,
+    Adam's moments included, and launches the loss kernels as it does."""
+    import torch.distributed as dist
+
+    from svs_torch.parallel import dryrun
+    from svs_torch.parallel import mesh as mesh_lib
+    from svs_torch.utils.config import SVSConfig
+
+    cfg = SVSConfig(enc_channels=(4, 8, 8, 16, 16, 16), input_len=128,
+                    mr_mag_impl="pallas_bf16", compute_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    mix = rng.random((4, 512, 128)).astype(np.float32)
+    batch = {"mix": mix, "voc": mix * 0.5,
+             "mix_angle": rng.uniform(-3, 3, mix.shape).astype(np.float32),
+             "voc_angle": rng.uniform(-3, 3, mix.shape).astype(np.float32)}
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    mesh = mesh_lib.make_2d_mesh(1, 1)
+    try:
+        assert mesh.shape == {"data": 1, "model": 1}
+        assert mesh.backend == "nccl"
+        x = dryrun.layout_parity(mesh, cfg, batch, ("dp", "tp"))["tp"]
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = was
+    assert all(x[k] == 0.0 for k in ("loss_rel", "grad_norm_rel", "bn_abs",
+                                     "params_max")), x
+    assert x["vs_dp"] == 0.0 and x["shards_ok"], x
+    assert tuple(x["kernels"]) == (6, 3, 0, 0), x

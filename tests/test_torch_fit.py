@@ -242,9 +242,12 @@ def test_fit_refuses_what_is_not_ported(data, tmp_path):
         with pytest.raises(ValueError, match="not cp/tp/zero1/fsdp"):
             _port_fit(songs, init, str(tmp_path), mesh=one, epoch_scan=True,
                       **kw)
+    # TP is ported (tests/test_torch_tp.py): it needs a (data, model) mesh
+    for kw in (dict(parallel="tp"), dict(parallel="tp", mesh=one)):
+        with pytest.raises(ValueError, match="make_2d_mesh"):
+            _port_fit(songs, init, str(tmp_path), **kw)
     for kw, item in ((dict(device_put=lambda b: b), "A.10.7"),
                      (dict(parallel="cp"), "A.10.6"),
-                     (dict(parallel="tp"), "A.10.4"),
                      (dict(parallel="pp"), "A.10.5"),
                      (dict(mesh=one, epoch_scan=True), "A.10.2")):
         with pytest.raises(NotImplementedError,
@@ -290,6 +293,10 @@ def test_train_cli_unported_flags_exit_2(flag, item, capsys):
         # ported (tests/test_torch_zero.py): without --dp they exit 2 as
         # svs_tpu's do
         assert "pass --dp with them" in said
+    elif item == "A.10.4":
+        # ported (tests/test_torch_tp.py): a world of one has no 2 ranks
+        # to cut the channels over, before any process group is made
+        assert "--tp 2 does not divide the 1 ranks" in said
     else:
         assert f"ROADMAP {item})" in said
 

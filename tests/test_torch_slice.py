@@ -13,6 +13,8 @@ float32 config.  Tolerances:
 """
 
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -266,3 +268,19 @@ def test_port_imports_neither_jax_nor_svs_tpu():
     for path in files:
         with open(path) as f:
             assert not bad.search(f.read()), path
+
+
+def test_tp_modules_import_no_jax():
+    """A fresh interpreter that imports the TP step's modules
+    (``svs_torch.parallel.tp`` and the loop and CLI that reach it) loads
+    no ``jax`` and no ``svs_tpu``."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys; import svs_torch.parallel.tp, "
+            "svs_torch.train.loop, svs_torch.cli.train_cli; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'svs_tpu', 'flax', 'optax')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
