@@ -142,7 +142,22 @@ Phases, each printing what it found on its own line:
              128 output channels, each rank's resting state within 1 % of
              58,946,172 bytes (FSDP's over two ranks), its peak memory and
              the steps' ms (CUDA events, in turns) printed beside DP's;
-15. parity — the U-Net at float32 on the card (cuDNN, TF32 off) against the
+15. pp     — pipeline parallelism (``svs_torch.parallel.pp``) with both
+             stages on ``cuda:0``, the ``default`` preset, B = 32, split 3,
+             cuDNN deterministic: the one-microbatch PP step under
+             ``pallas_fused`` and ``pallas_bf16`` (counts zeroed just before
+             each PP step and read just after) must be ``make_train_step``'s
+             bits on the same batch and generator; four microbatches
+             (float32, ``pallas_fused``) and a batch padded from 24 rows
+             whose last microbatch is empty (float32, ``pallas_bf16``)
+             against the port's microbatch-loop oracle
+             (``dryrun.microbatch_oracle``: the loss and the BN running
+             statistics its bits, the step within the dry run's envelope);
+             the steps' ms by CUDA events in turns beside the single step,
+             each stage's resting bytes and the card's peak memory over
+             each step; one epoch of ``fit(parallel="pp")`` whose
+             ``.ckpt`` the single-device ``fit`` resumes;
+16. parity — the U-Net at float32 on the card (cuDNN, TF32 off) against the
              same weights and input on the CPU, and one float32 ``fft``
              train step (B = 4, no dropout) on the card against the CPU.
 
@@ -239,6 +254,9 @@ ZERO_MB_RTOL = 0.01
 # the same leaves as FSDP over two ranks (the zero phase's reading), bytes
 TP_MESHES = ((1, 2), (2, 2))
 TP_BYTES = 58_946_172
+# the pp phase's split and microbatches (train_cli's --pp defaults), the
+# real rows of its ragged batch, and its timing reps
+PP_SPLIT, PP_MICRO, PP_REAL_ROWS, PP_REPS = 3, 4, 24, 5
 
 
 def check(ok: bool, what: str) -> None:
@@ -693,7 +711,9 @@ def widened_phase(torch, np, cdm, cfl, sp) -> dict:
 
 def loss_kernel_phase(torch, np):
     """spectral_mag and loss_partials, forward and backward, against their
-    plain versions at the train step's shapes; returns the JSON entries."""
+    plain versions at the train step's shapes, at the pp phase's
+    microbatch (B = 32 / 4) and at a ragged length; returns the JSON
+    entries (timed at the train step's shapes)."""
     from svs_torch.ops.cuda import diff_mag as cdm
     from svs_torch.ops.cuda import fused_loss as cfl
     from svs_torch.ops.cuda import spectral as sp
@@ -725,7 +745,9 @@ def loss_kernel_phase(torch, np):
                       shapes={}) for n in names}
     cdm.reset_counts()
     cfl.reset_counts()
-    for b, t, label in ((TRAIN_B, TRAIN_T, "step"), (3, 9_001, "ragged")):
+    for b, t, label in ((TRAIN_B, TRAIN_T, "step"),
+                        (TRAIN_B // PP_MICRO, TRAIN_T, "pp_microbatch"),
+                        (3, 9_001, "ragged")):
         for n_fft, hop, win in RESOLUTIONS:
             geo = (n_fft, hop, win)
             x, y = wave(b, t), wave(b, t)
@@ -1927,6 +1949,150 @@ def tp_phase(torch, np, spec: str, backend: str) -> dict:
     return dict(zip(LOSS_NAMES, total))
 
 
+def pp_phase(torch, np, work: str) -> dict:
+    """Pipeline parallelism on the card with both stages on ``cuda:0`` (see
+    the module's docstring); returns the loss kernels' launches inside the
+    PP steps, each step's count zeroed just before it and read just
+    after."""
+    from svs_torch.data.dataset import PatchDataset
+    from svs_torch.parallel import dryrun, pp
+    from svs_torch.train import loop
+    from svs_torch.train import step as tstep
+    from svs_torch.utils.config import get_config
+
+    spec = os.path.join(work, "spec")
+    ds = PatchDataset(spec, samples_per_song=64, input_len=128)
+    host = {k: np.asarray(v) for k, v in
+            next(iter(ds.batches(TRAIN_B, seed=11))).items()}
+    default = get_config("default")
+    cfg32 = dataclasses.replace(default, compute_dtype="float32")
+    devs = pp.make_pp_mesh(("cuda:0", "cuda:0"))
+    dev = devs[0]
+    line = {"smi": nvidia_smi_line(), "split": PP_SPLIT,
+            "boundary": pp.boundary_shape(default, PP_SPLIT,
+                                          TRAIN_B // PP_MICRO, 128)}
+    total = [0, 0, 0, 0]
+
+    def counted(r, what):
+        nonlocal total
+        total = [a + c for a, c in zip(total, r["kernels"])]
+        line[what] = r
+        return r
+
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for impl in DP_PER_STEP:
+            cfg = dataclasses.replace(default, mr_mag_impl=impl)
+            r = counted(dryrun.pp_parity(devs, cfg, host, n_micro=1,
+                                         split=PP_SPLIT), f"n1_{impl}")
+            print(f"pp n_micro 1 {impl}: default preset B={TRAIN_B}, both "
+                  f"stages on {dev}, split {PP_SPLIT}: max |d| against "
+                  f"make_train_step {r['bits']:g} (loss {r['total']:.6f} vs "
+                  f"{r['ref_total']:.6f}, params max {r['params_max']:.2e}); "
+                  f"launches {r['kernels']}; stage bytes {r['stage_bytes']}")
+            check(tuple(r["kernels"]) == DP_PER_STEP[impl],
+                  f"pp {impl}: loss-kernel launches {r['kernels']} == "
+                  f"{DP_PER_STEP[impl]} inside the PP step")
+            check(r["ok"] and r["bits"] == 0.0, f"pp {impl}: the "
+                  "one-microbatch PP step gives make_train_step's bits")
+        ragged = pp.pad_batch({k: v[:PP_REAL_ROWS] for k, v in host.items()},
+                              TRAIN_B)
+        for what, impl, batch in (("n4", "pallas_fused", host),
+                                  ("n4_ragged", "pallas_bf16", ragged)):
+            cfg = dataclasses.replace(cfg32, mr_mag_impl=impl)
+            r = counted(dryrun.pp_parity(devs, cfg, batch, n_micro=PP_MICRO,
+                                         split=PP_SPLIT), what)
+            live = -(-int(batch.get("weight", np.ones(TRAIN_B)).sum())
+                     // (TRAIN_B // PP_MICRO))
+            print(f"pp {what} {impl}: float32 default preset, B={TRAIN_B} in "
+                  f"{PP_MICRO} microbatches ({live} live) against the "
+                  f"microbatch oracle: loss {r['total']:.6f} vs "
+                  f"{r['ref_total']:.6f} (rel {r['loss_rel']:.2e}), BN "
+                  f"{r['bn_abs']:.2e}, grad_norm rel "
+                  f"{r['grad_norm_rel']:.2e}, params max "
+                  f"{r['params_max']:.2e} mean {r['params_mean']:.2e}; "
+                  f"launches {r['kernels']}")
+            check(math.isfinite(r["total"]) and r["ok"]
+                  and r["loss_rel"] == 0.0 and r["bn_abs"] == 0.0,
+                  f"pp {what}: the oracle's loss and BN statistics, the "
+                  "step within the dry-run envelope")
+            check(tuple(r["kernels"]) == tuple(
+                c * live for c in DP_PER_STEP[impl]),
+                f"pp {what}: the loss kernels launched once a live "
+                "microbatch")
+
+        # ms and memory: the single step, then the PP steps, in turns
+        cfg = dataclasses.replace(default, mr_mag_impl="pallas_fused")
+        batch = tstep.batch_to_device(host, dev)
+        runs = {"single": (tstep.create_train_state(0, cfg, device=dev),
+                           tstep.make_train_step(cfg))}
+        for n in (1, PP_MICRO):
+            runs[f"pp{n}"] = (
+                pp.shard_state(tstep.create_train_state(0, cfg, device=dev),
+                               devs, split=PP_SPLIT),
+                pp.make_pp_train_step(devs, cfg, n_micro=n, split=PP_SPLIT))
+        ms, peak = {}, {}
+        for name in ("single", "pp1", f"pp{PP_MICRO}", f"pp{PP_MICRO}",
+                     "pp1", "single"):
+            state, step = runs[name]
+            step(state, batch, torch.Generator(dev).manual_seed(5))  # warm
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            ms.setdefault(name, []).append(dryrun._event_ms(
+                lambda g: step(state, batch, g), dev, PP_REPS, 0))
+            peak[name] = torch.cuda.max_memory_allocated(dev)
+        resting = pp.stage_bytes(runs["pp1"][0])
+        del runs
+        print(f"pp ms a step, default preset B={TRAIN_B} pallas_fused, cudnn "
+              f"deterministic (CUDA events, means of {PP_REPS} steps in "
+              "turns single, pp1, pp4, pp4, pp1, single; both stages on one "
+              "card, so no overlap): " + "; ".join(
+                  f"{k} {_ms(v)}" for k, v in ms.items())
+              + "; peak MB on the card over the steps " + ", ".join(
+                  f"{k} {v / 1e6:.1f}" for k, v in peak.items())
+              + f"; resting MB a stage {_mb(resting)}; {nvidia_smi_line()}")
+        line.update(ms=ms, peak=peak, stage_bytes=resting)
+        check(all(math.isfinite(t) and t > 0 for v in ms.values() for t in v),
+              "pp: finite step times")
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+    # fit under PP for an epoch, then the single-device fit resumes from
+    # its checkpoint
+    out = os.path.join(work, "pp_fit")
+    cfg = dataclasses.replace(default, samples_per_song=FIT_SAMPLES)
+
+    def opts(label, **kw):
+        return loop.TrainOptions(
+            train_folder=spec, valid_folder=spec, label=label,
+            batch_size=TRAIN_B, val_interval=1, progress=False,
+            ckpt_dir=os.path.join(out, "CKPT"),
+            log_dir=os.path.join(out, "LOG"), device="cuda", **kw)
+
+    steps = -(-N_SONGS * FIT_SAMPLES // TRAIN_B)
+    t0 = time.perf_counter()
+    state = loop.fit(opts("pp", epoch=1, load_path=os.path.join(out, "none"),
+                          mesh=devs, parallel="pp", pp_micro=PP_MICRO,
+                          pp_split=PP_SPLIT), cfg)
+    fit_s = time.perf_counter() - t0
+    check(isinstance(state, pp.PPState) and state.step == steps,
+          f"pp fit: {steps} PP steps in the epoch")
+    ckpt = os.path.join(out, "CKPT", "svs_pp.ckpt")
+    resumed = loop.fit(opts("pp", epoch=2, load_path=ckpt), cfg)
+    log = _read_lines(os.path.join(out, "LOG", "log_pp.txt"))
+    print(f"pp fit: one epoch of fit(parallel='pp') ({steps} steps, "
+          f"{fit_s:.1f} s with validation), then the single-device fit "
+          f"resumed from its .ckpt; log {json.dumps(log)}")
+    check(type(resumed) is tstep.TrainState and resumed.step == 2 * steps
+          and len(log) == 4 and all(math.isfinite(float(x.split()[-1]))
+                                    for x in log),
+          "pp fit: a .ckpt that the single-device fit resumes")
+    line["fit_s"] = fit_s
+    print("pp: " + json.dumps(line))
+    return dict(zip(LOSS_NAMES, total))
+
+
 def step_parity_phase(torch, np, host_batch) -> None:
     """One float32 fft step (B = 4, no dropout) on the card, TF32 off,
     against the same weights and batch on the CPU."""
@@ -2689,6 +2855,9 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         tp_counts = tp_phase(torch, np, os.path.join(work, "spec"), backend)
         seconds["tp"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pp_counts = pp_phase(torch, np, work)
+        seconds["pp"] = time.perf_counter() - t0
     print("train phase launches: " + json.dumps(train_launches))
     # the loss kernels' launches on the paths that run them: fit under the
     # kernel loss paths (the fit phase's eager fit), and fit with
@@ -2721,6 +2890,11 @@ def main(argv=None) -> int:
             entry["tp_launches"] = tp_counts[entry["name"]]
             check(entry["tp_launches"] > 0,
                   f"{entry['name']} launched inside the TP steps")
+        if entry["name"] in pp_counts:
+            # the PP steps' own count, on the one card
+            entry["pp_launches"] = pp_counts[entry["name"]]
+            check(entry["pp_launches"] > 0,
+                  f"{entry['name']} launched inside the PP steps")
 
     t0 = time.perf_counter()
     parity_phase(torch)

@@ -12,7 +12,9 @@ Each mode prints one JSON line.  ``--dp-smoke`` is svs_tpu's multi-device
 dry run: ``--devices`` gloo ranks on the CPU, the DP, ZeRO-1 and FSDP
 train steps (and TP on a (2, devices / 2) mesh where ``--devices`` is
 even and at least 4) against the unsharded step and the segment-parallel
-decode against the unsharded decode (``svs_torch.parallel.dryrun``); it
+decode against the unsharded decode, then, in this process where
+``--devices`` is at least 2, the one-microbatch PP step on two stages on
+the host against the unsharded step (``svs_torch.parallel.dryrun``); it
 exits 1 when a check fails.
 """
 
@@ -45,7 +47,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the multi-device dry run: --devices gloo ranks on "
                         "the CPU, the DP, ZeRO-1, FSDP and TP train steps "
                         "and the segment-parallel decode against the "
-                        "unsharded ones; pass/fail and wall time")
+                        "unsharded ones, and the PP step on two host "
+                        "stages; pass/fail and wall time")
     p.add_argument("--devices", type=int, default=8,
                    help="with --dp-smoke: the ranks to start (svs_tpu's "
                         "virtual mesh has 8)")

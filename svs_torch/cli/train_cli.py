@@ -6,7 +6,8 @@ Flag surface preserved from reference train.py:157-167:
 and svs_tpu's extensions (--preset --seed --export_pth --ckpt_dir --log_dir
 --samples_per_song --dtype --remat --save_every --async_save --device_data
 --device_data_cap_mb --accum --augment --remix_p --aug_gain --epoch_scan
---val_sdr --val_sdr_songs --dp --zero1 --fsdp --tp), plus --device (default
+--val_sdr --val_sdr_songs --dp --zero1 --fsdp --tp --pp --pp_micro
+--pp_split), plus --device (default
 cuda; ``--device cpu`` runs on the host).  ``--epoch_scan`` replays a
 captured CUDA graph of the step for each epoch's full batches (it needs
 the dataset on the device).  ``--dp`` trains data-parallel over the ranks
@@ -20,8 +21,14 @@ tensor-parallel (``parallel.tp``): the conv channels cut K ways over a
 (n_data, K) mesh of torchrun's ranks (``torchrun --nproc_per_node N -m
 svs_torch.cli.train_cli --tp K [--dp] ...``), n_data = N / K with
 ``--dp``, else 1 (then N must be K); it goes with none of --cp --pp
---zero1 --fsdp --epoch_scan.  The other parallel and multi-host flags
-(--multihost --coordinator --num_hosts --host_id --cp --pp, and
+--zero1 --fsdp --epoch_scan.  ``--pp`` trains pipeline-parallel
+(``parallel.pp``) in one process over two stage devices: ``cuda:0`` and
+``cuda:1`` (with one card it exits 2 with ``make_pp_mesh``'s message), or
+both stages on the host with ``--device cpu``; ``--pp_micro`` microbatches
+a step (default 4, must divide --batch_size), the U split at encoder
+depth ``--pp_split`` (default 3); it goes with none of --dp --cp --tp
+--zero1 --fsdp --accum --epoch_scan.  The other parallel and multi-host
+flags (--multihost --coordinator --num_hosts --host_id --cp, and
 --epoch_scan with --dp) exit 2 with a message that names their ROADMAP
 item.
 
@@ -36,7 +43,7 @@ import dataclasses
 # flag -> the ROADMAP item that ports it
 UNPORTED = {
     "multihost": "A.10.7", "coordinator": "A.10.7", "num_hosts": "A.10.7",
-    "host_id": "A.10.7", "cp": "A.10.6", "pp": "A.10.5",
+    "host_id": "A.10.7", "cp": "A.10.6",
 }
 
 
@@ -57,7 +64,8 @@ def tp_mesh_shape(world: int, k: int, dp: bool) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Train the SVS U-Net (cuda by default; --dp / --tp "
-                    "over the ranks of torchrun).")
+                    "over the ranks of torchrun, --pp over two stage "
+                    "devices in one process).")
     p.add_argument("--train_folder", type=str, default="./data/vocals")
     p.add_argument("--load_path", type=str, default="result.ckpt")
     p.add_argument("--label", type=str, required=True)
@@ -92,11 +100,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "Alone: a (1, K) mesh of K ranks; with --dp: a "
                         "(ranks // K, K) data x model mesh"),
     p.add_argument("--pp", action="store_true",
-                   help="not ported (ROADMAP A.10.5)")
+                   help="pipeline-parallel training: the U-Net's two "
+                        "halves on 2 stage devices (cuda:0 and cuda:1; the "
+                        "host with --device cpu), microbatches through a "
+                        "two-stage schedule in one process (parallel/pp.py;"
+                        " GPipe BN semantics at --pp_micro > 1)")
     p.add_argument("--pp_micro", type=int, default=4, metavar="N",
-                   help="with --pp (not ported)")
+                   help="with --pp: microbatches per step (must divide "
+                        "batch_size; 1 == the single-device step)")
     p.add_argument("--pp_split", type=int, default=3, metavar="K",
-                   help="with --pp (not ported)")
+                   help="with --pp: encoder depth where the U splits "
+                        "across the two stages (1..5)")
     p.add_argument("--zero1", action="store_true",
                    help="with --dp: shard Adam's moments over the ranks "
                         "(ZeRO-1)")
@@ -172,6 +186,18 @@ def main(argv=None) -> int:
         if args.epoch_scan:
             from svs_torch.train.loop import SCAN_REFUSAL
             parser.error(f"--epoch_scan with --tp: {SCAN_REFUSAL}")
+    # svs_tpu's rules for --pp (svs_tpu train_cli.py:185-192)
+    if args.pp and (args.dp or args.cp or args.tp is not None
+                    or args.zero1 or args.fsdp):
+        parser.error("--pp is mutually exclusive with the other parallel "
+                     "layouts")
+    if args.pp and args.accum > 1:
+        parser.error("--pp does not compose with --accum (pipeline "
+                     "microbatching already accumulates; raise --pp_micro "
+                     "instead)")
+    if args.pp and args.epoch_scan:
+        from svs_torch.train.loop import SCAN_REFUSAL
+        parser.error(f"--epoch_scan with --pp: {SCAN_REFUSAL}")
     if (args.zero1 or args.fsdp) and args.epoch_scan:
         from svs_torch.train.loop import SCAN_REFUSAL
         parser.error(f"--epoch_scan with --zero1/--fsdp: {SCAN_REFUSAL}")
@@ -203,6 +229,19 @@ def main(argv=None) -> int:
         if mesh.is_primary:
             print(f"Tensor-parallel over a ({n_data} data, {args.tp} model) "
                   "mesh")
+    elif args.pp:
+        import torch
+
+        from svs_torch.parallel.pp import make_pp_mesh
+        try:
+            mesh = make_pp_mesh(("cpu", "cpu")
+                                if torch.device(args.device).type == "cpu"
+                                else None)
+        except ValueError as e:
+            parser.error(str(e))
+        parallel = "pp"
+        print(f"Pipeline-parallel over 2 stages on {mesh[0]} and {mesh[1]} "
+              f"({args.pp_micro} microbatches, split at enc{args.pp_split})")
     elif args.dp:
         from svs_torch.parallel.mesh import make_mesh
         mesh = make_mesh(device=args.device)
@@ -241,6 +280,8 @@ def main(argv=None) -> int:
         val_sdr_songs=args.val_sdr_songs,
         mesh=mesh,
         parallel=parallel,
+        pp_micro=args.pp_micro,
+        pp_split=args.pp_split,
         zero1=args.zero1,
         fsdp=args.fsdp,
         device=args.device,

@@ -231,45 +231,78 @@ class UNet(nn.Module):
 
         Returns the (B, F, T) float32 mask.  Train mode (``.train()``) uses
         batch statistics, updates the running stats and applies Dropout2d.
+        Built on the level API (:meth:`encode`, :meth:`decode`,
+        :meth:`dec_keep`, :meth:`final_dec`), which ``parallel/pp.py``'s
+        stages run level by level.
         """
-        cfg = self.cfg
         x = mix.to(torch.float32)[:, None]  # NCHW (B, 1, F, T)
-        remat = cfg.remat and torch.is_grad_enabled()
-
-        def run(level, *args):
-            if remat:
-                return checkpoint(level, *args, use_reentrant=False)
-            return level(*args)
-
         skips = []
         for i in range(1, 7):
-            x, new_mean, new_var = run(self._enc_level, i, x, weight, mesh)
-            if self.training:
-                getattr(self, f"conv{i}")[1].update(new_mean, new_var)
+            x = self.encode(i, x, weight, mesh)
             skips.append(x)
-        for i in range(1, 7):
+        for i in range(1, 6):
             inp = skips[5] if i == 1 else torch.cat([x, skips[6 - i]], dim=1)
-            if i == 6:  # the last deconv: no BN, ReLU or dropout
-                x = self._deconv(6, inp)
-                break
-            keep = None
-            if self.training:
-                b = inp.shape[0]
-                shape = (b * mesh.size if mesh is not None else b,
-                         getattr(self, f"deconv{i}").weight.shape[1])
-                keep = dropout_keep(shape, cfg.dropout_rate, inp.device,
-                                    generator)
-                if mesh is not None:
-                    keep = keep[mesh.rank * b:(mesh.rank + 1) * b]
-            x, new_mean, new_var = run(self._dec_level, i, inp, weight, keep,
-                                       mesh)
-            if self.training:
-                getattr(self, f"deconv{i}_BAD")[0].update(new_mean, new_var)
+            x = self.decode(i, inp, weight,
+                            self.dec_keep(i, inp, generator, mesh), mesh)
+        x = self.final_dec(torch.cat([x, skips[0]], dim=1))
         return torch.sigmoid(x.to(torch.float32))[:, 0]
 
-    def _enc_level(self, i: int, x: torch.Tensor,
-                   weight: Optional[torch.Tensor],
-                   mesh: Optional[Mesh] = None):
+    # ---------------------------------------------------------- level API
+    # (svs_tpu unet.py:286-356, ``make_level_fns`` and ``final_dec``)
+
+    def _run(self, level, *args):
+        """``level(*args)``, recomputed in the backward under ``cfg.remat``
+        (``jax.checkpoint`` per level in svs_tpu)."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(level, *args, use_reentrant=False)
+        return level(*args)
+
+    def encode(self, i: int, x: torch.Tensor,
+               weight: Optional[torch.Tensor] = None,
+               mesh: Optional[Mesh] = None) -> torch.Tensor:
+        """Encoder level i (1..6) as the forward runs it: :meth:`enc_level`
+        (under remat, recomputed in the backward), then in train mode its
+        BatchNorm's running statistics written, outside the recomputed
+        function."""
+        x, new_mean, new_var = self._run(self.enc_level, i, x, weight, mesh)
+        if self.training:
+            getattr(self, f"conv{i}")[1].update(new_mean, new_var)
+        return x
+
+    def decode(self, i: int, inp: torch.Tensor,
+               weight: Optional[torch.Tensor] = None,
+               keep: Optional[torch.Tensor] = None,
+               mesh: Optional[Mesh] = None) -> torch.Tensor:
+        """Decoder level i (1..5) as the forward runs it (:meth:`encode`'s
+        contract) with the Dropout2d keep mask ``keep``."""
+        x, new_mean, new_var = self._run(self.dec_level, i, inp, weight, keep,
+                                         mesh)
+        if self.training:
+            getattr(self, f"deconv{i}_BAD")[0].update(new_mean, new_var)
+        return x
+
+    def dec_keep(self, i: int, inp: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 mesh: Optional[Mesh] = None) -> Optional[torch.Tensor]:
+        """Decoder level i's Dropout2d keep mask for its input ``inp`` in
+        train mode (None in eval mode), drawn from ``generator`` on the
+        generator's device and placed on ``inp``'s; with ``mesh`` drawn at
+        the global batch's rows and cut to this rank's."""
+        if not self.training:
+            return None
+        b = inp.shape[0]
+        shape = (b * mesh.size if mesh is not None else b,
+                 getattr(self, f"deconv{i}").weight.shape[1])
+        keep = dropout_keep(shape, self.cfg.dropout_rate,
+                            generator.device if generator is not None
+                            else inp.device, generator)
+        if mesh is not None:
+            keep = keep[mesh.rank * b:(mesh.rank + 1) * b]
+        return keep.to(inp.device)
+
+    def enc_level(self, i: int, x: torch.Tensor,
+                  weight: Optional[torch.Tensor] = None,
+                  mesh: Optional[Mesh] = None):
         """Encoder level i: conv s2 -> BN -> LeakyReLU (reference model.py:
         42-77); returns the activation and BN's new running statistics."""
         cfg = self.cfg
@@ -285,7 +318,8 @@ class UNet(nn.Module):
         return (torch.where(x >= 0, x, cfg.leaky_slope * x),  # LeakyReLU
                 new_mean, new_var)
 
-    def _deconv(self, i: int, inp: torch.Tensor) -> torch.Tensor:
+    def deconv(self, i: int, inp: torch.Tensor) -> torch.Tensor:
+        """Deconv i's transposed conv and bias, in the compute dtype."""
         cd = torch_dtype(self.cfg.compute_dtype)
         deconv = getattr(self, f"deconv{i}")
         return (F.conv_transpose2d(inp.to(cd), deconv.weight.to(cd), None,
@@ -293,15 +327,20 @@ class UNet(nn.Module):
                                    deconv.output_padding)
                 + deconv.bias.to(cd)[None, :, None, None])
 
-    def _dec_level(self, i: int, inp: torch.Tensor,
-                   weight: Optional[torch.Tensor],
-                   keep: Optional[torch.Tensor],
-                   mesh: Optional[Mesh] = None):
+    def final_dec(self, inp: torch.Tensor) -> torch.Tensor:
+        """The BN-less last deconv (decoder level 6, reference model.py:
+        104-109): no BN, ReLU or dropout."""
+        return self.deconv(6, inp)
+
+    def dec_level(self, i: int, inp: torch.Tensor,
+                  weight: Optional[torch.Tensor] = None,
+                  keep: Optional[torch.Tensor] = None,
+                  mesh: Optional[Mesh] = None):
         """Decoder level i < 6: deconv -> BN -> ReLU -> Dropout2d with the
         keep mask ``keep`` (train mode) (reference model.py:79-109)."""
         bn = getattr(self, f"deconv{i}_BAD")[0]
         x, new_mean, new_var = batch_norm(
-            self._deconv(i, inp), bn.weight, bn.bias, bn.running_mean,
+            self.deconv(i, inp), bn.weight, bn.bias, bn.running_mean,
             bn.running_var, train=self.training, eps=bn.eps,
             momentum=bn.momentum, weight=weight, group=mesh)
         # ReLU as jnp.maximum(x, 0): the gradient at an exact 0 is 0.5, as

@@ -24,6 +24,12 @@ dropout 0.5, one patch a rank):
 - the segment-parallel decode (``separate_magnitude_mesh``, both modes)
   against ``separate_magnitude`` on rank 0.
 
+Then, where ``n >= 2`` (``dryrun_multichip``'s guard), in the calling
+process and not in the pool: the ``n_micro = 1`` PP step
+(:mod:`~svs_torch.parallel.pp`) on two stage devices (``("cpu", "cpu")``)
+against the unsharded step of the same batch, state and generator, under
+the same envelope (:func:`pp_parity`).
+
 It returns svs_tpu's JSON line (``metric``, ``ok``, ``devices``,
 ``wall_s``, ``detail``); ``detail`` names the layouts checked and those not
 ported yet.
@@ -38,9 +44,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from svs_torch.losses.mrstft import combined_loss
 from svs_torch.parallel import dp
 from svs_torch.parallel import mesh as mesh_lib
-from svs_torch.parallel import tp, zero
+from svs_torch.parallel import pp, tp, zero
 from svs_torch.train import step as tstep
 from svs_torch.utils.config import SVSConfig
 
@@ -52,8 +59,8 @@ from svs_torch.utils.config import SVSConfig
 ENVELOPE = {"loss": 1e-5, "grad_norm": 1e-3, "bn": 1e-4, "params_max_lr": 2.1,
             "params_mean": 2e-4}
 # the layouts this dry run checks, and svs_tpu's that it does not yet
-CHECKED = ("dp", "sp", "zero1", "fsdp", "tp")
-NOT_PORTED = ("pp", "cp", "multihost")
+CHECKED = ("dp", "sp", "zero1", "fsdp", "tp", "pp")
+NOT_PORTED = ("cp", "multihost")
 # the training layouts of one data mesh
 LAYOUTS = ("dp", "zero1", "fsdp")
 # the SP decode's atol against the unsharded one (tests/test_infer_mesh.py)
@@ -343,6 +350,88 @@ def tp_parity(mesh: mesh_lib.Mesh, shape: Tuple[int, int], cfg: SVSConfig,
     return layout_parity(mesh2d, cfg, batch, layouts, time_reps)
 
 
+def microbatch_oracle(state: tstep.TrainState, batch: Dict,
+                      generator: Optional[torch.Generator], cfg: SVSConfig,
+                      n_micro: int) -> Tuple[tstep.TrainState, Dict]:
+    """The semantics the pipelined step promises (GPipe's, svs_tpu
+    tests/test_pp.py:49), as a loop on the state's one device: each live
+    microbatch (contiguous rows) through ``UNet.forward`` with its own
+    generator (``pp.microbatch_generators``) and its own backward, the
+    BatchNorm running statistics threaded in microbatch order, the mean
+    gradient, one optimizer update in place.  A microbatch whose weight is
+    all zero is skipped.  Returns the state and the mean metrics."""
+    model = state.model.train()
+    params = list(model.parameters())
+    full = tstep.batch_to_device(batch, params[0].device)
+    mb = len(batch["mix"]) // n_micro
+    gens = pp.microbatch_generators(generator, n_micro)
+    grads, aux = None, []
+    for m in range(n_micro):
+        sl = {k: v[m * mb:(m + 1) * mb] for k, v in full.items()}
+        w = sl.get("weight")
+        if w is not None and float(w.sum()) == 0.0:
+            continue
+        mask = model(sl["mix"], weight=w, generator=gens[m])
+        total, parts = combined_loss(mask, sl["mix"], sl["voc"],
+                                     sl["mix_angle"], sl["voc_angle"], cfg,
+                                     weight=w)
+        g = torch.autograd.grad(total, params)
+        grads = list(g) if grads is None else [a + b for a, b in
+                                                zip(grads, g)]
+        aux.append(parts)
+    n = len(aux)
+    grads = [g / n for g in grads]
+    metrics = {k: (sum(a[k] for a in aux) / n).detach() for k in aux[0]}
+    metrics["grad_norm"] = tstep.global_norm(grads)
+    tstep._apply(state, grads)
+    state.step += 1
+    return state, metrics
+
+
+def pp_parity(devices, cfg: SVSConfig, batch: Dict[str, np.ndarray], *,
+              n_micro: int = 1, split: int = 3) -> Dict[str, object]:
+    """One PP step of the host ``batch`` on the stage ``devices`` from the
+    state of seed 0 and the dropout seed 1, against the step on stage 0's
+    device from the same state and generator: ``make_train_step``'s at
+    ``n_micro = 1``, else :func:`microbatch_oracle`.  Returns the
+    :func:`envelope` of the two, ``bits`` (the largest |difference| of
+    the metrics and the state dicts; 0.0: the same bits), ``kernels`` (the
+    loss kernels' launches in the PP step) and ``stage_bytes`` (each
+    stage's resting state after it)."""
+    from svs_torch.ops.cuda import diff_mag as cdm
+    from svs_torch.ops.cuda import fused_loss as cfl
+
+    devs = pp.make_pp_mesh(devices)
+    dev = devs[0]
+
+    def fresh():
+        return tstep.create_train_state(0, cfg, device=dev)
+
+    state = pp.shard_state(fresh(), devs, split=split)
+    step = pp.make_pp_train_step(devs, cfg, n_micro=n_micro, split=split)
+    cdm.reset_counts()
+    cfl.reset_counts()
+    state, metrics = step(state, batch, torch.Generator(dev).manual_seed(1))
+    kernels = list(_loss_kernel_counts())
+    got = pp.gather_state(state)
+    ref_gen = torch.Generator(dev).manual_seed(1)
+    if n_micro == 1:
+        ref_state, ref = tstep.make_train_step(cfg)(
+            fresh(), tstep.batch_to_device(batch, dev), ref_gen)
+    else:
+        ref_state, ref = microbatch_oracle(fresh(), batch, ref_gen, cfg,
+                                           n_micro)
+    lr = float(ref_state.optimizer.param_groups[0]["lr"])
+    out = envelope(metrics, got, ref, ref_state, lr)
+    out["bits"] = max(_max_diff({k: v.cpu() for k, v in metrics.items()},
+                                {k: v.cpu() for k, v in ref.items()}),
+                      _max_diff(got.model.state_dict(),
+                                ref_state.model.state_dict()))
+    out["kernels"] = kernels
+    out["stage_bytes"] = pp.stage_bytes(state)
+    return out
+
+
 def sp_parity(mesh: mesh_lib.Mesh, model: torch.nn.Module, mag: np.ndarray
               ) -> Optional[Dict[str, float]]:
     """``separate_magnitude_mesh`` against ``separate_magnitude`` in both
@@ -404,9 +493,22 @@ def dp_smoke(devices: int = 8, timeout: float = 1200.0) -> Dict[str, object]:
                    timeout=timeout) as ranks:
             res = ranks.run(dp_smoke_rank)[0]
         sp = res.pop("sp")
+        if devices >= 2:  # in this process: two stages on the host
+            res["pp"] = pp_parity(("cpu", "cpu"),
+                                  SVSConfig(input_len=64, dropout_rate=0.5),
+                                  dry_batch(devices))
         ok = all(v <= SP_ATOL for v in sp.values())
         parts = []
         for kind, step in res.items():
+            if kind == "pp":
+                ok = ok and step["ok"]
+                parts.append(
+                    f"pp == unsharded step (loss {step['total']:.6f} vs "
+                    f"{step['ref_total']:.6f}, rel {step['loss_rel']:.2e}, "
+                    f"params max {step['params_max']:.2e} mean "
+                    f"{step['params_mean']:.2e}; 2 stages on cpu, split 3, "
+                    f"n_micro 1, stage bytes {step['stage_bytes']})")
+                continue
             ok = ok and step["ok"] and step["spread"] == 0.0 \
                 and step["shards_ok"]
             if kind == "tp":
@@ -433,6 +535,8 @@ def dp_smoke(devices: int = 8, timeout: float = 1200.0) -> Dict[str, object]:
                      "128)" if skipped else "")
                   + ("" if "tp" in res else "; ['tp'] skipped (needs an "
                      "even count of devices >= 4)")
+                  + ("" if "pp" in res else "; ['pp'] skipped (needs "
+                     "devices >= 2)")
                   + f"; not ported: {list(NOT_PORTED)}")
     except Exception as e:  # the line reports the failure
         ok, detail = False, f"{type(e).__name__}: {str(e)[-2000:]}"

@@ -156,7 +156,7 @@ def forward(model: UNet, dims: zero.Dims, mix: torch.Tensor, mesh: Mesh2D,
         y, cut = _conv(model, f"deconv{i}", inp, dims, mesh, cd)
         y, new_mean, new_var = _bn(model, f"deconv{i}_BAD.0", y, train,
                                    weight, mesh)
-        # ReLU with JAX's gradient at an exact 0 (UNet._dec_level)
+        # ReLU with JAX's gradient at an exact 0 (UNet.dec_level)
         y = torch.maximum(y, torch.zeros_like(y))
         if keep is not None:
             y = dropout2d(y, cfg.dropout_rate, keep=keep)

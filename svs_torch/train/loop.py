@@ -66,9 +66,24 @@ canonical ``.ckpt``, so a TP run resumes into DP and the other way round;
 the SIGTERM flag is agreed over the whole world.  ``epoch_scan``,
 ``zero1`` and ``fsdp`` are refused with TP, as svs_tpu refuses them.
 
+With ``parallel="pp"`` and a pair of stage devices
+(``parallel.pp.make_pp_mesh``) the loop is pipeline-parallel
+(:mod:`svs_torch.parallel.pp`, svs_tpu loop.py:313-342), in one process:
+the state is made on stage 0's device, restored there from a checkpoint,
+then cut into its stages (``pp.shard_state``); the step is
+``pp.make_pp_train_step`` with ``pp_micro`` microbatches split at
+``pp_split``, fed by the host pipeline (no device dataset, as svs_tpu's),
+each batch padded to ``batch_size`` rows by ``pp.pad_batch`` (a padded
+microbatch is skipped); batches and the dropout generator live on stage
+0's device, which runs the loss; validation is ``pp.make_pp_eval_step``;
+every save site writes ``pp.gather_state``'s copy of the whole state on
+one device, the canonical ``.ckpt``.  A multi-process run, a mesh that is
+not two stages, a ``pp_micro`` that does not divide ``batch_size``,
+``accum_steps > 1``, ``epoch_scan``, ``zero1`` and ``fsdp`` are refused.
+
 Not ported yet, and refused with ``NotImplementedError`` naming its
-ROADMAP item: PP (A.10.5), CP (A.10.6), the ``device_put`` hook and
-multi-host runs (A.10.7), and ``epoch_scan`` over a DP mesh (A.10.2).
+ROADMAP item: CP (A.10.6), the ``device_put`` hook and multi-host runs
+(A.10.7), and ``epoch_scan`` over a DP mesh (A.10.2).
 """
 
 from __future__ import annotations
@@ -88,7 +103,7 @@ from svs_torch.data import device_data as dd
 from svs_torch.data.dataset import PatchDataset
 from svs_torch.parallel import dp
 from svs_torch.parallel import mesh as mesh_lib
-from svs_torch.parallel import tp, zero
+from svs_torch.parallel import pp, tp, zero
 from svs_torch.train import checkpoint as ckpt_lib
 from svs_torch.train.step import (TrainState, batch_to_device,
                                   create_train_state, get_learning_rate,
@@ -127,9 +142,10 @@ class TrainOptions:
     device_data_cap_mb: float = 2048.0
     epoch_scan: bool = False   # the epoch as replays of a CUDA graph
     # a parallel.mesh.Mesh: data-parallel training over its ranks; with
-    # parallel="tp" a Mesh2D (make_2d_mesh)
+    # parallel="tp" a Mesh2D (make_2d_mesh), with parallel="pp" the pair of
+    # stage devices (pp.make_pp_mesh)
     mesh: Optional[object] = None
-    parallel: str = "dp"       # "dp" | "tp"; "cp" / "pp": ROADMAP A.10.6 / 5
+    parallel: str = "dp"       # "dp" | "tp" | "pp"; "cp": ROADMAP A.10.6
     pp_micro: int = 4
     pp_split: int = 3
     # shard Adam's moments (zero1), and the parameters and BN statistics
@@ -163,11 +179,15 @@ def _refuse_unported(opts: TrainOptions) -> None:
         raise NotImplementedError(f"{what} is not ported to svs_torch yet "
                                   f"(ROADMAP {item})")
 
-    items = {"pp": "A.10.5", "cp": "A.10.6"}
-    if opts.parallel in items:
-        no(f"parallel={opts.parallel!r}", items[opts.parallel])
-    if opts.parallel not in ("dp", "tp"):
+    if opts.parallel == "cp":
+        no("parallel='cp'", "A.10.6")
+    if opts.parallel not in ("dp", "tp", "pp"):
         raise ValueError(f"unknown parallel layout {opts.parallel!r}")
+    if opts.device_put is not None:
+        no("a device_put sharding hook", "A.10.7")
+    if opts.parallel == "pp":
+        _refuse_pp(opts)
+        return
     if opts.parallel == "tp":
         if not isinstance(opts.mesh, mesh_lib.Mesh2D):
             raise ValueError("parallel='tp' needs a (data, model) mesh: "
@@ -178,8 +198,6 @@ def _refuse_unported(opts: TrainOptions) -> None:
                              "already shards the state with its channels)")
         if opts.epoch_scan:
             raise ValueError(SCAN_REFUSAL)
-    if opts.device_put is not None:
-        no("a device_put sharding hook", "A.10.7")
     if opts.mesh is None:
         if opts.zero1 or opts.fsdp:
             raise ValueError("zero1 / fsdp shard the training state across "
@@ -204,6 +222,32 @@ def _refuse_unported(opts: TrainOptions) -> None:
                          f"{opts.mesh.device}")
 
 
+def _refuse_pp(opts: TrainOptions) -> None:
+    """svs_tpu's refusals for ``parallel='pp'`` (loop.py:321-337)."""
+    if (torch.distributed.is_available()
+            and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1):
+        raise ValueError("parallel='pp' is single-process: one process "
+                         "drives both stage devices")
+    devs = pp.stage_devices(opts.mesh)
+    pp.stage_levels(opts.pp_split)
+    if opts.pp_micro < 1 or opts.batch_size % opts.pp_micro:
+        raise ValueError(f"pp_micro must divide batch_size "
+                         f"({opts.pp_micro} vs {opts.batch_size})")
+    if opts.accum_steps > 1:
+        raise ValueError("parallel='pp' does not compose with accum_steps "
+                         "> 1 (pipeline microbatching already accumulates; "
+                         "raise pp_micro instead)")
+    if opts.zero1 or opts.fsdp:
+        raise ValueError("zero1 / fsdp compose with dp only")
+    if opts.epoch_scan:
+        raise ValueError(SCAN_REFUSAL)
+    if (opts.device is not None
+            and torch.device(opts.device).type != devs[0].type):
+        raise ValueError(f"device {opts.device!r} is not stage 0's "
+                         f"{devs[0]}")
+
+
 def _dataset(folder: str, cfg: SVSConfig) -> PatchDataset:
     return PatchDataset(folder, samples_per_song=cfg.samples_per_song,
                         input_len=cfg.input_len)
@@ -221,11 +265,16 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
     _refuse_unported(opts)
     if opts.accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {opts.accum_steps}")
-    mesh = opts.mesh
+    is_pp = opts.parallel == "pp"  # on a pair of stages (_refuse_pp)
+    # the data mesh; a PP run is one process, whose stage 0 takes the
+    # batches, runs the loss and holds the dropout generator
+    mesh = None if is_pp else opts.mesh
     # rank 0 alone writes files and prints (svs_tpu's is_primary)
     primary = mesh is None or mesh.is_primary
     say = print if primary else (lambda *a, **k: None)
-    dev = mesh.device if mesh is not None else resolve_device(opts.device)
+    dev = (pp.stage_devices(opts.mesh)[0] if is_pp
+           else mesh.device if mesh is not None
+           else resolve_device(opts.device))
     if primary:
         os.makedirs(opts.ckpt_dir, exist_ok=True)
         os.makedirs(opts.log_dir, exist_ok=True)
@@ -244,7 +293,8 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
     if valid_ds is None:
         say(f"Warning: no validation folder {opts.valid_folder}; skipping "
             "validation.")
-    if opts.device_data != "off":
+    # PP keeps the host pipeline: its batches are padded whole there
+    if opts.device_data != "off" and not is_pp:
         train_ds = dd.maybe_device_dataset(train_ds, opts.device_data,
                                            opts.device_data_cap_mb,
                                            mesh=mesh, device=dev)
@@ -271,7 +321,12 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
     is_tp = opts.parallel == "tp"  # on a Mesh2D (_refuse_unported)
     # the mesh a global batch's rows are cut over
     rows = mesh.data if is_tp else mesh
-    if mesh is None:
+    if is_pp:
+        train_step = pp.make_pp_train_step(opts.mesh, cfg,
+                                           n_micro=opts.pp_micro,
+                                           split=opts.pp_split)
+        eval_step = pp.make_pp_eval_step(opts.mesh, cfg, split=opts.pp_split)
+    elif mesh is None:
         train_step = make_train_step(cfg)
         eval_step = make_eval_step(cfg)
     elif is_tp:
@@ -297,6 +352,8 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
         state = zero.shard_state(state, mesh, fsdp=opts.fsdp)
     elif is_tp:
         state = tp.shard_state(state, mesh)
+    elif is_pp:  # after the restore, which loads onto one device
+        state = pp.shard_state(state, opts.mesh, split=opts.pp_split)
 
     augmenter = None
     if opts.augment:
@@ -309,6 +366,8 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
         whole, then (with a mesh) cut to this rank's (data row's) rows."""
         if augmenter is not None:
             batch = augmenter(_on_device(batch, dev), n_real=n_real)
+        if is_pp:  # moved to stage 0 by the step
+            return pp.pad_batch(batch, opts.batch_size)
         if mesh is None:
             return _on_device(batch, dev)
         return mesh_lib.shard_batch(rows, batch)
@@ -316,6 +375,8 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
     def _val_local(batch):
         """A validation batch as this rank's eval input (with a mesh, a
         remainder batch padded to the full batch's rows)."""
+        if is_pp:
+            return pp.pad_batch(batch, opts.batch_size)
         if mesh is None:
             return _on_device(batch, dev)
         return mesh_lib.global_batch_from_global(rows, batch,
@@ -333,7 +394,7 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
     # what a save writes: a sharded state is gathered on every rank first
     # (a collective), then rank 0 writes it
     snap_state = (zero.unshard_state if sharded or is_tp
-                  else (lambda s: s))
+                  else pp.gather_state if is_pp else (lambda s: s))
 
     def save_ckpt(path, snap, **kw):
         if primary:
@@ -473,10 +534,12 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
                     # never moves the loss-based contract; a song that
                     # fails is skipped inside validation_sdr
                     from svs_torch.evaluation.val_sdr import validation_sdr
-                    with zero.gathered(state):
+                    with zero.gathered(state) as model:
+                        if is_pp:  # the whole model on stage 0's device
+                            model = pp.gather_state(state).model
                         if primary:
                             sdr = validation_sdr(
-                                state.model, opts.valid_folder, cfg,
+                                model, opts.valid_folder, cfg,
                                 max_songs=opts.val_sdr_songs, device=dev)
                 if sdr is not None:
                     for k in ("SDR", "SIR", "SAR", "NSDR"):

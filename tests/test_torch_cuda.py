@@ -672,3 +672,30 @@ def test_world_of_one_tp_step_is_make_train_steps_bits(card):
                                      "params_max")), x
     assert x["vs_dp"] == 0.0 and x["shards_ok"], x
     assert tuple(x["kernels"]) == (6, 3, 0, 0), x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,counts", [("pallas_fused", (0, 0, 3, 3)),
+                                         ("pallas_bf16", (6, 3, 0, 0))])
+def test_one_card_pp_step_is_make_train_steps_bits(card, impl, counts):
+    """Both stages on ``cuda:0``: the one-microbatch PP step (dropout on,
+    bf16 convs, cuDNN deterministic) is ``make_train_step``'s bits and
+    launches the loss kernels inside it as that step does."""
+    from svs_torch.parallel import dryrun
+    from svs_torch.utils.config import SVSConfig
+
+    cfg = SVSConfig(enc_channels=(4, 8, 8, 16, 16, 16), input_len=128,
+                    mr_mag_impl=impl, compute_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    mix = rng.random((4, 512, 128)).astype(np.float32)
+    batch = {"mix": mix, "voc": mix * 0.5,
+             "mix_angle": rng.uniform(-3, 3, mix.shape).astype(np.float32),
+             "voc_angle": rng.uniform(-3, 3, mix.shape).astype(np.float32)}
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        r = dryrun.pp_parity(("cuda:0", "cuda:0"), cfg, batch, n_micro=1)
+    finally:
+        torch.backends.cudnn.deterministic = was
+    assert r["ok"] and r["bits"] == 0.0, r
+    assert tuple(r["kernels"]) == counts, r

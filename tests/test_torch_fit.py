@@ -246,9 +246,12 @@ def test_fit_refuses_what_is_not_ported(data, tmp_path):
     for kw in (dict(parallel="tp"), dict(parallel="tp", mesh=one)):
         with pytest.raises(ValueError, match="make_2d_mesh"):
             _port_fit(songs, init, str(tmp_path), **kw)
+    # PP is ported (tests/test_torch_pp.py): it needs two stage devices
+    for kw in (dict(parallel="pp"), dict(parallel="pp", mesh=one)):
+        with pytest.raises(ValueError, match="make_pp_mesh"):
+            _port_fit(songs, init, str(tmp_path), **kw)
     for kw, item in ((dict(device_put=lambda b: b), "A.10.7"),
                      (dict(parallel="cp"), "A.10.6"),
-                     (dict(parallel="pp"), "A.10.5"),
                      (dict(mesh=one, epoch_scan=True), "A.10.2")):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP {item.replace('.', '[.]')}\\)"):
@@ -281,7 +284,7 @@ def test_train_cli_runs_an_epoch_on_the_cpu(data, tmp_path):
 @pytest.mark.parametrize("flag,item", [
     (["--multihost"], "A.10.7"), (["--coordinator", "h:1"], "A.10.7"),
     (["--dp", "--epoch_scan"], "A.10.2"), (["--cp"], "A.10.6"),
-    (["--tp", "2"], "A.10.4"), (["--pp"], "A.10.5"),
+    (["--tp", "2"], "A.10.4"), (["--pp", "--accum", "2"], "A.10.5"),
     (["--zero1"], "A.10.3"), (["--fsdp"], "A.10.3"),
     (["--num_hosts", "2"], "A.10.7"), (["--host_id", "1"], "A.10.7")])
 def test_train_cli_unported_flags_exit_2(flag, item, capsys):
@@ -297,6 +300,10 @@ def test_train_cli_unported_flags_exit_2(flag, item, capsys):
         # ported (tests/test_torch_tp.py): a world of one has no 2 ranks
         # to cut the channels over, before any process group is made
         assert "--tp 2 does not divide the 1 ranks" in said
+    elif item == "A.10.5":
+        # ported (tests/test_torch_pp.py): with --accum it exits 2 as
+        # svs_tpu's does
+        assert "--pp does not compose with --accum" in said
     else:
         assert f"ROADMAP {item})" in said
 
