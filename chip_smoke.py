@@ -20,7 +20,9 @@ Phases, each printing what it found on its own line:
              same shapes.  The four MR-STFT loss kernels (``spectral_mag``
              and ``loss_partials``, forward and backward) at the train
              step's shapes (B = 32, 97,536 samples, all three resolutions),
-             a ragged shape and a weighted batch; timed by device time
+             the pp phase's microbatch (B = 8), the cp phase's whole batch
+             (B = 4, 392,960 samples), a ragged shape and a weighted batch;
+             timed (at the train step's shapes) by device time
              (torch.profiler) summed over their own ``spec::`` kernels,
              each backward's two launches apart, and by CUDA events
              (``event_ms``); ``ptxas -v`` of the loss kernels printed once;
@@ -157,7 +159,29 @@ Phases, each printing what it found on its own line:
              each stage's resting bytes and the card's peak memory over
              each step; one epoch of ``fit(parallel="pp")`` whose
              ``.ckpt`` the single-device ``fit`` resumes;
-16. parity — the U-Net at float32 on the card (cuDNN, TF32 off) against the
+16. cp     — context parallelism (``svs_torch.parallel.halo``): a world of
+             one over NCCL, cuDNN deterministic, the ``fine_tune`` preset
+             at full width (bf16, remat), B = 4 patches of 1536 frames: the
+             CP step (the halo arithmetic as a zero pad and valid convs)
+             under ``pallas_fused`` and ``pallas_bf16`` (counts zeroed just
+             before each step and read just after) within the dry run's
+             envelope of ``make_train_step`` on the same batch and
+             generator, whether the bits agree printed, the steps' ms in
+             turns; the whole-song CP decode (float32, ``default``
+             preset) of a 3072-frame song, which both decodes pad alike,
+             within 3e-5 of ``separate_magnitude(mode="whole")``, and of a
+             240-s song (2560 frames, which the unsharded decode pads to
+             3072) within 3e-5 of the unsharded forward at CP's padding,
+             each decode's ms by CUDA events and the card's peak memory
+             beside the unsharded decode's; one
+             epoch of ``fit(parallel="cp")`` (the dataset on the card,
+             time-sharded) whose ``.ckpt`` the single-device ``fit``
+             resumes; then one pool of 4 ranks on the card over dp's
+             backend, float32: on its first 2 (``pallas_fused``) and on
+             all 4 (``pallas_bf16``) the CP step within the envelope, the
+             ranks' states the same bits, and on 2 ranks both decodes;
+             ``train_cli --cp --dp`` exits 2;
+17. parity — the U-Net at float32 on the card (cuDNN, TF32 off) against the
              same weights and input on the CPU, and one float32 ``fft``
              train step (B = 4, no dropout) on the card against the CPU.
 
@@ -257,6 +281,19 @@ TP_BYTES = 58_946_172
 # the pp phase's split and microbatches (train_cli's --pp defaults), the
 # real rows of its ragged batch, and its timing reps
 PP_SPLIT, PP_MICRO, PP_REAL_ROWS, PP_REPS = 3, 4, 24, 5
+# the cp phase: B patches of the fine_tune preset's 1536 frames, the ranks
+# on the one card, and the whole-song decode's song at the default preset:
+# 4 minutes (2560 frames) rounded up to the unsharded decode's bucket of
+# 1024 frames (8 x input_len), so that both decodes pad it alike (CP pads
+# to 64 frames a rank; the 240-s song itself is held against the unsharded
+# forward at CP's padding); its bound is tests/test_infer_mesh.py's,
+# float32
+CP_B, CP_REPS = 4, 3
+# the ranks on the card, in one pool (its first 2, then all 4: a pool's
+# start on the card costs more than its steps), and the loss path each
+# world steps under
+CP_RANKS = ((2, "pallas_fused"), (4, "pallas_bf16"))
+CP_FRAMES, CP_ATOL = 3072, 3e-5
 
 
 def check(ok: bool, what: str) -> None:
@@ -712,11 +749,15 @@ def widened_phase(torch, np, cdm, cfl, sp) -> dict:
 def loss_kernel_phase(torch, np):
     """spectral_mag and loss_partials, forward and backward, against their
     plain versions at the train step's shapes, at the pp phase's
-    microbatch (B = 32 / 4) and at a ragged length; returns the JSON
-    entries (timed at the train step's shapes)."""
+    microbatch (B = 32 / 4), at the cp phase's whole batch (B = 4 of the
+    fine_tune preset's 1536 frames) and at a ragged length; returns the
+    JSON entries (timed at the train step's shapes)."""
     from svs_torch.ops.cuda import diff_mag as cdm
     from svs_torch.ops.cuda import fused_loss as cfl
     from svs_torch.ops.cuda import spectral as sp
+    from svs_torch.utils.config import get_config
+
+    fine = get_config("fine_tune")
 
     rng = np.random.default_rng(3)
 
@@ -747,6 +788,7 @@ def loss_kernel_phase(torch, np):
     cfl.reset_counts()
     for b, t, label in ((TRAIN_B, TRAIN_T, "step"),
                         (TRAIN_B // PP_MICRO, TRAIN_T, "pp_microbatch"),
+                        (CP_B, (fine.input_len - 1) * fine.hop_size, "cp"),
                         (3, 9_001, "ragged")):
         for n_fft, hop, win in RESOLUTIONS:
             geo = (n_fft, hop, win)
@@ -2093,6 +2135,197 @@ def pp_phase(torch, np, work: str) -> dict:
     return dict(zip(LOSS_NAMES, total))
 
 
+def cp_phase(torch, np, work: str, backend: str) -> dict:
+    """Context parallelism on the card (see the module's docstring); returns
+    the loss kernels' launches inside the world-of-one CP steps, each
+    step's count zeroed just before it and read just after."""
+    import torch.distributed as dist
+
+    from svs_torch.cli import train_cli
+    from svs_torch.parallel import dryrun, mesh as mesh_lib
+    from svs_torch.parallel import halo
+    from svs_torch.parallel.launch import Ranks
+    from svs_torch.train import loop
+    from svs_torch.train import step as tstep
+    from svs_torch.utils.config import get_config
+
+    spec = os.path.join(work, "spec")
+    fine = get_config("fine_tune")
+    batch = dryrun.dry_batch(CP_B, fine.input_len)
+    default = get_config("default")
+    cfg32 = dataclasses.replace(default, compute_dtype="float32")
+    mag = np.random.default_rng(6).random((513, CP_FRAMES), np.float32)
+    line = {"smi": nvidia_smi_line(), "seconds": {}}
+    total = [0, 0, 0, 0]
+    t0 = time.perf_counter()
+
+    def lap(what):
+        nonlocal t0
+        line["seconds"][what] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    def step_line(what, r):
+        return (f"{what}: loss rel {r['loss_rel']:.2e}, grad_norm rel "
+                f"{r['grad_norm_rel']:.2e}, BN {r['bn_abs']:.2e}, params max "
+                f"{r['params_max']:.2e} mean {r['params_mean']:.2e}, max |d| "
+                f"against make_train_step {r['bits']:g} ("
+                + ("the same bits" if r["bits"] == 0.0 else "not the same "
+                   "bits") + f"), rank spread {r['spread']:g}; peak MB a rank "
+                f"{_mb(r['peak'])}; rank 0 launches {r['kernels']}")
+
+    def decode_line(what, r):
+        return (f"{what}: max |d| against separate_magnitude(mode='whole') "
+                f"{r['max_abs_err']:.3e}, against the unsharded forward of "
+                f"the song padded as CP pads it {r['padded_err']:.3e} (bound "
+                f"{CP_ATOL:g}); ms a decode "
+                f"by rank (CUDA events, mean of {CP_REPS}, host copies "
+                f"included) {_ms(r['ms'])} vs unsharded {r['ref_ms']:.3f}; "
+                f"peak MB a rank {_mb(r['peak'])} vs unsharded "
+                f"{r['ref_peak'] / 1e6:.3f}")
+
+    mesh = mesh_lib.make_mesh()
+    check(mesh.size == 1 and mesh.backend == "nccl",
+          f"make_mesh alone: a world of one over NCCL ({mesh})")
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for impl in DP_PER_STEP:
+            cfg = dataclasses.replace(fine, mr_mag_impl=impl)
+            r = dryrun.cp_parity(mesh, cfg, batch)
+            print(step_line(f"cp world 1 (nccl) {impl}, fine_tune B={CP_B} "
+                            f"x {fine.input_len} frames, bf16, remat", r))
+            check(tuple(r["kernels"]) == DP_PER_STEP[impl],
+                  f"cp {impl}: loss-kernel launches {r['kernels']} == "
+                  f"{DP_PER_STEP[impl]} inside the CP step")
+            check(r["ok"], f"cp {impl}: the world-of-one CP step within the "
+                  "dry-run envelope of make_train_step")
+            total = [a + c for a, c in zip(total, r["kernels"])]
+            line[f"w1_{impl}"] = r
+        # ms a step in turns: single, CP, CP, single
+        cfg = dataclasses.replace(fine, mr_mag_impl="pallas_fused")
+        dev = mesh.device
+        whole = tstep.batch_to_device(batch, dev)
+        whole["weight"] = torch.ones(CP_B, device=dev)
+        runs = {"single": (tstep.create_train_state(0, cfg, device=dev),
+                           tstep.make_train_step(cfg), whole),
+                "cp": (tstep.create_train_state(0, cfg, device=dev),
+                       halo.make_cp_train_step(mesh, cfg),
+                       halo.shard_batch_time(mesh, batch))}
+        ms = {}
+        for name in ("single", "cp", "cp", "single"):
+            state, step, inp = runs[name]
+            ms.setdefault(name, []).append(dryrun._event_ms(
+                lambda g: step(state, inp, g), dev, CP_REPS, 0))
+        del runs
+        print(f"cp world 1 ms a step, fine_tune B={CP_B} pallas_fused, cudnn "
+              f"deterministic (CUDA events, means of {CP_REPS} steps in turns "
+              "single, cp, cp, single): " + "; ".join(
+                  f"{k} {_ms(v)}" for k, v in ms.items())
+              + f"; {nvidia_smi_line()}")
+        line["w1_ms"] = ms
+    finally:
+        torch.backends.cudnn.deterministic = was
+    lap("w1_steps")
+
+    def decodes(n, run):
+        """The CP decode over ``n`` ranks of the CP_FRAMES song, which both
+        decodes pad alike, and of the 240-s song, which CP pads to 64 n
+        frames and separate_magnitude to 1024: held against the unsharded
+        forward at CP's padding (svs_tpu's whole-song mesh decode), the
+        other difference printed."""
+        where = "" if n == 1 else f" ({backend}, one card)"
+        r = run(mag)
+        print(decode_line(f"cp world {n}{where} decode, {CP_FRAMES}-frame "
+                          "song, float32 default preset", r))
+        check(max(r["max_abs_err"], r["padded_err"]) <= CP_ATOL,
+              f"cp world {n} decode: the whole-song CP decode equals the "
+              "unsharded one")
+        line[f"w{n}_decode"] = r
+        r = run(mag[:, :four])
+        print(decode_line(f"cp world {n}{where} decode, {four}-frame (240-s) "
+                          f"song, CP padding it to {four} frames and the "
+                          f"unsharded decode to {-(-four // 1024) * 1024}",
+                          r))
+        check(r["padded_err"] <= CP_ATOL, f"cp world {n} decode of the 240-s "
+              "song: the unsharded forward at CP's padding")
+        line[f"w{n}_decode_240s"] = r
+
+    four = SP_SECONDS * SR // 768
+    decodes(1, lambda m: dryrun.cp_decode_parity(mesh, cfg32, m,
+                                                 reps=CP_REPS))
+    lap("w1_decode")
+
+    # one epoch of fit under CP (the dataset on the card, time-sharded),
+    # then the single-device fit resumes from its checkpoint
+    out = os.path.join(work, "cp_fit")
+    cfg = dataclasses.replace(default, samples_per_song=FIT_SAMPLES)
+
+    def opts(label, **kw):
+        return loop.TrainOptions(
+            train_folder=spec, valid_folder=spec, label=label,
+            batch_size=TRAIN_B, val_interval=1, progress=False,
+            ckpt_dir=os.path.join(out, "CKPT"),
+            log_dir=os.path.join(out, "LOG"), device="cuda", **kw)
+
+    steps = -(-N_SONGS * FIT_SAMPLES // TRAIN_B)
+    t0 = time.perf_counter()
+    state = loop.fit(opts("cp", epoch=1, load_path=os.path.join(out, "none"),
+                          mesh=mesh, parallel="cp"), cfg)
+    fit_s = time.perf_counter() - t0
+    check(state.step == steps, f"cp fit: {steps} CP steps in the epoch")
+    dist.destroy_process_group()
+    ckpt = os.path.join(out, "CKPT", "svs_cp.ckpt")
+    resumed = loop.fit(opts("cp", epoch=2, load_path=ckpt), cfg)
+    log = _read_lines(os.path.join(out, "LOG", "log_cp.txt"))
+    print(f"cp fit: one epoch of fit(parallel='cp') ({steps} steps, "
+          f"{fit_s:.1f} s with validation), then the single-device fit "
+          f"resumed from its .ckpt; log {json.dumps(log)}")
+    check(resumed.step == 2 * steps and len(log) == 4
+          and all(math.isfinite(float(x.split()[-1])) for x in log),
+          "cp fit: a .ckpt that the single-device fit resumes")
+    line["fit_s"] = fit_s
+    lap("fit")
+
+    # ranks sharing the card over dp's backend, float32, TF32 off
+    fine32 = dataclasses.replace(fine, compute_dtype="float32")
+    with Ranks(max(n for n, _ in CP_RANKS), device="cuda:0",
+               backend=backend, timeout=600) as ranks:
+        ranks.run(dryrun.no_tf32)
+        lap("pool")
+        for n, impl in CP_RANKS:
+            cfg = dataclasses.replace(fine32, mr_mag_impl=impl)
+            r = ranks.run(dryrun.cp_parity, cfg, batch, first=n)[0]
+            print(step_line(
+                f"cp world {n} ({backend}, one card) {impl}, float32 "
+                f"fine_tune B={CP_B} x {fine.input_len} frames, "
+                f"{fine.input_len // n} a rank, against the single-process "
+                "step", r))
+            check(tuple(r["kernels"]) == DP_PER_STEP[impl],
+                  f"cp world {n} {impl}: the loss kernels launched on rank 0")
+            check(r["ok"] and r["spread"] == 0.0,
+                  f"cp world {n} {impl}: the single-process step within the "
+                  "dry-run envelope, the ranks the same bits")
+            line[f"w{n}_{impl}"] = r
+            if n == 2:
+                decodes(n, lambda m: ranks.run(
+                    dryrun.cp_decode_parity, cfg32, m, reps=CP_REPS,
+                    first=n)[0])
+            lap(f"w{n}")
+
+    # svs_tpu's refusal: --cp with --dp exits 2
+    try:
+        with contextlib.redirect_stderr(io.StringIO()) as err:
+            train_cli.main(["--label", "x", "--cp", "--dp"])
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    print(f"cp: train_cli --cp --dp exits {code}: "
+          f"{err.getvalue().strip().splitlines()[-1]}")
+    check(code == 2, "train_cli --cp --dp exits 2")
+    print("cp: " + json.dumps(line))
+    return dict(zip(LOSS_NAMES, total))
+
+
 def step_parity_phase(torch, np, host_batch) -> None:
     """One float32 fft step (B = 4, no dropout) on the card, TF32 off,
     against the same weights and batch on the CPU."""
@@ -2858,6 +3091,9 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         pp_counts = pp_phase(torch, np, work)
         seconds["pp"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cp_counts = cp_phase(torch, np, work, backend)
+        seconds["cp"] = time.perf_counter() - t0
     print("train phase launches: " + json.dumps(train_launches))
     # the loss kernels' launches on the paths that run them: fit under the
     # kernel loss paths (the fit phase's eager fit), and fit with
@@ -2895,6 +3131,11 @@ def main(argv=None) -> int:
             entry["pp_launches"] = pp_counts[entry["name"]]
             check(entry["pp_launches"] > 0,
                   f"{entry['name']} launched inside the PP steps")
+        if entry["name"] in cp_counts:
+            # the world-of-one CP steps' own count
+            entry["cp_launches"] = cp_counts[entry["name"]]
+            check(entry["cp_launches"] > 0,
+                  f"{entry['name']} launched inside the CP steps")
 
     t0 = time.perf_counter()
     parity_phase(torch)

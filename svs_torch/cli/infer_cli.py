@@ -9,7 +9,11 @@ plus svs_tpu's --limit, --mode, --preset, --dtype and --sp, and --device
 ...``), or alone at world size 1: every rank loads the model and masks its
 share of each song's windows, and rank 0 writes the files
 (``infer.separate.separate_magnitude_mesh``, modes ``segments`` and
-``overlap``).  ``--cp`` (the halo-exchange decode, ROADMAP A.10.6) exits 2.
+``overlap``).  ``--cp --mode whole`` decodes each song as one patch with its
+time axis cut over the ranks, with halo exchange (``parallel.halo``;
+``torchrun --nproc_per_node N -m svs_torch.cli.infer_cli --cp --mode whole
+...``), rank 0 writing; ``--cp`` needs ``--mode whole``, and ``--sp`` goes
+with neither ``--cp`` nor ``--mode whole``.
 Reference ``.pth`` checkpoints and the native ``.ckpt`` (written by
 svs_torch's or svs_tpu's training) load through
 ``svs_torch.train.checkpoint.resume``, weights and BN statistics only.
@@ -50,7 +54,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="segment-parallel decode over the ranks of torchrun "
                         "(world size 1 without it); rank 0 writes")
     p.add_argument("--cp", action="store_true",
-                   help="not ported (ROADMAP A.10.6)")
+                   help="context-parallel whole-song decode (--mode whole) "
+                        "over the ranks of torchrun (world size 1 without "
+                        "it): the time axis cut over the ranks with halo "
+                        "exchange; rank 0 writes")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; 'cpu' runs on the host)")
     return p
@@ -70,12 +77,14 @@ def load_model(model_path: str, cfg, device):
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.cp:
-        parser.error("--cp (the halo-exchange time-sharded decode) is not "
-                     "ported to svs_torch yet (ROADMAP A.10.6)")
+    # svs_tpu's rules (svs_tpu infer_cli.py:83-90)
+    if args.sp and args.cp:
+        parser.error("--sp and --cp are mutually exclusive")
     if args.sp and args.mode == "whole":
-        parser.error("--sp decodes --mode segments or overlap; 'whole' is "
-                     "the halo-exchange decode (ROADMAP A.10.6)")
+        parser.error("--sp shards windows (modes segments/overlap); use "
+                     "--cp for whole-song decode")
+    if args.cp and args.mode != "whole":
+        parser.error("--cp time-shards the whole song; pass --mode whole")
     import dataclasses
 
     import numpy as np
@@ -85,10 +94,13 @@ def main(argv=None) -> int:
     from svs_torch.utils.device import resolve_device
 
     mesh = None
-    if args.sp:
+    if args.sp or args.cp:
         from svs_torch.parallel.mesh import make_mesh
         mesh = make_mesh(device=args.device)
         device = mesh.device
+        if mesh.is_primary:
+            kind = "Segment" if args.sp else "Context(time)"
+            print(f"{kind}-parallel decode over {mesh.size} devices")
     else:
         device = resolve_device(args.device)
     # rank 0 alone writes and prints

@@ -6,7 +6,7 @@ Flag surface preserved from reference train.py:157-167:
 and svs_tpu's extensions (--preset --seed --export_pth --ckpt_dir --log_dir
 --samples_per_song --dtype --remat --save_every --async_save --device_data
 --device_data_cap_mb --accum --augment --remix_p --aug_gain --epoch_scan
---val_sdr --val_sdr_songs --dp --zero1 --fsdp --tp --pp --pp_micro
+--val_sdr --val_sdr_songs --dp --zero1 --fsdp --cp --tp --pp --pp_micro
 --pp_split), plus --device (default
 cuda; ``--device cpu`` runs on the host).  ``--epoch_scan`` replays a
 captured CUDA graph of the step for each epoch's full batches (it needs
@@ -16,7 +16,12 @@ of ``torchrun`` (``torchrun --nproc_per_node N -m svs_torch.cli.train_cli
 world size 1 (``parallel.mesh.make_mesh``); with it ``--zero1`` shards
 Adam's moments over the ranks and ``--fsdp`` the parameters and BN
 statistics too (``parallel.zero``); either needs ``--dp``, as svs_tpu's
-does, and neither goes with ``--epoch_scan``.  ``--tp K`` trains
+does, and neither goes with ``--epoch_scan``.  ``--cp`` trains
+context-parallel (``parallel.halo``): each patch's time axis cut over the
+ranks of ``torchrun`` (``torchrun --nproc_per_node N -m
+svs_torch.cli.train_cli --cp ...``; the preset's ``input_len`` a multiple
+of 64 N), or alone at world size 1; it goes with none of --dp --tp --pp
+--epoch_scan.  ``--tp K`` trains
 tensor-parallel (``parallel.tp``): the conv channels cut K ways over a
 (n_data, K) mesh of torchrun's ranks (``torchrun --nproc_per_node N -m
 svs_torch.cli.train_cli --tp K [--dp] ...``), n_data = N / K with
@@ -27,10 +32,9 @@ svs_torch.cli.train_cli --tp K [--dp] ...``), n_data = N / K with
 both stages on the host with ``--device cpu``; ``--pp_micro`` microbatches
 a step (default 4, must divide --batch_size), the U split at encoder
 depth ``--pp_split`` (default 3); it goes with none of --dp --cp --tp
---zero1 --fsdp --accum --epoch_scan.  The other parallel and multi-host
-flags (--multihost --coordinator --num_hosts --host_id --cp, and
---epoch_scan with --dp) exit 2 with a message that names their ROADMAP
-item.
+--zero1 --fsdp --accum --epoch_scan.  The multi-host flags (--multihost
+--coordinator --num_hosts --host_id) and --epoch_scan with --dp exit 2
+with a message that names their ROADMAP item.
 
 Run as ``python -m svs_torch.cli.train_cli``.
 """
@@ -43,7 +47,7 @@ import dataclasses
 # flag -> the ROADMAP item that ports it
 UNPORTED = {
     "multihost": "A.10.7", "coordinator": "A.10.7", "num_hosts": "A.10.7",
-    "host_id": "A.10.7", "cp": "A.10.6",
+    "host_id": "A.10.7",
 }
 
 
@@ -63,8 +67,8 @@ def tp_mesh_shape(world: int, k: int, dp: bool) -> int:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="Train the SVS U-Net (cuda by default; --dp / --tp "
-                    "over the ranks of torchrun, --pp over two stage "
+        description="Train the SVS U-Net (cuda by default; --dp / --cp / "
+                    "--tp over the ranks of torchrun, --pp over two stage "
                     "devices in one process).")
     p.add_argument("--train_folder", type=str, default="./data/vocals")
     p.add_argument("--load_path", type=str, default="result.ckpt")
@@ -93,7 +97,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "size 1 without it): sync-BN, the gradient summed "
                         "over the ranks, rank 0 writes")
     p.add_argument("--cp", action="store_true",
-                   help="not ported (ROADMAP A.10.6)")
+                   help="context-parallel over the ranks of torchrun (world "
+                        "size 1 without it): each patch's time axis cut "
+                        "over the ranks with halo exchange (parallel/"
+                        "halo.py; input_len a multiple of 64 x ranks)")
     p.add_argument("--tp", type=int, default=None, metavar="K",
                    help="tensor-parallel training: conv channels cut K-way "
                         "over the mesh's 'model' axis (parallel/tp.py). "
@@ -170,7 +177,12 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    # svs_tpu's rules for the sharded layouts (svs_tpu train_cli.py:196-201)
+    # svs_tpu's rules for the layouts (svs_tpu train_cli.py:183-201)
+    if args.cp and (args.dp or args.tp is not None):
+        parser.error("--cp is mutually exclusive with --dp/--tp")
+    if args.cp and args.epoch_scan:
+        from svs_torch.train.loop import SCAN_REFUSAL
+        parser.error(f"--epoch_scan with --cp: {SCAN_REFUSAL}")
     if (args.zero1 or args.fsdp) and not args.dp:
         parser.error("--zero1/--fsdp shard training state across a DP "
                      "mesh; pass --dp with them")
@@ -242,9 +254,13 @@ def main(argv=None) -> int:
         parallel = "pp"
         print(f"Pipeline-parallel over 2 stages on {mesh[0]} and {mesh[1]} "
               f"({args.pp_micro} microbatches, split at enc{args.pp_split})")
-    elif args.dp:
+    elif args.dp or args.cp:
         from svs_torch.parallel.mesh import make_mesh
         mesh = make_mesh(device=args.device)
+        if args.cp:
+            parallel = "cp"
+            if mesh.is_primary:
+                print(f"Context(time)-parallel over {mesh.size} devices")
 
     cfg = get_config(args.preset)
     if args.samples_per_song is not None:

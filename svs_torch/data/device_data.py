@@ -30,9 +30,14 @@ training loop remixes that global batch (the partners cross it, as
 svs_tpu's do) and then keeps this rank's rows, or under TP its data row's
 (``parallel.mesh.shard_batch`` over the data axis; svs_tpu loop.py:
 228-234).  A DP or TP epoch so consumes exactly the single-device
-epoch's batches.  svs_tpu's
-``time_sharded`` mode (ROADMAP A.10.6) and ``MultiHostDeviceDataset``
-(A.10.7) are not ported yet.
+epoch's batches.
+
+``time_sharded`` (with a data mesh) is context parallelism's layout
+(``parallel.halo.shard_batch_time``): each rank gathers only its time
+block of every crop, all the batch's rows, with an all-ones ``weight``.
+The remix is row-local and elementwise in time, so the loop may remix the
+blocks: the block of the remixed batch.  svs_tpu's
+``MultiHostDeviceDataset`` (ROADMAP A.10.7) is not ported yet.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ import numpy as np
 import torch
 
 from svs_torch.data.dataset import PLANE_KEYS, PatchDataset
+from svs_torch.parallel import halo
 from svs_torch.utils.device import DeviceLike, resolve_device
 
 _KEYS = PLANE_KEYS
@@ -83,11 +89,23 @@ class DeviceDataset:
 
     ``mesh``: a data mesh or a 2-D mesh, whose device then holds the
     planes; the batches are the global batch's, the same on every rank.
+    ``time_sharded`` (with a data mesh): each batch is this rank's time
+    block of the global batch, with the replicated all-ones ``weight``
+    (``halo.shard_batch_time``'s layout, svs_tpu device_data.py:106-136);
+    ``input_len`` must be a multiple of ``64 * size``.
     """
 
     def __init__(self, host: PatchDataset, mesh=None, *,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, time_sharded: bool = False):
         self.host = host
+        self.mesh = mesh
+        self.time_sharded = bool(time_sharded)
+        # refused before the planes are packed
+        if time_sharded:
+            if mesh is None:
+                raise ValueError("time_sharded requires a mesh")
+            halo.check_time(host.input_len, mesh,
+                            "time_sharded: input_len")
         self.device = (mesh.device if mesh is not None
                        else resolve_device(device))
         self.planes = {k: torch.from_numpy(v).to(self.device)
@@ -116,8 +134,16 @@ class DeviceDataset:
         """One batch at explicit (song, start) indices."""
         def index(a):
             return torch.as_tensor(np.asarray(a, np.int64)).to(self.device)
-        return gather_crops(self.planes, index(songs), index(starts),
-                            self.input_len)
+        if not self.time_sharded:
+            return gather_crops(self.planes, index(songs), index(starts),
+                                self.input_len)
+        # this rank's columns of each crop: the same gather, offset
+        per = self.input_len // self.mesh.size
+        out = gather_crops(self.planes, index(songs),
+                           index(np.asarray(starts, np.int64)
+                                 + self.mesh.rank * per), per)
+        out["weight"] = torch.ones(len(songs), device=self.device)
+        return out
 
     def batches(
         self,
@@ -189,14 +215,17 @@ def epoch_index_arrays(ds: PatchDataset, batch_size: int, *,
 
 def maybe_device_dataset(ds: Optional[PatchDataset], mode: str,
                          cap_mb: float, mesh=None, *,
-                         device: DeviceLike = None) -> Optional[object]:
+                         device: DeviceLike = None,
+                         time_sharded: bool = False) -> Optional[object]:
     """Gate for the training loop: returns a DeviceDataset when ``mode`` is
     "on", or "auto" and the resident footprint fits ``cap_mb``; otherwise
-    the host dataset unchanged ("off" -> host dataset)."""
+    the host dataset unchanged ("off" -> host dataset).  ``time_sharded``:
+    :class:`DeviceDataset`'s."""
     if ds is None or mode == "off":
         return ds
     if mode not in ("on", "auto"):
         raise ValueError(f"device_data must be on/off/auto, got {mode!r}")
     if mode == "auto" and resident_bytes(ds) > cap_mb * 2**20:
         return ds
-    return DeviceDataset(ds, mesh=mesh, device=device)
+    return DeviceDataset(ds, mesh=mesh, device=device,
+                         time_sharded=time_sharded)

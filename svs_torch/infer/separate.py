@@ -22,8 +22,8 @@ same padding is what keeps the two packages' outputs equal.
 PCM16 (int16 in and out, decoded and re-quantised on the device).  On the
 card it keeps the copies off the compute stream, so that one song's
 transfers overlap another's decode.  :func:`separate_magnitude_mesh`
-spreads one song's windows over the ranks of a data mesh
-(``parallel.mesh``).
+spreads one song's windows, or in ``whole`` mode its time axis, over the
+ranks of a data mesh (``parallel.mesh``, ``parallel.halo``).
 """
 
 from __future__ import annotations
@@ -181,14 +181,18 @@ def separate_magnitude_mesh(
     because the blend is linear in the masked frames (the numpy
     accumulation below).  The window count is padded with zero windows to
     a multiple of ``lcm(size, 8)`` (the unsharded path's bucket of 8) and
-    their outputs sliced off, so no value changes.  mode='whole' is the
-    halo-exchange time-sharded forward, not ported yet.
+    their outputs sliced off, so no value changes.  mode='whole': the
+    halo-exchange time-sharded forward of the whole song
+    (``halo.separate_magnitude_time_sharded``; it pads the song to a
+    multiple of ``64 * size`` frames, where :func:`separate_magnitude`
+    pads to ``8 * input_len``).
     """
     if mode == "whole":
-        raise NotImplementedError(
-            "separate_magnitude_mesh(mode='whole') is the halo-exchange "
-            "time-sharded forward, not ported to svs_torch yet (ROADMAP "
-            "A.10.6)")
+        from svs_torch.parallel import halo
+        _check(model, mode)
+        _model_device(model, mesh.device)
+        return halo.separate_magnitude_time_sharded(model, mag, mesh,
+                                                    vocal_solo=vocal_solo)
     if mode not in ("segments", "overlap"):
         raise ValueError(f"unknown mode {mode!r}; expected one of "
                          f"{sorted(_MASK_MODES)}")

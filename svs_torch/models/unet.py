@@ -34,7 +34,7 @@ replays the same mask.  The numbers are those without remat.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -44,6 +44,9 @@ from torch.utils.checkpoint import checkpoint
 from svs_torch.parallel.mesh import Mesh, all_sum
 from svs_torch.utils.config import SVSConfig
 from svs_torch.utils.device import torch_dtype
+
+# a level's conv and its bias: ``conv(i, x)``
+Conv = Callable[[int, torch.Tensor], torch.Tensor]
 
 
 def batch_norm(
@@ -259,12 +262,14 @@ class UNet(nn.Module):
 
     def encode(self, i: int, x: torch.Tensor,
                weight: Optional[torch.Tensor] = None,
-               mesh: Optional[Mesh] = None) -> torch.Tensor:
+               mesh: Optional[Mesh] = None,
+               conv: Optional[Conv] = None) -> torch.Tensor:
         """Encoder level i (1..6) as the forward runs it: :meth:`enc_level`
         (under remat, recomputed in the backward), then in train mode its
         BatchNorm's running statistics written, outside the recomputed
         function."""
-        x, new_mean, new_var = self._run(self.enc_level, i, x, weight, mesh)
+        x, new_mean, new_var = self._run(self.enc_level, i, x, weight, mesh,
+                                         conv)
         if self.training:
             getattr(self, f"conv{i}")[1].update(new_mean, new_var)
         return x
@@ -272,11 +277,12 @@ class UNet(nn.Module):
     def decode(self, i: int, inp: torch.Tensor,
                weight: Optional[torch.Tensor] = None,
                keep: Optional[torch.Tensor] = None,
-               mesh: Optional[Mesh] = None) -> torch.Tensor:
+               mesh: Optional[Mesh] = None,
+               conv: Optional[Conv] = None) -> torch.Tensor:
         """Decoder level i (1..5) as the forward runs it (:meth:`encode`'s
         contract) with the Dropout2d keep mask ``keep``."""
         x, new_mean, new_var = self._run(self.dec_level, i, inp, weight, keep,
-                                         mesh)
+                                         mesh, conv)
         if self.training:
             getattr(self, f"deconv{i}_BAD")[0].update(new_mean, new_var)
         return x
@@ -302,21 +308,27 @@ class UNet(nn.Module):
 
     def enc_level(self, i: int, x: torch.Tensor,
                   weight: Optional[torch.Tensor] = None,
-                  mesh: Optional[Mesh] = None):
+                  mesh: Optional[Mesh] = None,
+                  conv: Optional[Conv] = None):
         """Encoder level i: conv s2 -> BN -> LeakyReLU (reference model.py:
-        42-77); returns the activation and BN's new running statistics."""
-        cfg = self.cfg
-        cd = torch_dtype(cfg.compute_dtype)
-        conv, bn = getattr(self, f"conv{i}")
-        x = (F.conv2d(x.to(cd), conv.weight.to(cd), None, conv.stride,
-                      conv.padding)
-             + conv.bias.to(cd)[None, :, None, None])
+        42-77); returns the activation and BN's new running statistics.
+        ``conv(i, x)``: the conv and its bias, :meth:`down` unless given
+        (``parallel/halo.py``'s conv of a time block)."""
+        bn = getattr(self, f"conv{i}")[1]
         x, new_mean, new_var = batch_norm(
-            x, bn.weight, bn.bias, bn.running_mean, bn.running_var,
-            train=self.training, eps=bn.eps, momentum=bn.momentum,
-            weight=weight, group=mesh)
-        return (torch.where(x >= 0, x, cfg.leaky_slope * x),  # LeakyReLU
-                new_mean, new_var)
+            (conv or self.down)(i, x), bn.weight, bn.bias, bn.running_mean,
+            bn.running_var, train=self.training, eps=bn.eps,
+            momentum=bn.momentum, weight=weight, group=mesh)
+        x = torch.where(x >= 0, x, self.cfg.leaky_slope * x)  # LeakyReLU
+        return x, new_mean, new_var
+
+    def down(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Encoder conv i and its bias, in the compute dtype."""
+        cd = torch_dtype(self.cfg.compute_dtype)
+        conv = getattr(self, f"conv{i}")[0]
+        return (F.conv2d(x.to(cd), conv.weight.to(cd), None, conv.stride,
+                         conv.padding)
+                + conv.bias.to(cd)[None, :, None, None])
 
     def deconv(self, i: int, inp: torch.Tensor) -> torch.Tensor:
         """Deconv i's transposed conv and bias, in the compute dtype."""
@@ -335,12 +347,15 @@ class UNet(nn.Module):
     def dec_level(self, i: int, inp: torch.Tensor,
                   weight: Optional[torch.Tensor] = None,
                   keep: Optional[torch.Tensor] = None,
-                  mesh: Optional[Mesh] = None):
+                  mesh: Optional[Mesh] = None,
+                  conv: Optional[Conv] = None):
         """Decoder level i < 6: deconv -> BN -> ReLU -> Dropout2d with the
-        keep mask ``keep`` (train mode) (reference model.py:79-109)."""
+        keep mask ``keep`` (train mode) (reference model.py:79-109).
+        ``conv(i, inp)``: the transposed conv and its bias, :meth:`deconv`
+        unless given."""
         bn = getattr(self, f"deconv{i}_BAD")[0]
         x, new_mean, new_var = batch_norm(
-            self.deconv(i, inp), bn.weight, bn.bias, bn.running_mean,
+            (conv or self.deconv)(i, inp), bn.weight, bn.bias, bn.running_mean,
             bn.running_var, train=self.training, eps=bn.eps,
             momentum=bn.momentum, weight=weight, group=mesh)
         # ReLU as jnp.maximum(x, 0): the gradient at an exact 0 is 0.5, as

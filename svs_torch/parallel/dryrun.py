@@ -22,7 +22,18 @@ dropout 0.5, one patch a rank):
   channels, the step stay within the envelope of the unsharded step and
   the gathered state be the same bits on every rank;
 - the segment-parallel decode (``separate_magnitude_mesh``, both modes)
-  against ``separate_magnitude`` on rank 0.
+  against ``separate_magnitude`` on rank 0;
+- context parallelism (:mod:`~svs_torch.parallel.halo`): one CP train step
+  of a batch of 2 patches of ``64 * n`` frames, its time axis cut over the
+  ``n`` ranks, held on rank 0 against the unsharded step of the same
+  batch, state and dropout generator under :data:`ENVELOPE`, every rank's
+  state rank 0's bits (:func:`cp_parity`); and the whole-song CP decode
+  (``separate_magnitude_mesh(mode="whole")``) of a song of ``lcm(64 * n,
+  8 * input_len)`` frames against the unsharded ``mode="whole"`` decode
+  within :data:`CP_ATOL` (:func:`cp_decode_parity`).  The two decodes pad
+  a song alike only at such a length (to ``64 * n`` and to ``8 *
+  input_len`` frames): ``64 * n`` itself, ``dryrun_multichip``'s, at
+  ``n = 8``.
 
 Then, where ``n >= 2`` (``dryrun_multichip``'s guard), in the calling
 process and not in the pool: the ``n_micro = 1`` PP step
@@ -37,6 +48,7 @@ ported yet.
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Dict, Optional, Tuple
 
@@ -47,7 +59,7 @@ import torch.distributed as dist
 from svs_torch.losses.mrstft import combined_loss
 from svs_torch.parallel import dp
 from svs_torch.parallel import mesh as mesh_lib
-from svs_torch.parallel import pp, tp, zero
+from svs_torch.parallel import halo, pp, tp, zero
 from svs_torch.train import step as tstep
 from svs_torch.utils.config import SVSConfig
 
@@ -59,23 +71,27 @@ from svs_torch.utils.config import SVSConfig
 ENVELOPE = {"loss": 1e-5, "grad_norm": 1e-3, "bn": 1e-4, "params_max_lr": 2.1,
             "params_mean": 2e-4}
 # the layouts this dry run checks, and svs_tpu's that it does not yet
-CHECKED = ("dp", "sp", "zero1", "fsdp", "tp", "pp")
-NOT_PORTED = ("cp", "multihost")
+CHECKED = ("dp", "sp", "zero1", "fsdp", "tp", "pp", "cp")
+NOT_PORTED = ("multihost",)
 # the training layouts of one data mesh
 LAYOUTS = ("dp", "zero1", "fsdp")
 # the SP decode's atol against the unsharded one (tests/test_infer_mesh.py)
 SP_ATOL = 2e-5
+# the whole-song CP decode's atol against the unsharded whole decode
+# (tests/test_infer_mesh.py, __graft_entry__.dryrun_multichip)
+CP_ATOL = 3e-5
 
 
-def dry_batch(b: int) -> Dict[str, np.ndarray]:
+def dry_batch(b: int, frames: int = 64) -> Dict[str, np.ndarray]:
     """The dry run's random global batch of 64-frame patches
-    (``dryrun_multichip``'s draws)."""
+    (``dryrun_multichip``'s draws), or of ``frames``."""
     rng = np.random.default_rng(0)
+    shape = (b, 512, frames)
     return {
-        "mix": rng.random((b, 512, 64), np.float32),
-        "voc": rng.random((b, 512, 64), np.float32) * 0.5,
-        "mix_angle": (rng.random((b, 512, 64), np.float32) - 0.5) * 6,
-        "voc_angle": (rng.random((b, 512, 64), np.float32) - 0.5) * 6,
+        "mix": rng.random(shape, np.float32),
+        "voc": rng.random(shape, np.float32) * 0.5,
+        "mix_angle": (rng.random(shape, np.float32) - 0.5) * 6,
+        "voc_angle": (rng.random(shape, np.float32) - 0.5) * 6,
     }
 
 
@@ -448,6 +464,139 @@ def sp_parity(mesh: mesh_lib.Mesh, model: torch.nn.Module, mag: np.ndarray
     return out if mesh.is_primary else None
 
 
+def first_ranks(mesh: mesh_lib.Mesh, n: Optional[int]
+                ) -> Optional[mesh_lib.Mesh]:
+    """The mesh of ``mesh``'s first ``n`` ranks on those ranks, None on the
+    others (``mesh`` itself where ``n`` is None or its size): one pool of
+    ranks checks several world sizes.  A collective: every rank calls it
+    at the same point."""
+    if n is None or n == mesh.size:
+        return mesh
+    if not 0 < n < mesh.size:
+        raise ValueError(f"{n} of {mesh.size} ranks")
+    groups = [list(range(n)), list(range(n, mesh.size))]
+    sub = mesh_lib._sub_mesh(mesh, groups, mesh.axis_name)
+    return sub if mesh.rank < n else None
+
+
+def cp_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig,
+              batch: Dict[str, np.ndarray], first: Optional[int] = None
+              ) -> Optional[Dict[str, object]]:
+    """One CP train step of the host ``batch`` (its time axis cut over the
+    mesh, or its ``first`` ranks', :func:`first_ranks`;
+    ``halo.shard_batch_time``) from the state of seed 0 and the
+    dropout seed 1, against ``make_train_step`` of the whole batch (with
+    an all-ones ``weight``) from the same state and generator on rank 0.
+    Returns on rank 0 the :func:`envelope` of the two, ``bits`` (the
+    largest |difference| of the metrics and the state dicts; 0.0: the same
+    bits), ``spread`` (of the state over the ranks), ``kernels`` (the loss
+    kernels' launches in the CP step on rank 0) and ``peak`` (each rank's
+    ``torch.cuda.max_memory_allocated`` over the step, on a CUDA mesh);
+    None elsewhere."""
+    mesh = first_ranks(mesh, first)
+    if mesh is None:
+        return None
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    state = dp.replicate_state(tstep.create_train_state(0, cfg, device=dev),
+                               mesh)
+    step = halo.make_cp_train_step(mesh, cfg)
+    local = halo.shard_batch_time(mesh, batch)
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    from svs_torch.ops.cuda import diff_mag as cdm
+    from svs_torch.ops.cuda import fused_loss as cfl
+    cdm.reset_counts()
+    cfl.reset_counts()
+    state, metrics = step(state, local, torch.Generator(dev).manual_seed(1))
+    kernels = list(_loss_kernel_counts())
+    peak = _per_rank(torch.cuda.max_memory_allocated(dev) if cuda else 0,
+                     mesh)
+    sd = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    spread = _spread(sd, mesh)
+    if not mesh.is_primary:
+        return None
+    ref_batch = tstep.batch_to_device(batch, dev)
+    ref_batch["weight"] = torch.ones(len(batch["mix"]), device=dev)
+    ref_state, ref = tstep.make_train_step(cfg)(
+        tstep.create_train_state(0, cfg, device=dev), ref_batch,
+        torch.Generator(dev).manual_seed(1))
+    metrics = {k: v.cpu() for k, v in metrics.items()}
+    out = envelope(metrics, sd, ref, ref_state, cfg.learning_rate)
+    out["bits"] = max(_max_diff(metrics, {k: v.cpu() for k, v in
+                                          ref.items()}),
+                      _max_diff(sd, {k: v.cpu() for k, v in
+                                     ref_state.model.state_dict().items()}))
+    out.update(spread=spread, kernels=kernels, peak=peak)
+    return out
+
+
+def cp_decode_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig, mag: np.ndarray,
+                     reps: int = 0, first: Optional[int] = None
+                     ) -> Optional[Dict[str, object]]:
+    """The whole-song CP decode (``separate_magnitude_mesh(mode="whole")``)
+    over the mesh, or its ``first`` ranks (:func:`first_ranks`), of ``mag``
+    by the eval-mode U-Net of seed 0, against the unsharded
+    ``separate_magnitude(mode="whole")`` on rank 0: ``max_abs_err``
+    (it pads to ``8 * input_len`` frames, CP to ``64 * size``: the two
+    agree where those paddings do), and ``padded_err`` against the
+    unsharded forward of the song zero-padded as CP pads it (svs_tpu's
+    ``separate_magnitude_time_sharded``); on a
+    CUDA mesh with ``reps`` also ``ms`` (each rank's mean of ``reps`` more
+    CP decodes by CUDA events, host copies included) and ``peak`` (each
+    rank's ``torch.cuda.max_memory_allocated`` over one CP decode), and
+    ``ref_ms`` and ``ref_peak``, rank 0's of the unsharded decode, taken
+    after.  None elsewhere."""
+    from svs_torch.infer import separate
+    from svs_torch.models.unet import UNet
+
+    mesh = first_ranks(mesh, first)
+    if mesh is None:
+        return None
+    dev = mesh.device
+    model = UNet(cfg, generator=torch.Generator().manual_seed(0))
+    model = model.to(dev).eval()
+
+    def cp():
+        return separate.separate_magnitude_mesh(model, mag, mesh,
+                                                mode="whole")
+
+    def one():
+        return separate.separate_magnitude(model, mag, mode="whole",
+                                           device=dev)
+
+    @torch.inference_mode()
+    def padded():
+        t = mag.shape[1]
+        g = halo.granule(mesh)
+        mag_p = np.pad(mag.astype(np.float32),
+                       ((0, 0), (0, -(-max(t, g) // g) * g - t)))
+        mask = model(torch.from_numpy(mag_p[None, 1:]).to(dev))[0]
+        return np.concatenate([np.zeros_like(mag_p[:1]),
+                               mag_p[1:] * mask.cpu().numpy()])[:, :t]
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        fn()
+        peak = torch.cuda.max_memory_allocated(dev)
+        return _event_ms(lambda g: fn(), dev, reps, 0), peak
+
+    got = cp()
+    out = {}
+    if reps and dev.type == "cuda":
+        ms, peak = timed(cp)
+        out.update(ms=_per_rank(ms, mesh), peak=_per_rank(peak, mesh))
+    if not mesh.is_primary:
+        return None
+    if reps and dev.type == "cuda":
+        out["ref_ms"], out["ref_peak"] = timed(one)
+    out["max_abs_err"] = float(np.abs(got - one()).max())
+    out["padded_err"] = float(np.abs(got - padded()).max())
+    return out
+
+
 def sharded_layouts(n: int) -> tuple:
     """The layouts the dry run checks over ``n`` ranks: ZeRO-1 and FSDP
     where ``n > 1`` and ``128 % n == 0`` (``dryrun_multichip``'s guard:
@@ -477,9 +626,15 @@ def dp_smoke_rank(mesh: mesh_lib.Mesh) -> Optional[Dict[str, object]]:
     mag = np.abs(np.random.default_rng(3).standard_normal(
         (513, 150))).astype(np.float32)
     sp = sp_parity(mesh, model.eval(), mag)
+    frames = halo.granule(mesh)
+    cp_step = cp_parity(mesh, cfg, dry_batch(2, frames))
+    song = np.random.default_rng(5).random(
+        (513, math.lcm(frames, 8 * cfg.input_len)), np.float32)
+    cp_decode = cp_decode_parity(mesh, cfg, song)
     if not mesh.is_primary:
         return None
-    return dict(step, sp=sp)
+    return dict(step, sp=sp, cp=cp_step,
+                cp_decode=dict(cp_decode, frames=song.shape[1]))
 
 
 def dp_smoke(devices: int = 8, timeout: float = 1200.0) -> Dict[str, object]:
@@ -493,13 +648,28 @@ def dp_smoke(devices: int = 8, timeout: float = 1200.0) -> Dict[str, object]:
                    timeout=timeout) as ranks:
             res = ranks.run(dp_smoke_rank)[0]
         sp = res.pop("sp")
+        cp_decode = res.pop("cp_decode")
         if devices >= 2:  # in this process: two stages on the host
             res["pp"] = pp_parity(("cpu", "cpu"),
                                   SVSConfig(input_len=64, dropout_rate=0.5),
                                   dry_batch(devices))
-        ok = all(v <= SP_ATOL for v in sp.values())
+        ok = all(v <= SP_ATOL for v in sp.values()) \
+            and cp_decode["max_abs_err"] <= CP_ATOL
         parts = []
         for kind, step in res.items():
+            if kind == "cp":
+                ok = ok and step["ok"] and step["spread"] == 0.0
+                parts.append(
+                    f"cp == unsharded step (loss rel {step['loss_rel']:.2e}, "
+                    f"grad_norm rel {step['grad_norm_rel']:.2e}, bn "
+                    f"{step['bn_abs']:.2e}, params max "
+                    f"{step['params_max']:.2e} mean "
+                    f"{step['params_mean']:.2e}; rank spread "
+                    f"{step['spread']:g}; B = 2 x {64 * devices} frames, "
+                    "64 a rank); cp decode == unsharded whole decode "
+                    f"(max {cp_decode['max_abs_err']:.2e}, "
+                    f"{cp_decode['frames']} frames)")
+                continue
             if kind == "pp":
                 ok = ok and step["ok"]
                 parts.append(

@@ -21,6 +21,9 @@ a process group, and each reduction over the batch axis is written out:
 - :func:`all_gather` puts the ranks' slices of a tensor back together, and
   its adjoint gives each rank its slice of the all-reduced gradient;
   :func:`gather_state` gathers a sharded state to the host, leaf by leaf;
+- :func:`halo_exchange` gives each rank's block of a time-sharded
+  activation its neighbours' edge columns (context parallelism,
+  ``parallel/halo.py``), differentiably;
 - :func:`agree` makes one host flag (a SIGTERM) the same on every rank.
 
 Every collective here is an all-reduce or a broadcast, the two that NCCL
@@ -285,6 +288,68 @@ def all_gather(shard: torch.Tensor, dim: int, mesh: Optional[Mesh],
     if not crosses(mesh):
         return shard
     return _AllGather.apply(shard, dim, mesh, reduced)
+
+
+def _edges(x: torch.Tensor, h: int, mesh: Mesh) -> torch.Tensor:
+    """Every rank's two edges of ``h`` time columns (dim 3): a zero-filled
+    (size, 2, B, C, F, h) buffer whose row ``rank`` holds this rank's
+    ``(x[..., :h], x[..., -h:])``, all-reduced.  Adding zeros is exact."""
+    buf = x.new_zeros((mesh.size, 2) + tuple(x.shape[:3]) + (h,))
+    with torch.no_grad():
+        buf[mesh.rank, 0].copy_(x[..., :h])
+        buf[mesh.rank, 1].copy_(x[..., -h:])
+    dist.all_reduce(buf, group=mesh.group)
+    return buf
+
+
+class _Halo(torch.autograd.Function):
+    """The halo exchange over ranks that hold contiguous time blocks; the
+    adjoint adds each halo column's gradient back onto the edge column of
+    the rank that owns it."""
+
+    @staticmethod
+    def forward(ctx, x, h, mesh):
+        ctx.h, ctx.mesh = h, mesh
+        buf = _edges(x, h, mesh)
+        r, zero = mesh.rank, x.new_zeros(tuple(x.shape[:3]) + (h,))
+        left = buf[r - 1, 1] if r > 0 else zero
+        right = buf[r + 1, 0] if r < mesh.size - 1 else zero
+        return torch.cat([left, x, right], dim=3)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, mesh, r = ctx.h, ctx.mesh, ctx.mesh.rank
+        # row r of the buffer: the gradients of this rank's halo columns,
+        # which belong to the left neighbour's right edge and the right
+        # neighbour's left edge
+        buf = _edges(g, h, mesh)
+        gx = g[..., h:-h].clone()
+        if r > 0:
+            gx[..., :h] += buf[r - 1, 1]
+        if r < mesh.size - 1:
+            gx[..., -h:] += buf[r + 1, 0]
+        return gx, None, None
+
+
+def halo_exchange(x: torch.Tensor, h: int, mesh: Optional[Mesh]
+                  ) -> torch.Tensor:
+    """``x`` (B, C, F, T_loc), this rank's contiguous block of the time
+    axis, with ``h`` columns from each neighbouring rank on either side:
+    (B, C, F, T_loc + 2h), zeros at the ends of the song (svs_tpu
+    halo.py:61).  A world of one (or no mesh) zero-pads.  Differentiable:
+    the adjoint is the exact transpose (no ``L / size`` scaling), each
+    halo column's gradient added onto the edge column it came from.
+
+    One all-reduce of a (size, 2, B, C, F, h) buffer delivers every
+    neighbour's edges, as :func:`all_gather` is written on all-reduce:
+    the one collective that gloo ranks sharing a card run beside NCCL's.
+    ``h`` must not exceed ``T_loc``."""
+    if not crosses(mesh):
+        return torch.nn.functional.pad(x, (h, h))
+    if not 0 < h <= x.shape[3]:
+        raise ValueError(f"a halo of {h} needs 1 <= h <= T_loc "
+                         f"({x.shape[3]})")
+    return _Halo.apply(x, h, mesh)
 
 
 def gather_state(leaves: Iterable[Tuple[torch.Tensor, Optional[int]]],

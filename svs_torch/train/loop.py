@@ -81,9 +81,22 @@ one device, the canonical ``.ckpt``.  A multi-process run, a mesh that is
 not two stages, a ``pp_micro`` that does not divide ``batch_size``,
 ``accum_steps > 1``, ``epoch_scan``, ``zero1`` and ``fsdp`` are refused.
 
+With ``parallel="cp"`` and a data mesh the loop is context-parallel
+(:mod:`svs_torch.parallel.halo`, svs_tpu loop.py:219-249,283-297): every
+rank holds the whole state (replicated from rank 0) and samples the same
+whole batch from the shared epoch seed, remixes it whole, and steps on its
+block of the time axis (``halo.make_cp_train_step``).  The dataset stays
+on the device in its time-sharded form (``DeviceDataset(time_sharded=
+True)``) where ``device_data`` allows it and ``input_len`` is a multiple
+of ``64 * size`` ("auto" takes the host pipeline with
+``halo.shard_batch_time`` otherwise, "on" raises); validation runs the
+plain eval step on the whole batch; rank 0 writes the canonical ``.ckpt``
+of the replicated state.  ``epoch_scan``, ``zero1`` and ``fsdp`` are
+refused with CP, as svs_tpu refuses them.
+
 Not ported yet, and refused with ``NotImplementedError`` naming its
-ROADMAP item: CP (A.10.6), the ``device_put`` hook and multi-host runs
-(A.10.7), and ``epoch_scan`` over a DP mesh (A.10.2).
+ROADMAP item: the ``device_put`` hook and multi-host runs (A.10.7), and
+``epoch_scan`` over a DP mesh (A.10.2).
 """
 
 from __future__ import annotations
@@ -103,7 +116,7 @@ from svs_torch.data import device_data as dd
 from svs_torch.data.dataset import PatchDataset
 from svs_torch.parallel import dp
 from svs_torch.parallel import mesh as mesh_lib
-from svs_torch.parallel import pp, tp, zero
+from svs_torch.parallel import halo, pp, tp, zero
 from svs_torch.train import checkpoint as ckpt_lib
 from svs_torch.train.step import (TrainState, batch_to_device,
                                   create_train_state, get_learning_rate,
@@ -141,11 +154,12 @@ class TrainOptions:
     device_data: str = "auto"  # "auto" | "on" | "off"
     device_data_cap_mb: float = 2048.0
     epoch_scan: bool = False   # the epoch as replays of a CUDA graph
-    # a parallel.mesh.Mesh: data-parallel training over its ranks; with
-    # parallel="tp" a Mesh2D (make_2d_mesh), with parallel="pp" the pair of
-    # stage devices (pp.make_pp_mesh)
+    # a parallel.mesh.Mesh: data-parallel training over its ranks (with
+    # parallel="cp" context-parallel); with parallel="tp" a Mesh2D
+    # (make_2d_mesh), with parallel="pp" the pair of stage devices
+    # (pp.make_pp_mesh)
     mesh: Optional[object] = None
-    parallel: str = "dp"       # "dp" | "tp" | "pp"; "cp": ROADMAP A.10.6
+    parallel: str = "dp"       # "dp" | "cp" | "tp" | "pp"
     pp_micro: int = 4
     pp_split: int = 3
     # shard Adam's moments (zero1), and the parameters and BN statistics
@@ -179,9 +193,7 @@ def _refuse_unported(opts: TrainOptions) -> None:
         raise NotImplementedError(f"{what} is not ported to svs_torch yet "
                                   f"(ROADMAP {item})")
 
-    if opts.parallel == "cp":
-        no("parallel='cp'", "A.10.6")
-    if opts.parallel not in ("dp", "tp", "pp"):
+    if opts.parallel not in ("dp", "cp", "tp", "pp"):
         raise ValueError(f"unknown parallel layout {opts.parallel!r}")
     if opts.device_put is not None:
         no("a device_put sharding hook", "A.10.7")
@@ -196,6 +208,16 @@ def _refuse_unported(opts: TrainOptions) -> None:
         if opts.zero1 or opts.fsdp:
             raise ValueError("zero1 / fsdp compose with dp only (TP "
                              "already shards the state with its channels)")
+        if opts.epoch_scan:
+            raise ValueError(SCAN_REFUSAL)
+    if opts.parallel == "cp":
+        if (not isinstance(opts.mesh, mesh_lib.Mesh)
+                or isinstance(opts.mesh, mesh_lib.Mesh2D)):
+            raise ValueError("parallel='cp' needs a data mesh: "
+                             "TrainOptions.mesh = parallel.mesh.make_mesh()")
+        if opts.zero1 or opts.fsdp:
+            raise ValueError("zero1 / fsdp compose with dp only (CP "
+                             "replicates the state)")
         if opts.epoch_scan:
             raise ValueError(SCAN_REFUSAL)
     if opts.mesh is None:
@@ -293,17 +315,28 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
     if valid_ds is None:
         say(f"Warning: no validation folder {opts.valid_folder}; skipping "
             "validation.")
+    is_cp = opts.parallel == "cp"  # on a data mesh (_refuse_unported)
+    if is_cp:
+        # time-sharded on the device where input_len meets the granule
+        # ("on" refuses one that does not), else the host pipeline;
+        # validation keeps the host pipeline (svs_tpu loop.py:236-249)
+        if opts.device_data == "on" or (
+                opts.device_data == "auto"
+                and train_ds.input_len % halo.granule(mesh) == 0):
+            train_ds = dd.maybe_device_dataset(
+                train_ds, opts.device_data, opts.device_data_cap_mb,
+                mesh=mesh, device=dev, time_sharded=True)
     # PP keeps the host pipeline: its batches are padded whole there
-    if opts.device_data != "off" and not is_pp:
+    elif opts.device_data != "off" and not is_pp:
         train_ds = dd.maybe_device_dataset(train_ds, opts.device_data,
                                            opts.device_data_cap_mb,
                                            mesh=mesh, device=dev)
         valid_ds = dd.maybe_device_dataset(valid_ds, opts.device_data,
                                            opts.device_data_cap_mb,
                                            mesh=mesh, device=dev)
-        if isinstance(train_ds, dd.DeviceDataset):
-            say(f"[svs-torch] device-resident dataset: "
-                f"{train_ds.nbytes / 2**20:.0f} MiB on {dev}")
+    if isinstance(train_ds, dd.DeviceDataset):
+        say(f"[svs-torch] device-resident dataset: "
+            f"{train_ds.nbytes / 2**20:.0f} MiB on {dev}")
 
     epoch_fn = None
     if opts.epoch_scan:
@@ -332,6 +365,10 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
     elif is_tp:
         train_step = tp.make_tp_train_step(mesh, cfg)
         eval_step = tp.make_tp_eval_step(mesh, cfg)
+    elif is_cp:
+        # svs_tpu validates CP on the whole batch through the plain step
+        train_step = halo.make_cp_train_step(mesh, cfg)
+        eval_step = make_eval_step(cfg)
     elif sharded:
         train_step = zero.make_zero1_train_step(mesh, cfg, fsdp=opts.fsdp)
         eval_step = dp.make_dp_eval_step(mesh, cfg)
@@ -361,23 +398,31 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
         augmenter = Augmenter(opts.remix_p, opts.aug_gain_lo,
                               opts.aug_gain_hi)
 
+    time_cut = isinstance(train_ds, dd.DeviceDataset) and \
+        train_ds.time_sharded
+
     def _local(batch, n_real: int):
         """A host or device batch as this rank's step input: remixed
-        whole, then (with a mesh) cut to this rank's (data row's) rows."""
+        whole, then (with a mesh) cut to this rank's (data row's) rows, or
+        under CP to this rank's time block (a time-sharded device batch is
+        cut already: the remix is row-local and elementwise in time)."""
         if augmenter is not None:
             batch = augmenter(_on_device(batch, dev), n_real=n_real)
         if is_pp:  # moved to stage 0 by the step
             return pp.pad_batch(batch, opts.batch_size)
         if mesh is None:
             return _on_device(batch, dev)
+        if is_cp:
+            return batch if time_cut else halo.shard_batch_time(mesh, batch)
         return mesh_lib.shard_batch(rows, batch)
 
     def _val_local(batch):
         """A validation batch as this rank's eval input (with a mesh, a
-        remainder batch padded to the full batch's rows)."""
+        remainder batch padded to the full batch's rows; under CP the
+        whole batch)."""
         if is_pp:
             return pp.pad_batch(batch, opts.batch_size)
-        if mesh is None:
+        if mesh is None or is_cp:
             return _on_device(batch, dev)
         return mesh_lib.global_batch_from_global(rows, batch,
                                                  opts.batch_size)

@@ -699,3 +699,39 @@ def test_one_card_pp_step_is_make_train_steps_bits(card, impl, counts):
         torch.backends.cudnn.deterministic = was
     assert r["ok"] and r["bits"] == 0.0, r
     assert tuple(r["kernels"]) == counts, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,counts", [("pallas_fused", (0, 0, 3, 3)),
+                                         ("pallas_bf16", (6, 3, 0, 0))])
+def test_world_of_one_cp_step_and_decode(card, impl, counts):
+    """A world of one over NCCL: the CP step (the halo arithmetic as a
+    zero pad and valid convs; dropout on, bf16 convs, remat, cuDNN
+    deterministic) is within the dry run's envelope of
+    ``make_train_step`` and launches the loss kernels inside it as that
+    step does; the whole-song CP decode of a 1024-frame song (float32,
+    which both decodes pad alike) is the unsharded whole decode, and the
+    unsharded forward at CP's padding, within 3e-5."""
+    import torch.distributed as dist
+
+    from svs_torch.parallel import dryrun
+    from svs_torch.parallel import mesh as mesh_lib
+    from svs_torch.utils.config import SVSConfig
+
+    cfg = SVSConfig(enc_channels=(4, 8, 8, 16, 16, 16), input_len=256,
+                    mr_mag_impl=impl, compute_dtype="bfloat16", remat=True)
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    mesh = mesh_lib.make_mesh()
+    try:
+        assert mesh.size == 1 and mesh.backend == "nccl"
+        r = dryrun.cp_parity(mesh, cfg, dryrun.dry_batch(4, 256))
+        song = np.random.default_rng(1).random((513, 1000), np.float32)
+        d = dryrun.cp_decode_parity(
+            mesh, SVSConfig(enc_channels=cfg.enc_channels), song)
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = was
+    assert r["ok"] and r["spread"] == 0.0, r
+    assert tuple(r["kernels"]) == counts, r
+    assert max(d["max_abs_err"], d["padded_err"]) <= 3e-5, d

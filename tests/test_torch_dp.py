@@ -303,11 +303,18 @@ def test_sp_decode_matches_svs_tpus(ranks, mode, vocal_solo):
 
 
 def test_sp_whole_mode_is_not_ported():
+    """``mode='whole'`` is not a segment-parallel mode: it routes to the
+    halo-exchange decode (``parallel.halo``, tests/test_torch_cp.py), which
+    on a world of one is the unsharded whole decode of a song both pad to
+    1024 frames; an unknown mode is refused.  (The name is from before the
+    whole mode was ported, when the test checked its refusal; it is kept
+    so that the test keeps its identity in the suite's history.)"""
     model = tstep.create_train_state(0, TConfig(**NARROW),
                                      device="cpu").model.eval()
-    mag = np.ones((513, 64), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10.6"):
-        tsep.separate_magnitude_mesh(model, mag, _fake(0), mode="whole")
+    mag = np.random.default_rng(0).random((513, 1000)).astype(np.float32)
+    got = tsep.separate_magnitude_mesh(model, mag, _fake(0, 1), mode="whole")
+    want = tsep.separate_magnitude(model, mag, mode="whole", device="cpu")
+    np.testing.assert_allclose(got, want, atol=3e-5)
     with pytest.raises(ValueError, match="unknown mode"):
         tsep.separate_magnitude_mesh(model, mag, _fake(0), mode="nope")
 
@@ -433,14 +440,16 @@ def test_infer_cli_sp_decodes_on_two_ranks(ranks, songs, tmp_path):
 
 
 def test_infer_cli_refuses_cp_and_whole_sp(capsys):
-    for argv, item in ((["--cp"], "A.10.6"),
-                       (["--sp", "--mode", "whole"], "A.10.6")):
+    """svs_tpu's refusals (infer_cli.py:83-90): ``--cp`` decodes only
+    ``--mode whole``, ``--sp`` never does."""
+    for argv, says in ((["--cp"], "pass --mode whole"),
+                       (["--sp", "--mode", "whole"], "use --cp")):
         with pytest.raises(SystemExit) as err:
             infer_cli.main(["--model_path", "m", "--tar", "t",
                             "--mixture_folder", "f", "--device", "cpu",
                             *argv])
         assert err.value.code == 2
-        assert f"ROADMAP {item}" in capsys.readouterr().err
+        assert says in capsys.readouterr().err
 
 
 def test_make_mesh_alone_is_a_world_of_one():

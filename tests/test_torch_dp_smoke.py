@@ -3,8 +3,10 @@ multi-device dry run starts its own gloo ranks on the CPU, so it has a
 module of its own (one process group a module).  At two ranks it prints
 svs_tpu's JSON line with ``ok: true``: the DP step within
 ``__graft_entry__``'s envelope of the unsharded step, the ranks' states the
-same bits, and the SP decode within 2e-5 of the unsharded decode; at four
-ranks also the TP block on a (2, 2) mesh."""
+same bits, the SP decode within 2e-5 of the unsharded decode, the CP step
+within the envelope and the whole-song CP decode within 3e-5 of the
+unsharded whole decode; at four ranks also the TP block on a (2, 2)
+mesh."""
 
 import json
 
@@ -38,3 +40,10 @@ def test_bench_cli_dp_smoke_on_two_ranks(capsys, devices):
         assert "mesh (2, 2)" in line["detail"]
     else:
         assert "['tp'] skipped" in line["detail"]
+    # the CP block: a batch of 2 x 64 n frames, 64 a rank, and the
+    # whole-song decode of 512 frames (both decodes' padding at n <= 8)
+    assert dryrun.NOT_PORTED == ("multihost",)
+    assert "cp == unsharded step" in line["detail"]
+    assert f"B = 2 x {64 * devices} frames, 64 a rank" in line["detail"]
+    assert "cp decode == unsharded whole decode" in line["detail"]
+    assert "512 frames)" in line["detail"]

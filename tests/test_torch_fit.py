@@ -250,8 +250,10 @@ def test_fit_refuses_what_is_not_ported(data, tmp_path):
     for kw in (dict(parallel="pp"), dict(parallel="pp", mesh=one)):
         with pytest.raises(ValueError, match="make_pp_mesh"):
             _port_fit(songs, init, str(tmp_path), **kw)
+    # CP is ported (tests/test_torch_cp.py): it needs a data mesh
+    with pytest.raises(ValueError, match="needs a data mesh"):
+        _port_fit(songs, init, str(tmp_path), parallel="cp")
     for kw, item in ((dict(device_put=lambda b: b), "A.10.7"),
-                     (dict(parallel="cp"), "A.10.6"),
                      (dict(mesh=one, epoch_scan=True), "A.10.2")):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP {item.replace('.', '[.]')}\\)"):
@@ -283,7 +285,7 @@ def test_train_cli_runs_an_epoch_on_the_cpu(data, tmp_path):
 
 @pytest.mark.parametrize("flag,item", [
     (["--multihost"], "A.10.7"), (["--coordinator", "h:1"], "A.10.7"),
-    (["--dp", "--epoch_scan"], "A.10.2"), (["--cp"], "A.10.6"),
+    (["--dp", "--epoch_scan"], "A.10.2"), (["--cp", "--dp"], "A.10.6"),
     (["--tp", "2"], "A.10.4"), (["--pp", "--accum", "2"], "A.10.5"),
     (["--zero1"], "A.10.3"), (["--fsdp"], "A.10.3"),
     (["--num_hosts", "2"], "A.10.7"), (["--host_id", "1"], "A.10.7")])
@@ -304,6 +306,10 @@ def test_train_cli_unported_flags_exit_2(flag, item, capsys):
         # ported (tests/test_torch_pp.py): with --accum it exits 2 as
         # svs_tpu's does
         assert "--pp does not compose with --accum" in said
+    elif item == "A.10.6":
+        # ported (tests/test_torch_cp.py): with --dp it exits 2 as
+        # svs_tpu's does
+        assert "--cp is mutually exclusive with --dp/--tp" in said
     else:
         assert f"ROADMAP {item})" in said
 

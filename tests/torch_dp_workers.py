@@ -118,20 +118,21 @@ def sp_decode(mesh, cfg_kw, state_dict, cases):
 
 def fit(mesh, opts_kw, cfg_kw, stop=None):
     """``fit`` over the mesh (DP, or ZeRO-1 / FSDP with ``zero1`` /
-    ``fsdp`` in ``opts_kw``, or TP on a ``Mesh2D`` with ``parallel='tp'``);
+    ``fsdp`` in ``opts_kw``, or TP on a ``Mesh2D`` with ``parallel='tp'``,
+    or CP with ``parallel='cp'``);
     the checkpoint paths this rank wrote, its
     step count and final full state dict, and its exit code (0, or 143
     after a stop).  ``stop``: ``(rank, after)`` sends that rank a SIGTERM
     after its ``after``-th step, or, with ``after`` a file name, when it
     first writes that checkpoint."""
-    from svs_torch.parallel import tp, zero
+    from svs_torch.parallel import halo, tp, zero
     from svs_torch.train import checkpoint as ckpt_lib
     from svs_torch.train import loop
 
     written, calls = [], [0]
     save = ckpt_lib.save
     make = (dp.make_dp_train_step, zero.make_zero1_train_step,
-            tp.make_tp_train_step)
+            tp.make_tp_train_step, halo.make_cp_train_step)
 
     def stop_at(mark):
         if stop is not None and (mesh.rank, mark) == tuple(stop):
@@ -158,7 +159,7 @@ def fit(mesh, opts_kw, cfg_kw, stop=None):
 
     ckpt_lib.save = recording_save
     (dp.make_dp_train_step, zero.make_zero1_train_step,
-     tp.make_tp_train_step) = map(stepping, make)
+     tp.make_tp_train_step, halo.make_cp_train_step) = map(stepping, make)
     code = 0
     try:
         state = loop.fit(loop.TrainOptions(mesh=mesh, device="cpu",
@@ -169,7 +170,7 @@ def fit(mesh, opts_kw, cfg_kw, stop=None):
     finally:
         ckpt_lib.save = save
         (dp.make_dp_train_step, zero.make_zero1_train_step,
-         tp.make_tp_train_step) = make
+         tp.make_tp_train_step, halo.make_cp_train_step) = make
     return {"written": written, "steps": calls[0], "code": code,
             "state": sd}
 
