@@ -20,7 +20,8 @@ Phases, each printing what it found on its own line:
              same shapes.  The four MR-STFT loss kernels (``spectral_mag``
              and ``loss_partials``, forward and backward) at the train
              step's shapes (B = 32, 97,536 samples, all three resolutions),
-             the pp phase's microbatch (B = 8), the cp phase's whole batch
+             the pp phase's microbatch (B = 8), a two-host step's rank
+             (B = 16), the cp phase's whole batch
              (B = 4, 392,960 samples), a ragged shape and a weighted batch;
              timed (at the train step's shapes) by device time
              (torch.profiler) summed over their own ``spec::`` kernels,
@@ -181,7 +182,28 @@ Phases, each printing what it found on its own line:
              all 4 (``pallas_bf16``) the CP step within the envelope, the
              ranks' states the same bits, and on 2 ranks both decodes;
              ``train_cli --cp --dp`` exits 2;
-17. parity — the U-Net at float32 on the card (cuDNN, TF32 off) against the
+17. mh     — multi-host training (``svs_torch.parallel.multihost``) in one
+             pool of two hosts of one rank each on the card, over gloo
+             (NCCL refuses two ranks on one card), cuDNN deterministic:
+             the float32 ``default`` DP step of B = 32, 16 rows a host,
+             under ``pallas_fused`` and ``pallas_bf16`` (the loss kernels'
+             counts zeroed just before each step and read just after, on
+             rank 0: ``mh_launches``) within the dry run's envelope of
+             ``make_train_step`` on the host-major 32-row batch, the ranks
+             the same bits; ``MultiHostDeviceDataset`` blocks against
+             ``global_batch_from_local`` of the host pipeline, bit for bit,
+             on the 3 songs (2 and 1 a host) with the epoch's ragged tail
+             and with wrapped full batches; ``Augmenter.apply_sharded`` on
+             the card against the numpy oracle (the ranks viewed as one
+             host's two shards, the second half padded); one epoch of
+             two-host ``fit`` at the full ``default`` preset, B = 32, under
+             ``pallas_fused``, with the songs on the card and on the host
+             (the same steps on both hosts and the same bits between the
+             feeds; rank 0 alone writes), and a resume where host 1 has no
+             checkpoint (``sync_resume``: the ranks the same bits after);
+             one ``mh:`` JSON line with the phase's seconds and each rank's
+             peak memory over the steps;
+18. parity — the U-Net at float32 on the card (cuDNN, TF32 off) against the
              same weights and input on the CPU, and one float32 ``fft``
              train step (B = 4, no dropout) on the card against the CPU.
 
@@ -294,6 +316,14 @@ CP_B, CP_REPS = 4, 3
 # world steps under
 CP_RANKS = ((2, "pallas_fused"), (4, "pallas_bf16"))
 CP_FRAMES, CP_ATOL = 3072, 3e-5
+# the mh phase: its hosts (of one rank each, on the one card), the local
+# batch and patches a song of its data check (the 3 songs split 2 and 1:
+# 6 and 3 patches, batches of 4 with a ragged tail on each host), the
+# rows and real rows of its remix check, and the remix's bound against
+# the float64 numpy oracle (magnitudes relative to the largest, angles in
+# radians modulo 2 pi): svs_tpu's rtol against its oracle
+MH_HOSTS, MH_LOCAL_BS, MH_SAMPLES = 2, 4, 3
+MH_AUG_ROWS, MH_AUG_REAL, MH_AUG_TOL = 8, 6, 1e-4
 
 
 def check(ok: bool, what: str) -> None:
@@ -749,7 +779,8 @@ def widened_phase(torch, np, cdm, cfl, sp) -> dict:
 def loss_kernel_phase(torch, np):
     """spectral_mag and loss_partials, forward and backward, against their
     plain versions at the train step's shapes, at the pp phase's
-    microbatch (B = 32 / 4), at the cp phase's whole batch (B = 4 of the
+    microbatch (B = 32 / 4), at a two-host step's rank (B = 32 / 2), at
+    the cp phase's whole batch (B = 4 of the
     fine_tune preset's 1536 frames) and at a ragged length; returns the
     JSON entries (timed at the train step's shapes)."""
     from svs_torch.ops.cuda import diff_mag as cdm
@@ -788,6 +819,7 @@ def loss_kernel_phase(torch, np):
     cfl.reset_counts()
     for b, t, label in ((TRAIN_B, TRAIN_T, "step"),
                         (TRAIN_B // PP_MICRO, TRAIN_T, "pp_microbatch"),
+                        (TRAIN_B // MH_HOSTS, TRAIN_T, "mh_rank"),
                         (CP_B, (fine.input_len - 1) * fine.hop_size, "cp"),
                         (3, 9_001, "ragged")):
         for n_fft, hop, win in RESOLUTIONS:
@@ -2326,6 +2358,135 @@ def cp_phase(torch, np, work: str, backend: str) -> dict:
     return dict(zip(LOSS_NAMES, total))
 
 
+def mh_phase(torch, np, work: str) -> dict:
+    """Multi-host training on the card (see the module's docstring): one
+    pool of MH_HOSTS hosts of one rank each; returns the loss kernels'
+    launches inside rank 0's two-host steps, each step's count zeroed
+    just before it and read just after."""
+    from svs_torch.data.dataset import PatchDataset
+    from svs_torch.parallel import dryrun
+    from svs_torch.parallel.launch import Ranks
+    from svs_torch.utils.config import get_config
+
+    spec = os.path.join(work, "spec")
+    ds = PatchDataset(spec, samples_per_song=64, input_len=128)
+    host = {k: np.asarray(v) for k, v in
+            next(iter(ds.batches(TRAIN_B, seed=11))).items()}
+    default = get_config("default")
+    cfg32 = dataclasses.replace(default, compute_dtype="float32")
+    line = {"smi": nvidia_smi_line(), "seconds": {}, "peak_mb": {}}
+    total = [0, 0, 0, 0]
+    t0 = time.perf_counter()
+
+    def lap(what):
+        nonlocal t0
+        line["seconds"][what] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    with Ranks(MH_HOSTS, device="cuda:0", backend="gloo", hosts=MH_HOSTS,
+               timeout=600) as ranks:
+        ranks.run(dryrun.no_tf32)
+        ranks.run(dryrun.deterministic)
+        lap("pool")
+        for impl in DP_PER_STEP:
+            cfg = dataclasses.replace(cfg32, mr_mag_impl=impl)
+            r = ranks.run(dryrun.mh_parity, cfg, host)[0]
+            print(f"mh {MH_HOSTS} hosts x 1 rank (gloo, one card) {impl}: "
+                  f"float32 default preset, B = {TRAIN_B}, host rows "
+                  f"{r['rows']} padded to {r['pad_to']}, against "
+                  f"make_train_step of the host-major batch: loss rel "
+                  f"{r['loss_rel']:.2e}, grad_norm rel "
+                  f"{r['grad_norm_rel']:.2e}, BN {r['bn_abs']:.2e}, params "
+                  f"max {r['params_max']:.2e} mean {r['params_mean']:.2e}, "
+                  f"max |d| {r['bits']:g}, rank spread {r['spread']:g}; "
+                  f"peak MB a rank {_mb(r['peak'])}; rank 0 launches "
+                  f"{r['kernels']}")
+            check(tuple(r["kernels"]) == DP_PER_STEP[impl],
+                  f"mh {impl}: the loss kernels launched inside rank 0's "
+                  "two-host step")
+            check(r["ok"] and r["spread"] == 0.0,
+                  f"mh {impl}: the two-host step within the dry-run "
+                  "envelope of make_train_step, the ranks the same bits")
+            total = [a + c for a, c in zip(total, r["kernels"])]
+            line[f"step_{impl}"] = r
+            line["peak_mb"][impl] = [v / 1e6 for v in r["peak"]]
+        lap("steps")
+
+        data_cfg = dataclasses.replace(default, samples_per_song=MH_SAMPLES)
+        for n_steps in (None, 2):
+            got = ranks.run(dryrun.mh_data_parity, spec, data_cfg,
+                            MH_LOCAL_BS, n_steps=n_steps)
+            print(f"mh data, {'wrapped' if n_steps else 'epoch'}: "
+                  "MultiHostDeviceDataset against global_batch_from_local "
+                  "of the host pipeline, by host: " + "; ".join(
+                      f"host {h}: {g['songs']} songs, rows {g['rows']}, "
+                      f"equal {g['equal']}" for h, g in enumerate(got)))
+            check(all(g["equal"] for g in got) and [g["songs"] for g in got]
+                  == [2, 1], "mh data: the device blocks are the host "
+                  "pipeline's bits on every host")
+            line[f"data_{'wrapped' if n_steps else 'epoch'}"] = got
+        aug = {k: v[:MH_AUG_ROWS].copy() for k, v in host.items()}
+        for v in aug.values():
+            v[MH_AUG_REAL:] = 0.0
+        got = ranks.run(dryrun.mh_augment_parity, aug, MH_AUG_REAL,
+                        hosts=1)
+        print("mh apply_sharded on the card, one host's two shards of "
+              f"{MH_AUG_ROWS // 2} rows, {MH_AUG_REAL} real, against the "
+              "numpy oracle: " + "; ".join(
+                  f"shard {i}: " + json.dumps(g) for i, g in enumerate(got)))
+        check(all(max(g["max_err"].values()) <= MH_AUG_TOL and g["in_step"]
+                  and g["pads_zero"] and g["untouched"] for g in got),
+              "mh apply_sharded: each shard the oracle's rows, the pads "
+              "zero, the generators in step")
+        line["augment"] = got
+        lap("data")
+
+        out = os.path.join(work, "mh_fit")
+        cfg = dataclasses.replace(default, samples_per_song=FIT_SAMPLES,
+                                  mr_mag_impl="pallas_fused")
+
+        def opts(label, **kw):
+            return dict(train_folder=spec, valid_folder=spec, label=label,
+                        batch_size=TRAIN_B, val_interval=1, progress=False,
+                        ckpt_dir=os.path.join(out, "CKPT"),
+                        log_dir=os.path.join(out, "LOG"),
+                        load_path=os.path.join(out, "none"), **kw)
+
+        steps = -(-N_SONGS * FIT_SAMPLES // TRAIN_B)
+        fits = {}
+        for feed in ("on", "off"):
+            fits[feed] = ranks.run(dryrun.mh_fit, opts(f"mh_{feed}", epoch=1,
+                                                       device_data=feed),
+                                   cfg)
+            log = _read_lines(os.path.join(out, "LOG", f"log_mh_{feed}.txt"))
+            print(f"mh fit, device_data {feed}: by host "
+                  f"{json.dumps(fits[feed])}; rank 0's log {json.dumps(log)}")
+            check([r["steps"] for r in fits[feed]] == [steps] * MH_HOSTS,
+                  f"mh fit {feed}: {steps} steps on every host")
+            check(len({r["digest"] for r in fits[feed]}) == 1,
+                  f"mh fit {feed}: the hosts hold the same bits")
+            check(len(log) == 2 and log[1].startswith("Val ")
+                  and all(math.isfinite(float(x.split()[-1])) for x in log),
+                  f"mh fit {feed}: one writer, one line an epoch and a "
+                  "validation")
+        check(fits["on"][0]["digest"] == fits["off"][0]["digest"],
+              "mh fit: the songs on the card give the host pipeline's bits")
+        lap("fit")
+        ckpt = os.path.join(out, "CKPT", "svs_mh_off.ckpt")
+        resumed = ranks.run(dryrun.mh_fit, opts("mh_off", epoch=2), cfg,
+                            load_paths=[ckpt, os.path.join(out, "none")])
+        print(f"mh resume, host 1 without the checkpoint: by host "
+              f"{json.dumps(resumed)}")
+        check([r["steps"] for r in resumed] == [2 * steps] * MH_HOSTS
+              and len({r["digest"] for r in resumed}) == 1,
+              "mh resume: sync_resume gives host 1 host 0's state, the "
+              "hosts the same bits after")
+        line["fit"] = {"steps": steps, "resumed": resumed}
+        lap("resume")
+    print("mh: " + json.dumps(line))
+    return dict(zip(LOSS_NAMES, total))
+
+
 def step_parity_phase(torch, np, host_batch) -> None:
     """One float32 fft step (B = 4, no dropout) on the card, TF32 off,
     against the same weights and batch on the CPU."""
@@ -3094,6 +3255,9 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         cp_counts = cp_phase(torch, np, work, backend)
         seconds["cp"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mh_counts = mh_phase(torch, np, work)
+        seconds["mh"] = time.perf_counter() - t0
     print("train phase launches: " + json.dumps(train_launches))
     # the loss kernels' launches on the paths that run them: fit under the
     # kernel loss paths (the fit phase's eager fit), and fit with
@@ -3136,6 +3300,11 @@ def main(argv=None) -> int:
             entry["cp_launches"] = cp_counts[entry["name"]]
             check(entry["cp_launches"] > 0,
                   f"{entry['name']} launched inside the CP steps")
+        if entry["name"] in mh_counts:
+            # rank 0's two-host steps' own count
+            entry["mh_launches"] = mh_counts[entry["name"]]
+            check(entry["mh_launches"] > 0,
+                  f"{entry['name']} launched inside the two-host steps")
 
     t0 = time.perf_counter()
     parity_phase(torch)

@@ -6,8 +6,9 @@ Flag surface preserved from reference train.py:157-167:
 and svs_tpu's extensions (--preset --seed --export_pth --ckpt_dir --log_dir
 --samples_per_song --dtype --remat --save_every --async_save --device_data
 --device_data_cap_mb --accum --augment --remix_p --aug_gain --epoch_scan
---val_sdr --val_sdr_songs --dp --zero1 --fsdp --cp --tp --pp --pp_micro
---pp_split), plus --device (default
+--val_sdr --val_sdr_songs --multihost --coordinator --num_hosts --host_id
+--dp --zero1 --fsdp --cp --tp --pp --pp_micro --pp_split), plus --device
+(default
 cuda; ``--device cpu`` runs on the host).  ``--epoch_scan`` replays a
 captured CUDA graph of the step for each epoch's full batches (it needs
 the dataset on the device).  ``--dp`` trains data-parallel over the ranks
@@ -32,9 +33,13 @@ svs_torch.cli.train_cli --tp K [--dp] ...``), n_data = N / K with
 both stages on the host with ``--device cpu``; ``--pp_micro`` microbatches
 a step (default 4, must divide --batch_size), the U split at encoder
 depth ``--pp_split`` (default 3); it goes with none of --dp --cp --tp
---zero1 --fsdp --accum --epoch_scan.  The multi-host flags (--multihost
---coordinator --num_hosts --host_id) and --epoch_scan with --dp exit 2
-with a message that names their ROADMAP item.
+--zero1 --fsdp --accum --epoch_scan.  ``--multihost`` trains over several
+hosts (``parallel.multihost``; with --dp, --dp --zero1/--fsdp, --tp or
+--cp): under ``torchrun --nnodes N`` a host is a node, read from its
+environment; ``--coordinator HOST:PORT --num_hosts N --host_id I`` (which
+implies ``--multihost``) makes this process host I of N, one rank a host,
+without torchrun.  --epoch_scan with --dp exits 2 with a message that
+names its ROADMAP item.
 
 Run as ``python -m svs_torch.cli.train_cli``.
 """
@@ -43,13 +48,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-
-# flag -> the ROADMAP item that ports it
-UNPORTED = {
-    "multihost": "A.10.7", "coordinator": "A.10.7", "num_hosts": "A.10.7",
-    "host_id": "A.10.7",
-}
-
+import os
 
 def tp_mesh_shape(world: int, k: int, dp: bool) -> int:
     """The data axis of ``--tp k`` over ``world`` ranks (svs_tpu
@@ -63,6 +62,48 @@ def tp_mesh_shape(world: int, k: int, dp: bool) -> int:
                          f"ranks, not {world}: pass --dp for a "
                          f"({world // k}, {k}) mesh")
     return n_data
+
+
+# torchrun's per-node environment, which --multihost reads the hosts from
+TORCHRUN_HOSTS = ("RANK", "WORLD_SIZE", "GROUP_RANK", "LOCAL_WORLD_SIZE")
+
+
+def _multihost_env(parser: argparse.ArgumentParser, args) -> None:
+    """svs_tpu's multi-host rules (train_cli.py:156-175) on torchrun's
+    environment: under torchrun the hosts are its nodes; ``--coordinator``
+    without it makes this process host ``--host_id`` of ``--num_hosts``,
+    one rank a host, by setting that environment before the mesh joins
+    the group."""
+    if args.coordinator is not None:
+        if args.num_hosts is None or args.host_id is None:
+            parser.error("--coordinator requires --num_hosts and --host_id")
+        if "RANK" in os.environ or "WORLD_SIZE" in os.environ:
+            parser.error("--coordinator makes one rank a host without "
+                         "torchrun; under torchrun the hosts come from its "
+                         "environment: pass --multihost alone")
+        addr, _, port = args.coordinator.rpartition(":")
+        if not addr or not port.isdigit():
+            parser.error(f"--coordinator wants HOST:PORT, got "
+                         f"{args.coordinator!r}")
+        if not 0 <= args.host_id < args.num_hosts:
+            parser.error(f"--host_id {args.host_id} is not one of "
+                         f"{args.num_hosts} hosts")
+        os.environ.update(
+            MASTER_ADDR=addr, MASTER_PORT=port, RANK=str(args.host_id),
+            WORLD_SIZE=str(args.num_hosts), LOCAL_WORLD_SIZE="1",
+            GROUP_RANK=str(args.host_id), LOCAL_RANK="0")
+    elif args.num_hosts is not None or args.host_id is not None:
+        # else dropped where the hosts come from torchrun
+        parser.error("--num_hosts/--host_id require --coordinator (without "
+                     "one, the hosts come from torchrun's environment)")
+    elif not all(k in os.environ for k in TORCHRUN_HOSTS):
+        parser.error("--multihost takes the hosts from torchrun's "
+                     "environment (" + ", ".join(TORCHRUN_HOSTS) + "): run "
+                     "under torchrun --nnodes N, or pass --coordinator "
+                     "HOST:PORT --num_hosts N --host_id I")
+    if not (args.dp or args.cp or args.tp is not None):
+        parser.error("multi-host training needs a mesh: pass --dp, --cp or "
+                     "--tp with it")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -85,13 +126,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--export_pth", action="store_true",
                    help="also write reference-loadable .pth checkpoints")
     p.add_argument("--multihost", action="store_true",
-                   help="not ported (ROADMAP A.10.7)")
+                   help="train over several hosts (parallel/multihost.py): "
+                        "under torchrun --nnodes N a host is a node, read "
+                        "from its environment; elsewhere pass --coordinator"
+                        "/--num_hosts/--host_id.  Composes with --dp, --dp "
+                        "--zero1/--fsdp, --tp and --cp")
     p.add_argument("--coordinator", type=str, default=None,
-                   metavar="HOST:PORT", help="not ported (ROADMAP A.10.7)")
-    p.add_argument("--num_hosts", type=int, default=None,
-                   help="not ported (ROADMAP A.10.7)")
-    p.add_argument("--host_id", type=int, default=None,
-                   help="not ported (ROADMAP A.10.7)")
+                   metavar="HOST:PORT",
+                   help="host 0's address for the process group, one rank "
+                        "a host without torchrun (implies --multihost; "
+                        "requires --num_hosts and --host_id)")
+    p.add_argument("--num_hosts", type=int, default=None)
+    p.add_argument("--host_id", type=int, default=None)
     p.add_argument("--dp", action="store_true",
                    help="data-parallel over the ranks of torchrun (world "
                         "size 1 without it): sync-BN, the gradient summed "
@@ -213,11 +259,9 @@ def main(argv=None) -> int:
     if (args.zero1 or args.fsdp) and args.epoch_scan:
         from svs_torch.train.loop import SCAN_REFUSAL
         parser.error(f"--epoch_scan with --zero1/--fsdp: {SCAN_REFUSAL}")
-    for flag, item in UNPORTED.items():
-        value = getattr(args, flag)
-        if value not in (None, False):
-            parser.error(f"--{flag} is not ported to svs_torch yet "
-                         f"(ROADMAP {item})")
+    if (args.multihost or args.coordinator is not None
+            or args.num_hosts is not None or args.host_id is not None):
+        _multihost_env(parser, args)
     if args.dp and args.epoch_scan:
         parser.error("--epoch_scan with --dp (a captured step over a mesh) "
                      "is not ported to svs_torch yet (ROADMAP A.10.2)")
@@ -261,6 +305,10 @@ def main(argv=None) -> int:
             parallel = "cp"
             if mesh.is_primary:
                 print(f"Context(time)-parallel over {mesh.size} devices")
+    if mesh is not None and (args.multihost or args.coordinator) \
+            and mesh.is_primary:
+        print(f"[svs-torch] multi-host: host {mesh.host}/{mesh.hosts}, "
+              f"{mesh.local_size} local of {mesh.size} ranks")
 
     cfg = get_config(args.preset)
     if args.samples_per_song is not None:

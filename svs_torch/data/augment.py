@@ -26,8 +26,11 @@ weight pad rows keep ``perm`` identity and unit gains, so they stay exactly
 zero.  Under a data mesh, or a 2-D mesh under TP, the loop remixes the
 global batch before each rank keeps its rows (its data row's under TP,
 ``train/loop.py``), so the partners cross the global batch as svs_tpu's
-``out_shardings`` variant's do (svs_tpu loop.py:537-539); the multi-host
-``apply_sharded`` waits for ROADMAP A.10.7.
+``out_shardings`` variant's do (svs_tpu loop.py:537-539).  Across hosts,
+the host pipeline remixes each host's real rows in numpy before they are
+padded and cut (``Augmenter(host=True)``), and the device-resident one
+remixes each rank's block (:meth:`Augmenter.apply_sharded`): svs_tpu's two
+multi-host modes (loop.py:505-524).
 """
 
 from __future__ import annotations
@@ -179,7 +182,48 @@ class Augmenter:
             self.gain_hi)
         if self.host:
             return apply_remix_np(batch, perm, g_voc, g_acc)
-        dev = batch["mix"].device
-        return apply_remix(batch, torch.from_numpy(perm).long().to(dev),
-                           torch.from_numpy(g_voc).to(dev),
-                           torch.from_numpy(g_acc).to(dev))
+        return _remix_on(batch, perm, g_voc, g_acc)
+
+    def apply_sharded(self, batch, n_real: Optional[int] = None, *,
+                      mesh):
+        """This rank's block of its host's padded batch (a
+        ``MultiHostDeviceDataset`` batch: tensors, ``q`` rows) remixed as
+        svs_tpu remixes the host's local shard of it (augment.py:262-330):
+        one draw a local shard, in row order, from the host's epoch
+        generator, a shard with no real row drawing nothing.  A rank is
+        one shard, the ``mesh.local_rank``-th of its host's
+        ``local_quota``: it makes every shard's draw, so that its
+        generator moves as the host's does, and keeps its own.
+        ``n_real``: the host's real rows (``None``: all); rows past it
+        keep identity and unit gains, so pad rows stay zero."""
+        from svs_torch.parallel import multihost
+
+        if self._rng is None:
+            raise RuntimeError("call for_epoch(seed) first")
+        shards = multihost.local_quota(mesh)
+        q = int(batch["mix"].shape[0])
+        local_rows = q * shards
+        if n_real is None:
+            n_real = local_rows
+        if not (0 < n_real <= local_rows):
+            raise ValueError(f"n_real must be in (0, local_rows="
+                             f"{local_rows}], got {n_real}")
+        mine = multihost.data_mesh(mesh).local_rank
+        out = batch
+        for i in range(shards):
+            n_i = min(q, max(0, n_real - i * q))
+            if n_i == 0:
+                break  # this shard and those after it: identity, no draw
+            draws = draw_vectors(self._rng, n_i, q, self.remix_p,
+                                 self.gain_lo, self.gain_hi)
+            if i == mine:
+                out = _remix_on(batch, *draws)
+        return out
+
+
+def _remix_on(batch, perm, g_voc, g_acc):
+    """:func:`apply_remix` of the host's draws on the batch's device."""
+    dev = batch["mix"].device
+    return apply_remix(batch, torch.from_numpy(perm).long().to(dev),
+                       torch.from_numpy(g_voc).to(dev),
+                       torch.from_numpy(g_acc).to(dev))

@@ -36,8 +36,14 @@ epoch's batches.
 (``parallel.halo.shard_batch_time``): each rank gathers only its time
 block of every crop, all the batch's rows, with an all-ones ``weight``.
 The remix is row-local and elementwise in time, so the loop may remix the
-blocks: the block of the remixed batch.  svs_tpu's
-``MultiHostDeviceDataset`` (ROADMAP A.10.7) is not ported yet.
+blocks: the block of the remixed batch.
+
+:class:`MultiHostDeviceDataset` is the multi-host form (a mesh of more than
+one host): each rank holds its host's song shard on its own device (as
+svs_tpu holds it on each of a host's devices: the same bytes a device),
+walks the host's index stream and gathers only its own block of the
+host's padded batch, which is ``parallel.multihost.global_batch_from_local``
+of the host pipeline's batch, bit for bit.
 """
 
 from __future__ import annotations
@@ -160,6 +166,57 @@ class DeviceDataset:
                 batch_size, shuffle=shuffle, seed=seed,
                 drop_last=drop_last, n_steps=n_steps):
             yield self.gather(np.asarray(idxs) % n_songs, starts)
+
+
+class MultiHostDeviceDataset(DeviceDataset):
+    """Device-resident training data of a multi-host DP job (svs_tpu
+    device_data.py:263-369).
+
+    ``host``: this host's :class:`PatchDataset` (its songs already
+    ``multihost.process_shard``-ed), packed onto this rank's device;
+    ``mesh``: the data mesh of more than one host; ``pad_to``: the rows
+    every host pads its batch to (a multiple of ``local_quota``).
+    ``batches`` walks the host's index stream; each batch is this rank's
+    ``q = pad_to / local_quota`` rows of the host's batch padded with zero
+    rows: the real rows gathered on the device, the pad rows zeros, with
+    the 0/1 ``weight``.  Per step the host moves two (q,) index vectors to
+    the device; no collective touches the data."""
+
+    def __init__(self, host: PatchDataset, mesh, pad_to: int):
+        from svs_torch.parallel import multihost
+
+        lq = multihost.local_quota(mesh)
+        if pad_to % lq:
+            raise ValueError(f"pad_to={pad_to} not a multiple of this "
+                             f"host's data-axis quota {lq}")
+        super().__init__(host, multihost.data_mesh(mesh))
+        self.pad_to = int(pad_to)
+        self.quota = self.pad_to // lq
+        # every rank holds its host's whole shard
+        self.nbytes_per_device = self.nbytes
+
+    def gather(self, songs: np.ndarray, starts: np.ndarray
+               ) -> Dict[str, torch.Tensor]:
+        """This rank's rows of the host batch at explicit (song, start)
+        indices (its real rows, then zero rows to ``quota``), with the
+        0/1 ``weight``."""
+        if len(songs) > self.pad_to:
+            raise ValueError(f"local batch {len(songs)} > pad_to "
+                             f"{self.pad_to}")
+        q, lo = self.quota, self.mesh.local_rank * self.quota
+        idx = np.asarray(songs, np.int64)[lo:lo + q]
+        n = len(idx)
+        out = gather_crops(
+            self.planes, torch.from_numpy(idx).to(self.device),
+            torch.from_numpy(np.asarray(starts, np.int64)[lo:lo + q]).to(
+                self.device), self.input_len)
+        if n < q:
+            out = {k: torch.cat([v, v.new_zeros((q - n,) + v.shape[1:])])
+                   for k, v in out.items()}
+        weight = torch.zeros(q, device=self.device)
+        weight[:n] = 1.0
+        out["weight"] = weight
+        return out
 
 
 def _pack_planes(host: PatchDataset) -> Dict[str, np.ndarray]:

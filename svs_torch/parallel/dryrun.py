@@ -35,6 +35,16 @@ dropout 0.5, one patch a rank):
   input_len`` frames): ``64 * n`` itself, ``dryrun_multichip``'s, at
   ``n = 8``.
 
+- multi-host (:mod:`~svs_torch.parallel.multihost`), where ``n`` is even:
+  the pool's ranks as 2 hosts of ``n / 2``, each host's local batch its
+  ``ceil((n + 1) / 2)``-row share of a global batch of ``n + 1`` patches,
+  each rank's block of it from ``global_batch_from_local`` (the last host's
+  batch padded with zero rows and weight); one DP step on those blocks held
+  on rank 0 against the unsharded step of the host-major padded global
+  batch with its ``weight``, under :data:`ENVELOPE`, every rank's state
+  rank 0's bits (:func:`mh_parity`; svs_tpu's
+  ``test_two_process_step_matches_single_device``).
+
 Then, where ``n >= 2`` (``dryrun_multichip``'s guard), in the calling
 process and not in the pool: the ``n_micro = 1`` PP step
 (:mod:`~svs_torch.parallel.pp`) on two stage devices (``("cpu", "cpu")``)
@@ -48,9 +58,11 @@ ported yet.
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import math
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,7 +71,7 @@ import torch.distributed as dist
 from svs_torch.losses.mrstft import combined_loss
 from svs_torch.parallel import dp
 from svs_torch.parallel import mesh as mesh_lib
-from svs_torch.parallel import halo, pp, tp, zero
+from svs_torch.parallel import halo, multihost, pp, tp, zero
 from svs_torch.train import step as tstep
 from svs_torch.utils.config import SVSConfig
 
@@ -71,8 +83,8 @@ from svs_torch.utils.config import SVSConfig
 ENVELOPE = {"loss": 1e-5, "grad_norm": 1e-3, "bn": 1e-4, "params_max_lr": 2.1,
             "params_mean": 2e-4}
 # the layouts this dry run checks, and svs_tpu's that it does not yet
-CHECKED = ("dp", "sp", "zero1", "fsdp", "tp", "pp", "cp")
-NOT_PORTED = ("multihost",)
+CHECKED = ("dp", "sp", "zero1", "fsdp", "tp", "pp", "cp", "multihost")
+NOT_PORTED = ()
 # the training layouts of one data mesh
 LAYOUTS = ("dp", "zero1", "fsdp")
 # the SP decode's atol against the unsharded one (tests/test_infer_mesh.py)
@@ -80,6 +92,8 @@ SP_ATOL = 2e-5
 # the whole-song CP decode's atol against the unsharded whole decode
 # (tests/test_infer_mesh.py, __graft_entry__.dryrun_multichip)
 CP_ATOL = 3e-5
+# the epoch seed of the multi-host data and remix checks
+MH_SEED = 11
 
 
 def dry_batch(b: int, frames: int = 64) -> Dict[str, np.ndarray]:
@@ -200,16 +214,6 @@ def layout_state(kind: str, cfg: SVSConfig, mesh: mesh_lib.Mesh,
             zero.make_zero1_train_step(mesh, cfg, fsdp=fsdp))
 
 
-def _per_rank(value: float, mesh: mesh_lib.Mesh) -> list:
-    """Every rank's ``value``, in rank order."""
-    if not mesh_lib.crosses(mesh):
-        return [value]
-    t = torch.zeros(mesh.size, dtype=torch.float64)
-    t[mesh.rank] = value
-    dist.all_reduce(t, group=mesh.host_group or mesh.group)
-    return t.tolist()
-
-
 def _max_diff(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]
               ) -> float:
     """The largest |difference| between two dicts of tensors (0.0: the
@@ -309,8 +313,10 @@ def layout_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig,
         out[kind] = {
             "spread": _spread(snap.state_dict, mesh),
             "shards_ok": _shards_ok(state, snap),
-            "bytes": _per_rank(zero.state_bytes(state), mesh),
-            "peak": _per_rank(peak, mesh), "kernels": list(kernels),
+            "bytes": multihost.per_rank([zero.state_bytes(state)],
+                                        mesh).ravel().tolist(),
+            "peak": multihost.per_rank([peak], mesh).ravel().tolist(),
+            "kernels": list(kernels),
             "enc4": [list(state.model.state_dict()[w].shape),
                      list(state.optimizer.state[mu]["exp_avg"].shape)]}
         del state, step
@@ -332,7 +338,8 @@ def layout_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig,
             if kind == "ref":
                 ref_ms.append(ms)
             else:
-                out[kind].setdefault("ms", []).append(_per_rank(ms, mesh))
+                out[kind].setdefault("ms", []).append(
+                    multihost.per_rank([ms], mesh).ravel().tolist())
         del runs
         for kind in layouts:
             out[kind]["ref_ms"] = ref_ms
@@ -511,8 +518,9 @@ def cp_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig,
     cfl.reset_counts()
     state, metrics = step(state, local, torch.Generator(dev).manual_seed(1))
     kernels = list(_loss_kernel_counts())
-    peak = _per_rank(torch.cuda.max_memory_allocated(dev) if cuda else 0,
-                     mesh)
+    peak = multihost.per_rank(
+        [torch.cuda.max_memory_allocated(dev) if cuda else 0],
+        mesh).ravel().tolist()
     sd = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
     spread = _spread(sd, mesh)
     if not mesh.is_primary:
@@ -587,7 +595,8 @@ def cp_decode_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig, mag: np.ndarray,
     out = {}
     if reps and dev.type == "cuda":
         ms, peak = timed(cp)
-        out.update(ms=_per_rank(ms, mesh), peak=_per_rank(peak, mesh))
+        out.update(ms=multihost.per_rank([ms], mesh).ravel().tolist(),
+                   peak=multihost.per_rank([peak], mesh).ravel().tolist())
     if not mesh.is_primary:
         return None
     if reps and dev.type == "cuda":
@@ -595,6 +604,205 @@ def cp_decode_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig, mag: np.ndarray,
     out["max_abs_err"] = float(np.abs(got - one()).max())
     out["padded_err"] = float(np.abs(got - padded()).max())
     return out
+
+
+def as_hosts(mesh: mesh_lib.Mesh, hosts: int) -> mesh_lib.Mesh:
+    """``mesh``'s ranks viewed as ``hosts`` hosts of consecutive ranks (the
+    same process group): one pool checks the multi-host layer."""
+    if mesh.size % hosts:
+        raise ValueError(f"{mesh.size} ranks do not split into {hosts} "
+                         "hosts")
+    return dataclasses.replace(mesh, hosts=hosts)
+
+
+def host_batches(batch: Dict[str, np.ndarray], hosts: int
+                 ) -> Tuple[List[Dict[str, np.ndarray]], int]:
+    """A global batch cut into ``hosts`` local batches of ``local_bs =
+    ceil(B / hosts)`` rows each (the last with the rows that are left),
+    and ``local_bs``."""
+    b = len(next(iter(batch.values())))
+    local = -(-b // hosts)
+    return [{k: v[h * local:(h + 1) * local] for k, v in batch.items()}
+            for h in range(hosts)], local
+
+
+def host_major(locals_: List[Dict[str, np.ndarray]], pad_to: int
+               ) -> Dict[str, np.ndarray]:
+    """The global batch of several hosts' local batches: each padded to
+    ``pad_to`` rows with zero rows, host after host, with the 0/1
+    ``weight`` (svs_tpu's ``global_batch_from_local`` across processes)."""
+    out = {k: [] for k in locals_[0]}
+    out["weight"] = []
+    for b in locals_:
+        n = len(next(iter(b.values())))
+        for k, v in b.items():
+            out[k].append(np.concatenate(
+                [v, np.zeros((pad_to - n,) + v.shape[1:], v.dtype)]))
+        out["weight"].append(np.concatenate(
+            [np.ones(n, np.float32), np.zeros(pad_to - n, np.float32)]))
+    return {k: np.concatenate(v) for k, v in out.items()}
+
+
+def state_digest(state) -> str:
+    """SHA-256 of a state's full state dict (gathered where sharded), in
+    one order on every rank: two states of the same bits have one
+    digest."""
+    snap = zero.unshard_state(state)
+    h = hashlib.sha256()
+    for k in sorted(snap.state_dict):
+        h.update(k.encode())
+        h.update(snap.state_dict[k].detach().cpu().contiguous().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def mh_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig,
+              batch: Dict[str, np.ndarray]) -> Optional[Dict[str, object]]:
+    """One DP step over several hosts: ``mesh`` (of one host, viewed as 2
+    by :func:`as_hosts`), each host's share of the global host ``batch``
+    (:func:`host_batches`) cut into its ranks' blocks by
+    ``multihost.global_batch_from_local`` at the loop's ``pad_to``, from
+    the state of seed 0 and the dropout seed 1.  Returns on rank 0 the
+    :func:`envelope` of the step against ``make_train_step`` of the
+    host-major padded global batch (:func:`host_major`) from the same
+    state and generator, ``bits`` (the largest |difference| of the
+    metrics and the state dicts), ``spread`` (of the state over the
+    ranks), ``kernels`` (the loss kernels' launches in the step on rank
+    0), ``peak`` (each rank's ``torch.cuda.max_memory_allocated`` over the
+    step, on a CUDA mesh), ``rows`` (the hosts' real rows) and
+    ``pad_to``; None elsewhere."""
+    from svs_torch.ops.cuda import diff_mag as cdm
+    from svs_torch.ops.cuda import fused_loss as cfl
+
+    mesh = mesh if mesh.hosts > 1 else as_hosts(mesh, 2)
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    locals_, local_bs = host_batches(batch, mesh.hosts)
+    pad_to = multihost.pad_rows(local_bs, mesh)
+    state = dp.replicate_state(tstep.create_train_state(0, cfg, device=dev),
+                               mesh)
+    step = dp.make_dp_train_step(mesh, cfg)
+    inp = multihost.global_batch_from_local(mesh, locals_[mesh.host],
+                                            pad_to)
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    cdm.reset_counts()
+    cfl.reset_counts()
+    state, metrics = step(state, inp, torch.Generator(dev).manual_seed(1))
+    kernels = list(_loss_kernel_counts())
+    peak = multihost.per_rank(
+        [torch.cuda.max_memory_allocated(dev) if cuda else 0],
+        mesh).ravel().tolist()
+    sd = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    spread = _spread(sd, mesh)
+    if not mesh.is_primary:
+        return None
+    ref_state, ref = tstep.make_train_step(cfg)(
+        tstep.create_train_state(0, cfg, device=dev),
+        tstep.batch_to_device(host_major(locals_, pad_to), dev),
+        torch.Generator(dev).manual_seed(1))
+    metrics = {k: v.cpu() for k, v in metrics.items()}
+    out = envelope(metrics, sd, ref, ref_state, cfg.learning_rate)
+    out["bits"] = max(_max_diff(metrics, {k: v.cpu() for k, v in
+                                          ref.items()}),
+                      _max_diff(sd, {k: v.cpu() for k, v in
+                                     ref_state.model.state_dict().items()}))
+    out.update(spread=spread, kernels=kernels, peak=peak, pad_to=pad_to,
+               rows=[len(b["mix"]) for b in locals_])
+    return out
+
+
+def mh_data_parity(mesh: mesh_lib.Mesh, folder: str, cfg: SVSConfig,
+                   local_bs: int, n_steps: Optional[int] = None
+                   ) -> Dict[str, object]:
+    """``MultiHostDeviceDataset`` against the host pipeline on this rank:
+    the host's round-robin share of ``folder``'s songs, its index stream
+    at ``local_bs`` and the seed ``MH_SEED`` (``n_steps`` full batches,
+    or the epoch with its ragged tail), and each batch's block against
+    ``multihost.global_batch_from_local`` of the host's numpy batch.
+    Returns ``equal`` (every plane and ``weight`` the same bits),
+    ``batches`` and ``rows`` (the host batches' real rows)."""
+    from svs_torch.data.dataset import PatchDataset
+    from svs_torch.data.device_data import MultiHostDeviceDataset
+
+    ds = PatchDataset(folder, samples_per_song=cfg.samples_per_song,
+                      input_len=cfg.input_len)
+    multihost.shard_songs(ds, mesh.host, mesh.hosts)
+    pad_to = multihost.pad_rows(local_bs, mesh)
+    feed = MultiHostDeviceDataset(ds, mesh, pad_to)
+    equal, rows = True, []
+    for h, d in zip(ds.batches(local_bs, seed=MH_SEED, n_steps=n_steps),
+                    feed.batches(local_bs, seed=MH_SEED, n_steps=n_steps)):
+        want = multihost.global_batch_from_local(mesh, h, pad_to)
+        equal = equal and sorted(d) == sorted(want) and all(
+            torch.equal(d[k], want[k]) for k in want)
+        rows.append(len(h["mix"]))
+    return {"equal": equal, "batches": len(rows), "rows": rows,
+            "songs": ds.n_songs}
+
+
+def mh_augment_parity(mesh: mesh_lib.Mesh, batch: Dict[str, np.ndarray],
+                      n_real: int, hosts: int = 1) -> Dict[str, float]:
+    """``Augmenter.apply_sharded`` on this rank's block of its host's
+    padded ``batch`` (the same on every host; ``mesh`` viewed as
+    ``hosts`` hosts) at the epoch seed ``MH_SEED`` against the numpy
+    oracle: the host generator replayed
+    shard by shard in row order, a shard without real rows drawing
+    nothing (svs_tpu's ``apply_sharded``).  Returns ``max_err`` by plane
+    (a magnitude's largest |difference| over the oracle's largest |value|,
+    an angle's largest |difference| modulo 2 pi, in radians: float32 and
+    the oracle's float64 may take a sum that is ~0 to either side of the
+    branch cut), ``pads_zero`` (the pad rows exactly zero), ``untouched``
+    (a block without real rows returned as given) and ``in_step`` (the
+    generators at one point after)."""
+    from svs_torch.data.augment import (Augmenter, apply_remix_np,
+                                        draw_vectors)
+
+    mesh = as_hosts(mesh, hosts)
+    q = len(batch["mix"]) // mesh.local_size
+    lo = mesh.local_rank * q
+    block = {k: torch.from_numpy(np.ascontiguousarray(v[lo:lo + q])).to(
+        mesh.device) for k, v in batch.items()}
+    aug = Augmenter(remix_p=0.8).for_epoch(MH_SEED)
+    got = aug.apply_sharded(block, n_real, mesh=mesh)
+    rng = np.random.default_rng(MH_SEED * 1_000_003 + 17)
+    want = {k: v[lo:lo + q] for k, v in batch.items()}
+    for i in range(mesh.local_size):
+        n_i = min(q, max(0, n_real - i * q))
+        if n_i == 0:
+            break
+        draws = draw_vectors(rng, n_i, q, 0.8, 0.25, 1.25)
+        if i == mesh.local_rank:
+            want = apply_remix_np(want, *draws)
+    def err(k):
+        d = got[k].cpu().numpy().astype(np.float64) - want[k]
+        if k.endswith("angle"):
+            return float(np.abs((d + np.pi) % (2 * np.pi) - np.pi).max())
+        return float(np.abs(d).max()
+                     / max(float(np.abs(want[k]).max()), 1e-30))
+
+    planes = ("mix", "mix_angle", "voc", "voc_angle")
+    real = min(q, max(0, n_real - lo))
+    return {
+        "max_err": {k: err(k) for k in planes},
+        "pads_zero": all(not got[k][real:].any() for k in planes),
+        "untouched": real > 0 or got is block,
+        "in_step": bool(aug._rng.uniform() == rng.uniform())}
+
+
+def mh_fit(mesh: mesh_lib.Mesh, opts_kw: Dict, cfg: SVSConfig,
+           load_paths: Optional[List[str]] = None) -> Dict[str, object]:
+    """``fit`` over ``mesh`` (``TrainOptions(mesh=mesh, **opts_kw)``;
+    ``load_paths``: each host's ``load_path``): this rank's host, step
+    count and :func:`state_digest` after it."""
+    from svs_torch.train import loop
+
+    if load_paths is not None:
+        opts_kw = dict(opts_kw, load_path=load_paths[mesh.host])
+    state = loop.fit(loop.TrainOptions(mesh=mesh, **opts_kw), cfg)
+    return {"host": mesh.host, "steps": state.step,
+            "digest": state_digest(state)}
 
 
 def sharded_layouts(n: int) -> tuple:
@@ -631,10 +839,15 @@ def dp_smoke_rank(mesh: mesh_lib.Mesh) -> Optional[Dict[str, object]]:
     song = np.random.default_rng(5).random(
         (513, math.lcm(frames, 8 * cfg.input_len)), np.float32)
     cp_decode = cp_decode_parity(mesh, cfg, song)
+    mh = (mh_parity(mesh, cfg, dry_batch(mesh.size + 1))
+          if mesh.size % 2 == 0 else None)
     if not mesh.is_primary:
         return None
-    return dict(step, sp=sp, cp=cp_step,
-                cp_decode=dict(cp_decode, frames=song.shape[1]))
+    out = dict(step, sp=sp, cp=cp_step,
+               cp_decode=dict(cp_decode, frames=song.shape[1]))
+    if mh is not None:
+        out["multihost"] = mh
+    return out
 
 
 def dp_smoke(devices: int = 8, timeout: float = 1200.0) -> Dict[str, object]:
@@ -669,6 +882,17 @@ def dp_smoke(devices: int = 8, timeout: float = 1200.0) -> Dict[str, object]:
                     "64 a rank); cp decode == unsharded whole decode "
                     f"(max {cp_decode['max_abs_err']:.2e}, "
                     f"{cp_decode['frames']} frames)")
+                continue
+            if kind == "multihost":
+                ok = ok and step["ok"] and step["spread"] == 0.0
+                parts.append(
+                    f"multihost == unsharded step of the host-major padded "
+                    f"batch (loss rel {step['loss_rel']:.2e}, grad_norm rel "
+                    f"{step['grad_norm_rel']:.2e}, bn {step['bn_abs']:.2e}, "
+                    f"params max {step['params_max']:.2e} mean "
+                    f"{step['params_mean']:.2e}; rank spread "
+                    f"{step['spread']:g}; 2 hosts of {devices // 2} ranks, "
+                    f"host rows {step['rows']} padded to {step['pad_to']})")
                 continue
             if kind == "pp":
                 ok = ok and step["ok"]
@@ -707,6 +931,8 @@ def dp_smoke(devices: int = 8, timeout: float = 1200.0) -> Dict[str, object]:
                      "even count of devices >= 4)")
                   + ("" if "pp" in res else "; ['pp'] skipped (needs "
                      "devices >= 2)")
+                  + ("" if "multihost" in res else "; ['multihost'] "
+                     "skipped (needs an even count of devices >= 2)")
                   + f"; not ported: {list(NOT_PORTED)}")
     except Exception as e:  # the line reports the failure
         ok, detail = False, f"{type(e).__name__}: {str(e)[-2000:]}"

@@ -6,10 +6,13 @@ rank of one process group, which run functions on request.
 
 Each rank is a one-worker ``ProcessPoolExecutor`` of the ``spawn`` context
 whose initializer sets ``torchrun``'s environment (``RANK``,
-``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), so the
-``mesh.make_mesh`` of its first call joins the pool's group as a
-``torchrun`` rank's would.  ``run(fn, ...)`` calls ``fn(mesh, *args,
-**kwargs)`` on every rank; ``fn`` is a module-level function, and its
+``WORLD_SIZE``, ``LOCAL_RANK``, ``GROUP_RANK``, ``LOCAL_WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT``), so the ``mesh.make_mesh`` of its first
+call joins the pool's group as a ``torchrun`` rank's would.  ``hosts``
+cuts the pool into that many hosts of consecutive ranks, as ``torchrun
+--nnodes`` would (``Ranks(4, hosts=2)``: two hosts of two ranks).
+``run(fn, ...)`` calls ``fn(mesh, *args, **kwargs)`` on every rank;
+``fn`` is a module-level function, and its
 arguments and values are pickled (return numpy arrays or CPU tensors).  A
 spawned worker imports the function's module and the caller's main script
 (without running its ``__main__`` block), never the caller's other
@@ -67,14 +70,21 @@ class Ranks:
     ``cuda`` for ``cuda:LOCAL_RANK``, or one card such as ``cuda:0`` for
     every rank) over ``backend`` (NCCL on CUDA and gloo on the CPU unless
     given), each with one intra-op thread (``OMP_NUM_THREADS=1``: the
-    ranks share the host's cores).  ``timeout``: seconds that one call may
-    take."""
+    ranks share the host's cores), cut into ``hosts`` hosts of ``size //
+    hosts`` consecutive ranks each (``torchrun``'s nodes: ``GROUP_RANK``,
+    ``LOCAL_WORLD_SIZE`` and ``LOCAL_RANK`` per rank).  ``timeout``:
+    seconds that one call may take."""
 
     def __init__(self, size: int, *, device: str = "cpu",
-                 backend: Optional[str] = None, timeout: float = 600.0):
+                 backend: Optional[str] = None, timeout: float = 600.0,
+                 hosts: int = 1):
         if size < 1:
             raise ValueError(f"a pool needs at least one rank, got {size}")
+        if hosts < 1 or size % hosts:
+            raise ValueError(f"{size} ranks do not split into {hosts} hosts "
+                             "of one size")
         self.size = size
+        self.hosts = hosts
         self.device = device
         self.backend = backend
         self.timeout = timeout
@@ -83,10 +93,13 @@ class Ranks:
     def _start(self) -> None:
         env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
                    WORLD_SIZE=str(self.size), OMP_NUM_THREADS="1")
+        local = self.size // self.hosts
+        env["LOCAL_WORLD_SIZE"] = str(local)
         spawn = multiprocessing.get_context("spawn")
         self._pools = [cf.ProcessPoolExecutor(
             1, mp_context=spawn, initializer=_init_rank,
-            initargs=(dict(env, RANK=str(r), LOCAL_RANK=str(r)), self.device,
+            initargs=(dict(env, RANK=str(r), LOCAL_RANK=str(r % local),
+                           GROUP_RANK=str(r // local)), self.device,
                       self.backend)) for r in range(self.size)]
 
     def close(self, kill: bool = False) -> None:

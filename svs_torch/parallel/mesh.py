@@ -7,9 +7,11 @@ from the sharding annotations.  Here the mesh is one process per device in
 a process group, and each reduction over the batch axis is written out:
 
 - :class:`Mesh` is one rank's view of the group: the process group, the
-  rank, the size, this rank's device and the axis name;
+  rank, the size, this rank's device, the axis name and the hosts (the
+  ``torchrun`` nodes, each a run of consecutive ranks of one size);
 - :func:`make_mesh` joins ``torchrun``'s group (``RANK``, ``WORLD_SIZE``,
-  ``LOCAL_RANK``, ``MASTER_ADDR``), or makes a world of one;
+  ``LOCAL_RANK``, ``MASTER_ADDR``; the hosts from ``GROUP_RANK`` and
+  ``LOCAL_WORLD_SIZE``), or makes a world of one;
   :func:`make_2d_mesh` views that group as a ``(data, model)`` mesh whose
   rows and columns are 1-D meshes of their own (:class:`Mesh2D`, for
   tensor parallelism);
@@ -63,6 +65,24 @@ class Mesh:
     backend: str = "gloo"
     # a gloo group for host-side flags where the group is NCCL's
     host_group: Optional[object] = None
+    # the hosts (svs_tpu's processes): runs of size // hosts consecutive
+    # ranks, host h holding ranks h * local_size .. (h + 1) * local_size - 1
+    hosts: int = 1
+
+    @property
+    def local_size(self) -> int:
+        """The ranks of one host (svs_tpu's local devices)."""
+        return self.size // self.hosts
+
+    @property
+    def host(self) -> int:
+        """This rank's host (svs_tpu's ``process_index``)."""
+        return self.rank // self.local_size
+
+    @property
+    def local_rank(self) -> int:
+        """This rank's place among its host's ranks."""
+        return self.rank % self.local_size
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -100,6 +120,32 @@ def _torchrun() -> bool:
     return "RANK" in os.environ and "WORLD_SIZE" in os.environ
 
 
+def _host_layout(rank: int, size: int, group) -> int:
+    """The hosts of the default group: ``torchrun``'s nodes, from its
+    ``GROUP_RANK``, ``LOCAL_WORLD_SIZE`` and ``LOCAL_RANK`` (one host
+    without them).  Checked once across the group with one all-reduce
+    (the collective that gloo ranks sharing a card run): the ranks must be
+    host-major, ``RANK == GROUP_RANK * LOCAL_WORLD_SIZE + LOCAL_RANK``,
+    every host of one size; any other layout is refused on every rank."""
+    env = os.environ if _torchrun() else {}
+    local = int(env.get("LOCAL_WORLD_SIZE", size))
+    host = int(env.get("GROUP_RANK", 0))
+    local_rank = int(env.get("LOCAL_RANK", rank - host * local))
+    bad = int(local < 1 or not 0 <= local_rank < local
+              or rank != host * local + local_rank)
+    t = torch.tensor([local, -local, bad], dtype=torch.int64)
+    if size > 1:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    if int(t[0]) != -int(t[1]) or int(t[2]) or size % local:
+        raise ValueError(
+            "the ranks must be host-major, RANK == GROUP_RANK * "
+            "LOCAL_WORLD_SIZE + LOCAL_RANK, every host of one size: rank "
+            f"{rank} of {size} has GROUP_RANK {host}, LOCAL_WORLD_SIZE "
+            f"{local}, LOCAL_RANK {local_rank}, and the hosts' sizes run "
+            f"from {-int(t[1])} to {int(t[0])}")
+    return size // local
+
+
 def world_size() -> int:
     """The ranks of the process group :func:`make_mesh` joins or makes,
     known before it does: the group's, ``torchrun``'s, or one."""
@@ -113,10 +159,11 @@ def make_mesh(n_devices: Optional[int] = None, axis_name: str = "data", *,
               backend: Optional[str] = None) -> Mesh:
     """The mesh of every rank of the default process group, joined or made
     here: under ``torchrun``'s environment the group it names (``env://``),
-    else a world of one.  ``device``: ``cuda`` (this rank's card, from
-    ``LOCAL_RANK``) unless the caller asks for the CPU; ``backend``: NCCL
-    on CUDA and gloo on the CPU unless asked otherwise.  ``n_devices``, if
-    given, must be the group's size."""
+    its hosts from ``GROUP_RANK`` and ``LOCAL_WORLD_SIZE``
+    (:func:`_host_layout`), else a world of one.  ``device``: ``cuda``
+    (this rank's card, from ``LOCAL_RANK``) unless the caller asks for the
+    CPU; ``backend``: NCCL on CUDA and gloo on the CPU unless asked
+    otherwise.  ``n_devices``, if given, must be the group's size."""
     dev = _local_device(resolve_device(device))
     if not dist.is_initialized():
         backend = backend or _default_backend(dev)
@@ -142,7 +189,9 @@ def make_mesh(n_devices: Optional[int] = None, axis_name: str = "data", *,
         if key not in _host_groups:
             _host_groups[key] = dist.new_group(backend="gloo")
         host = _host_groups[key]
-    return Mesh(dist.group.WORLD, rank, size, dev, axis_name, have, host)
+    hosts = _host_layout(rank, size, host or dist.group.WORLD)
+    return Mesh(dist.group.WORLD, rank, size, dev, axis_name, have, host,
+                hosts)
 
 
 @dataclasses.dataclass
@@ -151,21 +200,29 @@ class Mesh2D(Mesh):
     ``tp.make_2d_mesh``): as a :class:`Mesh`, the whole world (its
     flags, files and broadcasts); ``data`` and ``model``, the 1-D meshes
     of this rank's column and row, which the collectives take.  Global
-    rank ``d * n_model + m`` is data row ``d``, model rank ``m``."""
+    rank ``d * n_model + m`` is data row ``d``, model rank ``m``.  The data
+    mesh has the world's hosts where every model group lies within one
+    host (``model_crosses_hosts`` false)."""
     data: Optional[Mesh] = None
     model: Optional[Mesh] = None
+
+    @property
+    def model_crosses_hosts(self) -> bool:
+        """Whether a model group spans two hosts."""
+        return self.local_size % self.model.size != 0
 
     @property
     def shape(self) -> Dict[str, int]:
         return {"data": self.data.size, "model": self.model.size}
 
 
-def _sub_mesh(world: Mesh, groups: List[List[int]], axis_name: str
-              ) -> Mesh:
+def _sub_mesh(world: Mesh, groups: List[List[int]], axis_name: str,
+              hosts: int = 1) -> Mesh:
     """This rank's 1-D mesh among ``groups`` (disjoint lists of global
-    ranks that cover the world): every rank makes every group, in one
-    order, as ``dist.new_group`` needs; a group of the whole world is the
-    world's, and one of a single rank crosses nothing and needs none."""
+    ranks that cover the world), of ``hosts`` hosts: every rank makes
+    every group, in one order, as ``dist.new_group`` needs; a group of the
+    whole world is the world's, and one of a single rank crosses nothing
+    and needs none."""
     mine = next(g for g in groups if world.rank in g)
     if len(mine) == world.size:
         group = world.group
@@ -175,7 +232,7 @@ def _sub_mesh(world: Mesh, groups: List[List[int]], axis_name: str
         made = [dist.new_group(g) for g in groups]
         group = made[groups.index(mine)]
     return Mesh(group, mine.index(world.rank), len(mine), world.device,
-                axis_name, world.backend)
+                axis_name, world.backend, hosts=hosts)
 
 
 def make_2d_mesh(n_data: int, n_model: int, *, device: DeviceLike = None,
@@ -196,9 +253,13 @@ def make_2d_mesh(n_data: int, n_model: int, *, device: DeviceLike = None,
                          f"{world.size}")
     rows = [[d * n_model + m for m in range(n_model)] for d in range(n_data)]
     cols = [[d * n_model + m for d in range(n_data)] for m in range(n_model)]
+    # a model group within one host keeps each host's ranks whole data
+    # rows, so the data axis spans the hosts
+    within = world.local_size % n_model == 0
     return Mesh2D(**{f.name: getattr(world, f.name)
                      for f in dataclasses.fields(Mesh)},
-                  data=_sub_mesh(world, cols, "data"),
+                  data=_sub_mesh(world, cols, "data",
+                                 world.hosts if within else 1),
                   model=_sub_mesh(world, rows, "model"))
 
 
@@ -384,21 +445,28 @@ def _as_tensor(v) -> torch.Tensor:
         np.ascontiguousarray(v))
 
 
+def rows_block(batch, lo: int, per: int, device: torch.device
+               ) -> Dict[str, torch.Tensor]:
+    """Rows ``lo .. lo + per`` of every array of ``batch``, past its end
+    zero rows, as float32 on ``device``."""
+    out = {}
+    for k, v in batch.items():
+        own = _as_tensor(v)[lo:lo + per]
+        if own.shape[0] < per:
+            own = torch.cat([own, own.new_zeros((per - own.shape[0],)
+                                                + tuple(own.shape[1:]))])
+        out[k] = own.to(device=device, dtype=torch.float32)
+    return out
+
+
 def _block(mesh: Mesh, batch, n_rows: int, weight) -> Dict[str,
                                                            torch.Tensor]:
     """This rank's contiguous block of ``n_rows // size`` rows of the batch
     (and ``weight``), past its end zero rows, as float32 on the mesh's
     device."""
     per = n_rows // mesh.size
-    lo = mesh.rank * per
-    out = {}
-    for k, v in dict(batch, weight=weight).items():
-        own = _as_tensor(v)[lo:lo + per]
-        if own.shape[0] < per:
-            own = torch.cat([own, own.new_zeros((per - own.shape[0],)
-                                                + tuple(own.shape[1:]))])
-        out[k] = own.to(device=mesh.device, dtype=torch.float32)
-    return out
+    return rows_block(dict(batch, weight=weight), mesh.rank * per, per,
+                      mesh.device)
 
 
 def _rows(batch) -> int:

@@ -184,8 +184,7 @@ def save(path: str, state: Union[TrainState, Snapshot], *, epoch: int = 0,
          extras: Optional[Dict[str, Any]] = None) -> None:
     """Write the native ``.ckpt`` of ``state`` (or of a :class:`Snapshot`
     of it)."""
-    snap = state if isinstance(state, Snapshot) else snapshot(state)
-    _atomic_write(path, flax_msgpack.packb(_payload(snap, epoch, extras)))
+    _atomic_write(path, to_bytes(state, epoch=epoch, extras=extras))
 
 
 def _restore_opt(state: TrainState, opt: dict, path: str) -> None:
@@ -249,6 +248,26 @@ def load(path: str, template: TrainState, restore_opt: bool = True
     layout (``--accum``) the run was trained with."""
     with open(path, "rb") as f:
         raw = flax_msgpack.unpackb(f.read())
+    return _restore(raw, template, restore_opt, path)
+
+
+def to_bytes(state: Union[TrainState, Snapshot], *, epoch: int = 0,
+             extras: Optional[Dict[str, Any]] = None) -> bytes:
+    """What :func:`save` writes, as bytes (``parallel.multihost.
+    sync_resume`` broadcasts them)."""
+    snap = state if isinstance(state, Snapshot) else snapshot(state)
+    return flax_msgpack.packb(_payload(snap, epoch, extras))
+
+
+def from_bytes(data: bytes, template: TrainState, restore_opt: bool = True
+               ) -> Tuple[TrainState, int, Dict[str, Any]]:
+    """:func:`load` of :func:`to_bytes`'s bytes."""
+    return _restore(flax_msgpack.unpackb(data), template, restore_opt,
+                    "<bytes>")
+
+
+def _restore(raw: dict, template: TrainState, restore_opt: bool, path: str
+             ) -> Tuple[TrainState, int, Dict[str, Any]]:
     tree = {"params": raw["params"], "bn_state": raw["bn_state"]}
     sd = template.model.state_dict()
     new = {}

@@ -1,4 +1,4 @@
-"""The training loop (port of ``svs_tpu/train/loop.py``, one device).
+"""The training loop (port of ``svs_tpu/train/loop.py``).
 
 Contracts kept from the reference (train.py:239-389) and svs_tpu:
 
@@ -94,9 +94,41 @@ plain eval step on the whole batch; rank 0 writes the canonical ``.ckpt``
 of the replicated state.  ``epoch_scan``, ``zero1`` and ``fsdp`` are
 refused with CP, as svs_tpu refuses them.
 
+With a mesh of more than one host (``Mesh.hosts``: ``torchrun``'s nodes,
+or one process a host through ``train_cli --coordinator``) the loop is
+multi-host (:mod:`svs_torch.parallel.multihost`, svs_tpu loop.py:161-205,
+273-280,394-448,603-611,651,774-781).  Under DP, ZeRO-1, FSDP and TP each
+host trains on its round-robin share of the songs (a host with none takes
+one, wrapping around), samples ``local_bs = ceil(batch_size / hosts)``
+rows a step from its own seed (``seed * 100003 + ep + host * 7919``) for
+``ceil(len(songs' patches) / (local_bs * hosts))`` steps, counted before
+the songs are cut so that every host takes as many, pads its batch to a
+multiple of its data ranks with zero rows and a 0/1 ``weight``, and each
+of its ranks steps on its block of it (``global_batch_from_local``; under
+TP the host's data rows).  Under DP, ZeRO-1 and FSDP the host's songs stay
+on each rank's device where ``device_data`` allows
+(``MultiHostDeviceDataset``, gated on the bytes a device); the remix is
+then each rank's share of its host's draws (``Augmenter.apply_sharded``),
+and otherwise the numpy remix of the host's real rows before they are
+padded.  CP keeps the songs whole and the seed unmixed: every host samples
+the same batch, which the loop then handles as one host does.  Validation
+iterates the whole validation set on every host; its loss must agree
+across the ranks (``assert_scalar_agreement``).  After a restore every
+rank runs ``sync_resume``, which gives a host with a missing or older
+checkpoint rank 0's state.  The SIGTERM flag is agreed at every 8th step
+and at each epoch's end.  A TP mesh whose model group spans two hosts,
+``val_sdr`` and ``epoch_scan`` are refused, as svs_tpu refuses them.
+
+``device_put``, a callable of the host batch (numpy; the remixed batch's
+tensors on the device with ``augment``, remixed first as a whole, or under
+several hosts the host's rows in numpy) to this rank's step input,
+replaces the distributor of the training and the validation batches (the
+default's ``mesh.shard_batch`` / ``global_batch_from_global``,
+``halo.shard_batch_time`` or ``pp.pad_batch``) and keeps the dataset on
+the host.
+
 Not ported yet, and refused with ``NotImplementedError`` naming its
-ROADMAP item: the ``device_put`` hook and multi-host runs (A.10.7), and
-``epoch_scan`` over a DP mesh (A.10.2).
+ROADMAP item: ``epoch_scan`` over a DP mesh (A.10.2).
 """
 
 from __future__ import annotations
@@ -116,7 +148,7 @@ from svs_torch.data import device_data as dd
 from svs_torch.data.dataset import PatchDataset
 from svs_torch.parallel import dp
 from svs_torch.parallel import mesh as mesh_lib
-from svs_torch.parallel import halo, pp, tp, zero
+from svs_torch.parallel import halo, multihost, pp, tp, zero
 from svs_torch.train import checkpoint as ckpt_lib
 from svs_torch.train.step import (TrainState, batch_to_device,
                                   create_train_state, get_learning_rate,
@@ -148,7 +180,9 @@ class TrainOptions:
     progress: bool = True
     # latest-checkpoint cadence in epochs (the reference writes every epoch)
     save_every: int = 1
-    device_put: Optional[Callable] = None  # sharding hook: ROADMAP A.10.7
+    # the host batch -> this rank's step input, in place of the default
+    # distributor (the dataset then stays on the host)
+    device_put: Optional[Callable] = None
     # keep the spectrogram dataset on the device and gather crops there
     # (data/device_data.py): "auto" when it fits device_data_cap_mb
     device_data: str = "auto"  # "auto" | "on" | "off"
@@ -195,8 +229,9 @@ def _refuse_unported(opts: TrainOptions) -> None:
 
     if opts.parallel not in ("dp", "cp", "tp", "pp"):
         raise ValueError(f"unknown parallel layout {opts.parallel!r}")
-    if opts.device_put is not None:
-        no("a device_put sharding hook", "A.10.7")
+    if opts.device_data not in ("auto", "on", "off"):
+        raise ValueError(f"device_data must be on/off/auto, got "
+                         f"{opts.device_data!r}")
     if opts.parallel == "pp":
         _refuse_pp(opts)
         return
@@ -234,6 +269,20 @@ def _refuse_unported(opts: TrainOptions) -> None:
     if not isinstance(opts.mesh, mesh_lib.Mesh):
         raise TypeError("TrainOptions.mesh must be a parallel.mesh.Mesh "
                         f"(make_mesh), not {type(opts.mesh).__name__}")
+    if opts.mesh.hosts > 1:
+        # svs_tpu loop.py:163,353-369,486-491
+        if opts.val_sdr:
+            raise ValueError("val_sdr requires a single-process run: "
+                             "whole-song decode gathers the full params on "
+                             "the host")
+        if opts.epoch_scan:
+            raise ValueError(SCAN_REFUSAL)
+        if opts.parallel == "tp" and opts.mesh.model_crosses_hosts:
+            raise ValueError(
+                "multi-host TP: the 'model' axis crosses hosts — build the "
+                "mesh data-major (parallel.mesh.make_2d_mesh) with the "
+                "model ranks of a group on one host, so TP activations "
+                "stay within a host")
     if opts.epoch_scan:
         if opts.zero1 or opts.fsdp:
             raise ValueError(SCAN_REFUSAL)
@@ -316,18 +365,40 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
         say(f"Warning: no validation folder {opts.valid_folder}; skipping "
             "validation.")
     is_cp = opts.parallel == "cp"  # on a data mesh (_refuse_unported)
-    if is_cp:
+    hook = opts.device_put
+    # several hosts, each sampling its own rows (svs_tpu loop.py:161-205;
+    # CP samples one batch on every host, as on one host)
+    multi = mesh is not None and mesh.hosts > 1
+    per_host = multi and not is_cp
+    local_bs, train_steps, pad_to = opts.batch_size, None, None
+    if per_host:
+        # the step count from the global dataset, before the cut
+        local_bs, train_steps = multihost.host_schedule(
+            opts.batch_size, len(train_ds), mesh.hosts)
+        multihost.shard_songs(train_ds, mesh.host, mesh.hosts)
+        pad_to = multihost.pad_rows(local_bs, mesh)
+    if hook is not None or opts.device_data == "off" or is_pp:
+        pass  # host batches: the hook's, or PP's padded whole batches
+    elif multi:
+        # DP / ZeRO-1 / FSDP: each rank holds its host's songs, gated on
+        # the bytes a device; validation keeps the host pipeline
+        if not (is_cp or opts.parallel == "tp") and (
+                opts.device_data == "on"
+                or dd.resident_bytes(train_ds)
+                <= opts.device_data_cap_mb * 2**20):
+            train_ds = dd.MultiHostDeviceDataset(train_ds, mesh, pad_to)
+            say(f"[svs-torch] device-resident dataset (multi-host): "
+                f"{train_ds.nbytes_per_device / 2**20:.0f} MiB/device")
+    elif is_cp:
         # time-sharded on the device where input_len meets the granule
         # ("on" refuses one that does not), else the host pipeline;
         # validation keeps the host pipeline (svs_tpu loop.py:236-249)
-        if opts.device_data == "on" or (
-                opts.device_data == "auto"
-                and train_ds.input_len % halo.granule(mesh) == 0):
+        if opts.device_data == "on" or \
+                train_ds.input_len % halo.granule(mesh) == 0:
             train_ds = dd.maybe_device_dataset(
                 train_ds, opts.device_data, opts.device_data_cap_mb,
                 mesh=mesh, device=dev, time_sharded=True)
-    # PP keeps the host pipeline: its batches are padded whole there
-    elif opts.device_data != "off" and not is_pp:
+    else:
         train_ds = dd.maybe_device_dataset(train_ds, opts.device_data,
                                            opts.device_data_cap_mb,
                                            mesh=mesh, device=dev)
@@ -337,6 +408,7 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
     if isinstance(train_ds, dd.DeviceDataset):
         say(f"[svs-torch] device-resident dataset: "
             f"{train_ds.nbytes / 2**20:.0f} MiB on {dev}")
+    sharded_feed = isinstance(train_ds, dd.MultiHostDeviceDataset)
 
     epoch_fn = None
     if opts.epoch_scan:
@@ -383,6 +455,11 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
         state, start_epoch, extras = ckpt_lib.resume(opts.load_path, state)
         say(f"Loaded checkpoint from {opts.load_path} "
             f"(epoch {start_epoch})")
+    if multi:
+        # every rank, whether or not its file existed (a collective): a
+        # host behind rank 0 takes its state
+        state, start_epoch, extras = multihost.sync_resume(
+            state, start_epoch, extras, mesh)
     if mesh is not None:
         dp.replicate_state(state, mesh)
     if sharded:
@@ -395,8 +472,11 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
     augmenter = None
     if opts.augment:
         from svs_torch.data.augment import Augmenter
+        # across hosts the numpy remix of the host's rows, except on
+        # the device-resident shards (svs_tpu loop.py:505-524)
         augmenter = Augmenter(opts.remix_p, opts.aug_gain_lo,
-                              opts.aug_gain_hi)
+                              opts.aug_gain_hi,
+                              host=multi and not sharded_feed)
 
     time_cut = isinstance(train_ds, dd.DeviceDataset) and \
         train_ds.time_sharded
@@ -405,9 +485,19 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
         """A host or device batch as this rank's step input: remixed
         whole, then (with a mesh) cut to this rank's (data row's) rows, or
         under CP to this rank's time block (a time-sharded device batch is
-        cut already: the remix is row-local and elementwise in time)."""
+        cut already: the remix is row-local and elementwise in time).
+        Across hosts the host's rows are remixed in numpy, then padded
+        and cut; a device-resident block is its own shard of the remix."""
+        if sharded_feed:
+            return (batch if augmenter is None else
+                    augmenter.apply_sharded(batch, n_real, mesh=rows))
         if augmenter is not None:
-            batch = augmenter(_on_device(batch, dev), n_real=n_real)
+            batch = (augmenter(batch) if augmenter.host else
+                     augmenter(_on_device(batch, dev), n_real=n_real))
+        if hook is not None:
+            return hook(batch)
+        if per_host:
+            return multihost.global_batch_from_local(rows, batch, pad_to)
         if is_pp:  # moved to stage 0 by the step
             return pp.pad_batch(batch, opts.batch_size)
         if mesh is None:
@@ -420,6 +510,8 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
         """A validation batch as this rank's eval input (with a mesh, a
         remainder batch padded to the full batch's rows; under CP the
         whole batch)."""
+        if hook is not None:
+            return hook(batch)
         if is_pp:
             return pp.pad_batch(batch, opts.batch_size)
         if mesh is None or is_cp:
@@ -501,8 +593,9 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
 
             t0 = time.time()
             losses: List[torch.Tensor] = []
-            epoch_seed = opts.seed * 100003 + ep
-            n_steps = train_ds.steps_per_epoch(opts.batch_size)
+            epoch_seed = multihost.epoch_seed(
+                opts.seed, ep, mesh.host if per_host else 0)
+            n_steps = train_steps or train_ds.steps_per_epoch(local_bs)
             if augmenter is not None:
                 # one generator per epoch, from the epoch seed: a resumed
                 # epoch redraws the same augmentations
@@ -523,16 +616,21 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
                 # a stop request is served at the epoch's end, below
             else:
                 for i, batch in enumerate(train_ds.batches(
-                        opts.batch_size, shuffle=True, seed=epoch_seed)):
-                    b = _local(batch, min(opts.batch_size,
-                                          n_items - i * opts.batch_size))
+                        local_bs, shuffle=True, seed=epoch_seed,
+                        n_steps=train_steps)):
+                    # the real rows from the schedule: a host's batches
+                    # are all full (train_steps wraps its songs around)
+                    b = _local(batch, local_bs if train_steps else min(
+                        local_bs, n_items - i * local_bs))
                     state, aux = train_step(state, b, gen)
                     losses.append(aux["total"])  # stays on the device
                     if opts.progress and primary and (
                             (i + 1) % every == 0 or i + 1 == n_steps):
                         print(f"Epoch {ep + 1}/{opts.epoch} [Train] "
                               f"{i + 1}/{n_steps}", flush=True)
-                    if mesh_lib.agree(stop_requested, mesh):
+                    # across hosts at every 8th step, as svs_tpu polls
+                    if (not multi or i % 8 == 7) and mesh_lib.agree(
+                            stop_requested, mesh):
                         # mid-epoch: epoch=ep, so resume re-runs this epoch
                         _preempt_exit(ep)
 
@@ -560,6 +658,10 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
                             opts.batch_size, shuffle=False, seed=opts.seed)]
                 avg_val_loss = float(np.mean(
                     torch.stack(val_losses).cpu().tolist()))
+                if multi:
+                    # the hosts' best-checkpoint decisions must not part
+                    multihost.assert_scalar_agreement(
+                        avg_val_loss, "avg_val_loss", mesh=mesh)
                 log_buffer.append(f"Val {avg_val_loss}\n")
                 say(f"\n[Epoch {ep + 1}] Train Loss: {avg_train_loss:.4e} "
                     f"| Val Loss: {avg_val_loss:.4e}")

@@ -735,3 +735,30 @@ def test_world_of_one_cp_step_and_decode(card, impl, counts):
     assert r["ok"] and r["spread"] == 0.0, r
     assert tuple(r["kernels"]) == counts, r
     assert max(d["max_abs_err"], d["padded_err"]) <= 3e-5, d
+
+
+@pytest.mark.cuda
+def test_two_one_rank_hosts_take_a_dp_step_on_the_card(card):
+    """Two hosts of one rank each, both on ``cuda:0`` over gloo (NCCL
+    refuses two ranks on one card), float32 with TF32 off: each host's
+    share of a batch of 5 (3 and 2 rows, padded to 3) through one DP step
+    within the dry run's envelope of ``make_train_step`` on the host-major
+    padded batch with its ``weight``, the ranks the same bits, and the
+    loss kernels launched inside the step under ``pallas_fused`` and
+    ``pallas_bf16``."""
+    from svs_torch.parallel import dryrun
+    from svs_torch.parallel.launch import Ranks
+    from svs_torch.utils.config import SVSConfig
+
+    with Ranks(2, device="cuda:0", backend="gloo", hosts=2,
+               timeout=300) as ranks:
+        ranks.run(dryrun.no_tf32)
+        for impl, counts in (("pallas_fused", (0, 0, 3, 3)),
+                             ("pallas_bf16", (6, 3, 0, 0))):
+            cfg = SVSConfig(enc_channels=(4, 8, 8, 16, 16, 16),
+                            input_len=128, mr_mag_impl=impl,
+                            compute_dtype="float32")
+            r = ranks.run(dryrun.mh_parity, cfg, dryrun.dry_batch(5, 128))[0]
+            assert r["ok"] and r["spread"] == 0.0, r
+            assert r["rows"] == [3, 2] and r["pad_to"] == 3, r
+            assert tuple(r["kernels"]) == counts, r

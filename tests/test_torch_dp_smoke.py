@@ -5,8 +5,9 @@ svs_tpu's JSON line with ``ok: true``: the DP step within
 ``__graft_entry__``'s envelope of the unsharded step, the ranks' states the
 same bits, the SP decode within 2e-5 of the unsharded decode, the CP step
 within the envelope and the whole-song CP decode within 3e-5 of the
-unsharded whole decode; at four ranks also the TP block on a (2, 2)
-mesh."""
+unsharded whole decode, and the multi-host block (the ranks as 2 hosts)
+within the envelope of the unsharded step of the host-major padded batch;
+at four ranks also the TP block on a (2, 2) mesh."""
 
 import json
 
@@ -42,8 +43,18 @@ def test_bench_cli_dp_smoke_on_two_ranks(capsys, devices):
         assert "['tp'] skipped" in line["detail"]
     # the CP block: a batch of 2 x 64 n frames, 64 a rank, and the
     # whole-song decode of 512 frames (both decodes' padding at n <= 8)
-    assert dryrun.NOT_PORTED == ("multihost",)
+    assert dryrun.NOT_PORTED == ()
     assert "cp == unsharded step" in line["detail"]
     assert f"B = 2 x {64 * devices} frames, 64 a rank" in line["detail"]
     assert "cp decode == unsharded whole decode" in line["detail"]
     assert "512 frames)" in line["detail"]
+    # the multi-host block: 2 hosts of n / 2 ranks, a global batch of
+    # n + 1 rows cut into hosts of ceil((n + 1) / 2) rows, the last padded
+    assert "multihost == unsharded step of the host-major padded batch" \
+        in line["detail"]
+    local = -(-(devices + 1) // 2)
+    assert (f"2 hosts of {devices // 2} ranks, host rows "
+            f"[{local}, {devices + 1 - local}] padded to "
+            f"{-(-local // (devices // 2)) * (devices // 2)})"
+            in line["detail"])
+    assert "not ported: []" in line["detail"]

@@ -38,7 +38,7 @@ import jax
 from svs_torch.cli import train_cli
 from svs_torch.data.dataset import PatchDataset
 from svs_torch.models.unet import UNet
-from svs_torch.parallel.mesh import Mesh
+from svs_torch.parallel.mesh import Mesh, shard_batch
 from svs_torch.train import flax_msgpack as fm
 from svs_torch.train import loop as tloop
 from svs_torch.train import step as tstep
@@ -253,13 +253,38 @@ def test_fit_refuses_what_is_not_ported(data, tmp_path):
     # CP is ported (tests/test_torch_cp.py): it needs a data mesh
     with pytest.raises(ValueError, match="needs a data mesh"):
         _port_fit(songs, init, str(tmp_path), parallel="cp")
-    for kw, item in ((dict(device_put=lambda b: b), "A.10.7"),
-                     (dict(mesh=one, epoch_scan=True), "A.10.2")):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP {item.replace('.', '[.]')}\\)"):
-            _port_fit(songs, init, str(tmp_path), **kw)
+    # the device_put hook and multi-host runs are ported
+    # (test_device_put_hook_gives_the_default_dp_fits_bits,
+    # tests/test_torch_multihost.py); epoch_scan over a mesh is not
+    with pytest.raises(NotImplementedError, match="ROADMAP A[.]10[.]2\\)"):
+        _port_fit(songs, init, str(tmp_path), mesh=one, epoch_scan=True)
     with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         _port_fit(songs, init, str(tmp_path), mesh=object())
+
+
+@pytest.mark.parametrize("augment", [False, True])
+def test_device_put_hook_gives_the_default_dp_fits_bits(data, tmp_path,
+                                                        augment):
+    """A ``device_put`` hook equal to the default distributor
+    (``mesh.shard_batch`` on a world of one) in place of it: batches of 3
+    with a ragged tail, validation each epoch, with and without the remix
+    (the whole batch's, before the hook): the same parameters and text
+    log, bit for bit.  The hook keeps the dataset on the host; the default
+    takes it onto the device, whose batches are the host's bits."""
+    songs, init = data
+    one = Mesh(None, 0, 1, torch.device("cpu"))
+    runs = {}
+    for name, kw in (("default", {}),
+                     ("hook", dict(device_put=lambda b: shard_batch(one,
+                                                                    b)))):
+        out = str(tmp_path / name)
+        state = _port_fit(songs, init, out, mesh=one, batch_size=3,
+                          augment=augment, **kw)
+        runs[name] = (state.model.state_dict(), _lines(out, "log_t.txt"))
+    (got, got_log), (want, want_log) = runs["hook"], runs["default"]
+    assert got_log == want_log and len(got_log) == 4
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
 
 
 def test_train_cli_runs_an_epoch_on_the_cpu(data, tmp_path):
@@ -283,18 +308,41 @@ def test_train_cli_runs_an_epoch_on_the_cpu(data, tmp_path):
                                                      "svs_c.ckpt"]
 
 
+# what train_cli says to each multi-host flag alone, as svs_tpu's does
+# (train_cli.py:160-172), and to --coordinator under torchrun
+MULTIHOST_REFUSALS = {
+    "--multihost": "--multihost takes the hosts from torchrun's environment",
+    "--coordinator": "--coordinator requires --num_hosts and --host_id",
+    "--num_hosts": "--num_hosts/--host_id require --coordinator",
+    "--host_id": "--num_hosts/--host_id require --coordinator",
+    "torchrun": "--coordinator makes one rank a host without torchrun",
+}
+
+
 @pytest.mark.parametrize("flag,item", [
     (["--multihost"], "A.10.7"), (["--coordinator", "h:1"], "A.10.7"),
     (["--dp", "--epoch_scan"], "A.10.2"), (["--cp", "--dp"], "A.10.6"),
     (["--tp", "2"], "A.10.4"), (["--pp", "--accum", "2"], "A.10.5"),
     (["--zero1"], "A.10.3"), (["--fsdp"], "A.10.3"),
-    (["--num_hosts", "2"], "A.10.7"), (["--host_id", "1"], "A.10.7")])
-def test_train_cli_unported_flags_exit_2(flag, item, capsys):
+    (["--num_hosts", "2"], "A.10.7"), (["--host_id", "1"], "A.10.7"),
+    (["torchrun", "--coordinator", "h:1", "--num_hosts", "2", "--host_id",
+      "0", "--dp"], "A.10.7")])
+def test_train_cli_unported_flags_exit_2(flag, item, capsys, monkeypatch):
+    if flag[0] == "torchrun":
+        # the environment torchrun gives its ranks
+        for k, v in dict(RANK="0", WORLD_SIZE="2", GROUP_RANK="0",
+                         LOCAL_WORLD_SIZE="2", LOCAL_RANK="0").items():
+            monkeypatch.setenv(k, v)
     with pytest.raises(SystemExit) as err:
-        train_cli.main(["--label", "x", "--device", "cpu", *flag])
+        train_cli.main(["--label", "x", "--device", "cpu",
+                        *flag[flag[0] == "torchrun":]])
     assert err.value.code == 2
     said = capsys.readouterr().err
-    if item == "A.10.3":
+    if item == "A.10.7":
+        # ported (tests/test_torch_multihost.py): svs_tpu's refusals, and
+        # --coordinator under torchrun's environment
+        assert MULTIHOST_REFUSALS[flag[0]] in said
+    elif item == "A.10.3":
         # ported (tests/test_torch_zero.py): without --dp they exit 2 as
         # svs_tpu's do
         assert "pass --dp with them" in said
