@@ -123,7 +123,29 @@ Phases, each printing what it found on its own line:
              refuses) stepping B = 2 x 16 of the float32 ``default`` model
              against the single-process B = 32 step, the ranks' states the
              same bits; any failure fails the run;
-13. zero   — ZeRO-1 and FSDP (``svs_torch.parallel.zero``) beside DP, cuDNN
+13. dpscan — ``epoch_scan`` over a data-parallel mesh, cuDNN deterministic:
+             the scan phase's fit (``default`` preset, B = 32, 3 full steps
+             and a ragged tail an epoch, 2 epochs across the learning-rate
+             drop) under ``pallas_fused`` and ``pallas_bf16``:
+             ``fit(mesh=make_mesh(), epoch_scan=True)``, a world of one
+             over NCCL, must write the single-device graph fit's log and
+             checkpoints and end in its state, bit for bit (the
+             single-device batches given the all-ones ``weight`` that
+             ``shard_batch`` appends), its loss kernels' launches counted
+             as the scan phase counts them (``dpscan_launches``); two
+             epochs of ``make_epoch_scan(mesh=...)`` with the step's
+             collectives forced on at a world of one (the checks of
+             ``all_sum`` and ``dp._sum_over_ranks`` handed a crossing
+             mesh): the all-reduces recorded into the graph counted on
+             the host, NCCL's kernels in a traced replayed epoch against
+             an eager step's times the replays, the losses and state the
+             unforced epochs' bits, and the unweighted single-device
+             epochs' distance from them; two gloo ranks on the card
+             refused before any step; ms a graph step of the
+             single-device graph, of it on the weighted batches, of the
+             mesh graph and of the forced-collective one by CUDA events,
+             in turns;
+14. zero   — ZeRO-1 and FSDP (``svs_torch.parallel.zero``) beside DP, cuDNN
              deterministic: a world of one over NCCL, the full-width
              ``default`` step at B = 32 under ``pallas_fused`` and
              ``pallas_bf16`` (counts zeroed just before each step and read
@@ -133,7 +155,7 @@ Phases, each printing what it found on its own line:
              two-rank step's bits, each rank's resting state within 1 % of
              117.9 / 78.6 / 58.9 MB (DP / ZeRO-1 / FSDP), its peak memory
              and the steps' ms (CUDA events, in turns) printed beside;
-14. tp     — tensor parallelism (``svs_torch.parallel.tp``) beside DP, cuDNN
+15. tp     — tensor parallelism (``svs_torch.parallel.tp``) beside DP, cuDNN
              deterministic: a (1, 1) mesh over NCCL, the full-width
              ``default`` step at B = 32 under ``pallas_fused`` and
              ``pallas_bf16`` (counts zeroed just before each step and read
@@ -145,7 +167,7 @@ Phases, each printing what it found on its own line:
              128 output channels, each rank's resting state within 1 % of
              58,946,172 bytes (FSDP's over two ranks), its peak memory and
              the steps' ms (CUDA events, in turns) printed beside DP's;
-15. pp     — pipeline parallelism (``svs_torch.parallel.pp``) with both
+16. pp     — pipeline parallelism (``svs_torch.parallel.pp``) with both
              stages on ``cuda:0``, the ``default`` preset, B = 32, split 3,
              cuDNN deterministic: the one-microbatch PP step under
              ``pallas_fused`` and ``pallas_bf16`` (counts zeroed just before
@@ -160,7 +182,7 @@ Phases, each printing what it found on its own line:
              each stage's resting bytes and the card's peak memory over
              each step; one epoch of ``fit(parallel="pp")`` whose
              ``.ckpt`` the single-device ``fit`` resumes;
-16. cp     — context parallelism (``svs_torch.parallel.halo``): a world of
+17. cp     — context parallelism (``svs_torch.parallel.halo``): a world of
              one over NCCL, cuDNN deterministic, the ``fine_tune`` preset
              at full width (bf16, remat), B = 4 patches of 1536 frames: the
              CP step (the halo arithmetic as a zero pad and valid convs)
@@ -182,7 +204,7 @@ Phases, each printing what it found on its own line:
              all 4 (``pallas_bf16``) the CP step within the envelope, the
              ranks' states the same bits, and on 2 ranks both decodes;
              ``train_cli --cp --dp`` exits 2;
-17. mh     — multi-host training (``svs_torch.parallel.multihost``) in one
+18. mh     — multi-host training (``svs_torch.parallel.multihost``) in one
              pool of two hosts of one rank each on the card, over gloo
              (NCCL refuses two ranks on one card), cuDNN deterministic:
              the float32 ``default`` DP step of B = 32, 16 rows a host,
@@ -203,7 +225,7 @@ Phases, each printing what it found on its own line:
              checkpoint (``sync_resume``: the ranks the same bits after);
              one ``mh:`` JSON line with the phase's seconds and each rank's
              peak memory over the steps;
-18. parity — the U-Net at float32 on the card (cuDNN, TF32 off) against the
+19. parity — the U-Net at float32 on the card (cuDNN, TF32 off) against the
              same weights and input on the CPU, and one float32 ``fft``
              train step (B = 4, no dropout) on the card against the CPU.
 
@@ -1800,6 +1822,348 @@ def dp_phase(torch, np, spec: str) -> dict:
     return dict(zip(LOSS_NAMES, total)), backend
 
 
+# dpscan: the mesh epoch_scan at a world of one over NCCL, under the loss
+# kernel paths (the scan phase's fit: SCAN_SAMPLES patches a song, 3 full
+# steps and a ragged tail an epoch, SCAN_EPOCHS epochs across the drop)
+DPSCAN_IMPLS = tuple(DP_PER_STEP)
+
+
+@contextlib.contextmanager
+def forced_collectives():
+    """The DP step's collectives run at a world of one: the two checks that
+    the step reads, ``mesh.all_sum``'s (bound by name in the modules of the
+    model and the losses) and ``dp._sum_over_ranks``', are handed the mesh
+    as if it crossed ranks, so each all-reduces over its one rank (an
+    exact copy) while the block runs.  The host-flag helpers
+    (``mesh.agree``, ``dp.replicate_state``) keep their check: a world of
+    one has no gloo group for them.  Yields a one-item list, the count of
+    ``torch.distributed.all_reduce`` calls since entry (eager, or recorded
+    into a graph)."""
+    import torch.distributed as dist
+
+    from svs_torch.parallel import dp
+    from svs_torch.parallel import mesh as mesh_lib
+
+    def crossing(fn):
+        def run(x, mesh):
+            return fn(x, None if mesh is None
+                      else dataclasses.replace(mesh, size=2))
+        return run
+
+    count = [0]
+    reduce = dist.all_reduce
+
+    def counted(*args, **kwargs):
+        count[0] += 1
+        return reduce(*args, **kwargs)
+
+    # every module of the port that bound all_sum by name
+    users = [m for name, m in sorted(sys.modules.items())
+             if name.startswith("svs_torch.") and m is not mesh_lib
+             and getattr(m, "all_sum", None) is mesh_lib.all_sum]
+    check({"svs_torch.models.unet", "svs_torch.losses.mrstft",
+           "svs_torch.losses.masked_l1", "svs_torch.ops.cuda.fused_loss"}
+          <= {m.__name__ for m in users},
+          "forced collectives: the step's all_sum callers found")
+    saved = [(m, "all_sum", m.all_sum) for m in users]
+    saved += [(dp, "_sum_over_ranks", dp._sum_over_ranks),
+              (dist, "all_reduce", reduce)]
+    for m in users:
+        m.all_sum = crossing(mesh_lib.all_sum)
+    dp._sum_over_ranks = crossing(dp._sum_over_ranks)
+    dist.all_reduce = counted
+    try:
+        yield count
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+@contextlib.contextmanager
+def weighted_single():
+    """The single-device scan's batches carry the all-ones ``weight`` that
+    ``mesh.shard_batch`` appends at a world of one (the weighted means
+    round otherwise than the unweighted ones): its gathers, in the graph
+    body and the dataset's tail, append it while the block runs."""
+    import torch
+
+    from svs_torch.data import device_data
+    from svs_torch.train import scan
+
+    gather = device_data.gather_crops
+
+    def weighted(planes, songs, starts, input_len):
+        out = gather(planes, songs, starts, input_len)
+        out["weight"] = torch.ones(len(songs), device=songs.device)
+        return out
+
+    device_data.gather_crops = scan.gather_crops = weighted
+    try:
+        yield
+    finally:
+        device_data.gather_crops = scan.gather_crops = gather
+
+
+def _full_state(torch, state) -> list:
+    """A state's tensors on the host: parameters, BN buffers, Adam's."""
+    from svs_torch.parallel import dp
+    return [t.detach().cpu() for t in dp._state_tensors(state)]
+
+
+def _same_bits(torch, a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _nccl_launches(torch, fn) -> int:
+    """NCCL's kernels in a torch.profiler trace of ``fn()``."""
+    return sum(n for name, _, n in device_events(torch, fn)
+               if "nccl" in name.lower())
+
+
+def dpscan_phase(torch, np, work: str) -> dict:
+    """``epoch_scan`` over a data-parallel mesh on the card (see the
+    module's docstring); returns, per loss kernel, summed over the mesh
+    fits under the kernel paths: the wrappers' eager launches (the warm-up
+    step and the tails), the calls recorded into a graph (each count
+    zeroed just before the fit and read just after) and the replays'
+    launches (the fit's profiler count less the eager launches)."""
+    import torch.distributed as dist
+
+    from svs_torch.data import device_data as dd
+    from svs_torch.data.dataset import PatchDataset
+    from svs_torch.ops.cuda import diff_mag as cdm
+    from svs_torch.ops.cuda import fused_loss as cfl
+    from svs_torch.parallel import dp, dryrun
+    from svs_torch.parallel import mesh as mesh_lib
+    from svs_torch.parallel.launch import Ranks
+    from svs_torch.train import loop
+    from svs_torch.train import scan
+    from svs_torch.train import step as tstep
+    from svs_torch.utils.config import get_config
+
+    spec = os.path.join(work, "spec")
+    root = os.path.join(work, "dpscan")
+    n_full = N_SONGS * SCAN_SAMPLES // TRAIN_B
+    n_rep = SCAN_EPOCHS * n_full - 1
+    line = {"smi": nvidia_smi_line(), "seconds": {}}
+    t0 = time.perf_counter()
+
+    def lap(what):
+        nonlocal t0
+        line["seconds"][what] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    def opts(run, **kw):
+        return loop.TrainOptions(
+            train_folder=spec, valid_folder="none", label="x",
+            epoch=SCAN_EPOCHS, batch_size=TRAIN_B, load_path="none",
+            ckpt_dir=os.path.join(root, run, "CKPT"),
+            log_dir=os.path.join(root, run, "LOG"), progress=False,
+            device_data="on", epoch_scan=True, device="cuda", **kw)
+
+    def written(run):
+        names = ("LOG/log_x.txt", "CKPT/svs_x.ckpt", "CKPT/svs_x_400.ckpt")
+        out = {}
+        for name in names:
+            with open(os.path.join(root, run, name), "rb") as f:
+                out[name] = f.read()
+        return out
+
+    def config(impl):
+        return dataclasses.replace(get_config("default"), mr_mag_impl=impl,
+                                   samples_per_song=SCAN_SAMPLES,
+                                   lr_drop_epoch=1)
+
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    mesh = mesh_lib.make_mesh()
+    check(mesh.size == 1 and mesh.backend == "nccl",
+          f"dpscan: make_mesh alone is a world of one over NCCL ({mesh})")
+    counts = {k: [0, 0, 0] for k in LOSS_NAMES}
+    try:
+        for impl in DPSCAN_IMPLS:
+            cfg = config(impl)
+            per = DP_PER_STEP[impl]
+            # (a) the mesh fit against the single-device fit of the same
+            # weighted batches, both graph fits
+            with weighted_single():
+                single = _recording_fit(torch, opts(f"single_{impl}"), cfg)
+            cdm.reset_counts()
+            cfl.reset_counts()
+            meshed = _recording_fit(torch, opts(f"mesh_{impl}", mesh=mesh),
+                                    cfg, trace=True)
+            got, rec = _loss_counts()
+            epoch, seen = meshed[2]["epoch"], meshed[2]["kernels"]
+            want = tuple(v * (1 + SCAN_EPOCHS) for v in per)
+            want_rec = tuple(2 * v for v in per)
+            eager_by_kernel = dict(zip(LOSS_NAMES, got))
+            eager_by_kernel["adjoint"] = got[1] + got[3]
+            rep = {k: n - eager_by_kernel[k] for k, n in seen.items()}
+            per_kernel = dict(zip(LOSS_NAMES, per))
+            per_kernel["adjoint"] = per[1] + per[3]
+            want_rep = {k: n_rep * v for k, v in per_kernel.items() if v}
+            files = (written(f"single_{impl}"), written(f"mesh_{impl}"))
+            same = {k: files[0][k] == files[1][k] for k in files[0]}
+            bits = _same_bits(torch, _full_state(torch, single[0]),
+                              _full_state(torch, meshed[0]))
+            print(f"dpscan {impl} (a): world of one over NCCL, fit "
+                  f"{SCAN_EPOCHS} epochs of {n_full} replays and a tail, "
+                  f"B={TRAIN_B}: captures {epoch.captures}, replays "
+                  f"{epoch.replays}; files equal to the single-device "
+                  f"graph fit's {json.dumps(same)}, final state the same "
+                  f"bits {bits}; wrapper launches {list(got)} (want "
+                  f"{list(want)}), captured {list(rec)} (want "
+                  f"{list(want_rec)}); the replays' {json.dumps(rep)} "
+                  f"(want {json.dumps(want_rep)})")
+            check(epoch.captures == 2 and epoch.replays == n_rep,
+                  f"dpscan {impl}: captured twice, {n_rep} replays")
+            check(got == want and rec == want_rec and rep == want_rep,
+                  f"dpscan {impl}: the loss kernels launched, captured and "
+                  "replayed inside the mesh graph fit")
+            check(all(same.values()) and bits,
+                  f"dpscan {impl}: the world-of-one mesh fit writes the "
+                  "single-device graph fit's files and bits")
+            for i, name in enumerate(LOSS_NAMES):
+                counts[name][0] += got[i]
+                counts[name][1] += rec[i]
+                counts[name][2] += rep.get(name, 0)
+            line[f"a_{impl}"] = dict(same, state=bits)
+            del single, meshed, epoch
+            lap(f"a_{impl}")
+
+            # (b) one world-of-one epoch with the collectives forced on
+            # (the first collectives of the group: the warm-up step makes
+            # NCCL's communicator), against the same epochs without them
+            host = PatchDataset(spec, samples_per_song=SCAN_SAMPLES,
+                                input_len=cfg.input_len)
+            ds = dd.DeviceDataset(host, mesh=mesh)
+            songs, starts, _ = dd.epoch_index_arrays(host, TRAIN_B,
+                                                     shuffle=True, seed=5)
+            adam = tstep.make_optimizer(cfg, capturable=True)
+
+            def fresh():
+                return (tstep.create_train_state(0, cfg, adam, device="cuda"),
+                        torch.Generator("cuda").manual_seed(3))
+
+            def runner(fn, state, gen):
+                def run():
+                    return fn(state, ds.planes, songs, starts, gen)[1]
+                return run
+
+            plain_fn = scan.make_epoch_scan(cfg, mesh=mesh)
+            s_p, g_p = fresh()
+            l_p = [runner(plain_fn, s_p, g_p)() for _ in range(2)]
+            # the single-device epochs without the weight, for scale
+            single_fn = scan.make_epoch_scan(cfg)
+            s_s, g_s = fresh()
+            l_s = torch.cat([runner(single_fn, s_s, g_s)()
+                             for _ in range(2)]).cpu()
+            rel = float(((l_s - torch.cat(l_p).cpu()).abs()
+                         / torch.cat(l_p).cpu().abs()).max())
+            pmax, pmean, _ = _param_envelope(torch, s_s, s_p,
+                                             cfg.learning_rate)
+            print(f"dpscan {impl}: the single-device epochs without the "
+                  f"weight against the mesh epochs: step losses max rel "
+                  f"{rel:.3e}, parameters max |d| {pmax:.3e} (lr "
+                  f"{cfg.learning_rate:g}), mean {pmean:.3e}")
+            line[f"unweighted_{impl}"] = dict(loss_rel=rel, params_max=pmax,
+                                              params_mean=pmean)
+            with forced_collectives() as calls:
+                forced_fn = scan.make_epoch_scan(cfg, mesh=mesh)
+                s_f, g_f = fresh()
+                l_f = [runner(forced_fn, s_f, g_f)()]
+                torch.cuda.synchronize()
+                first = calls[0]
+                # the second epoch, replays only, traced (the profiler may
+                # retake it: only the first epoch's bits are compared then)
+                replayed = _nccl_launches(
+                    torch, lambda: l_f.append(runner(forced_fn, s_f,
+                                                     g_f)()))
+                check(forced_fn.replays == 2 * n_full - 1,
+                      f"dpscan {impl} (b): one trace of {n_full} replays")
+                second = calls[0] - first
+                # one eager forced DP step: its all-reduce calls and NCCL
+                # kernels
+                s_e, g_e = fresh()
+                batch = mesh_lib.shard_batch(mesh, ds.gather(songs[0],
+                                                             starts[0]))
+                step = dp.make_dp_train_step(mesh, cfg)
+                before = calls[0]
+                eager = _nccl_launches(torch, lambda: step(s_e, batch, g_e))
+                n_calls = calls[0] - before
+            bits = (_same_bits(torch, [torch.cat(l_p).cpu()],
+                               [torch.cat(l_f).cpu()])
+                    and _same_bits(torch, _full_state(torch, s_p),
+                                   _full_state(torch, s_f)))
+            print(f"dpscan {impl} (b): collectives forced on at a world of "
+                  f"one: all_reduce calls {first} in the first epoch (the "
+                  f"warm-up step and the capture, want 2 x {n_calls}), "
+                  f"{second} in the replayed epoch (want 0); NCCL kernels: "
+                  f"{eager} in one eager step, {replayed} in {n_full} "
+                  f"replays (want {eager * n_full}); losses and state the "
+                  f"unforced epochs' bits {bits}")
+            check(n_calls > 0 and first == 2 * n_calls and second == 0,
+                  f"dpscan {impl} (b): the graph holds the step's "
+                  f"{n_calls} all-reduces, called from the host once")
+            check(replayed == eager * n_full, f"dpscan {impl} (b): the "
+                  "replays launch the eager step's NCCL kernels")
+            check(bits, f"dpscan {impl} (b): forced collectives give the "
+                  "same bits")
+            line[f"b_{impl}"] = dict(all_reduces_a_step=n_calls,
+                                     nccl_kernels_a_step=eager,
+                                     nccl_kernels_replayed=replayed,
+                                     replays=n_full, bits=bits)
+            lap(f"b_{impl}")
+
+            # (d) ms a graph step, in turns: the single-device graph,
+            # that graph on the weighted batches, the mesh graph, the
+            # forced-collective mesh graph
+            with weighted_single():
+                weighted_fn = scan.make_epoch_scan(cfg)
+                s_w, g_w = fresh()
+                runner(weighted_fn, s_w, g_w)()  # its capture
+            fns = {"single": runner(single_fn, s_s, g_s),
+                   "weighted": runner(weighted_fn, s_w, g_w),
+                   "mesh": runner(plain_fn, s_p, g_p),
+                   "forced": runner(forced_fn, s_f, g_f)}
+            ms = {k: [] for k in fns}
+            with forced_collectives():
+                for k in ("single", "weighted", "mesh", "forced", "forced",
+                          "mesh", "weighted", "single"):
+                    ms[k].append(cuda_ms(torch, fns[k], reps=3, warmup=1)
+                                 / n_full)
+            print(f"dpscan {impl} (d): ms a graph step (CUDA events, "
+                  f"B={TRAIN_B}, in turns): single-device "
+                  f"{_ms(ms['single'])}, single-device on the weighted "
+                  f"batches {_ms(ms['weighted'])}, mesh {_ms(ms['mesh'])}, "
+                  f"forced collectives {_ms(ms['forced'])}; {line['smi']}")
+            line[f"d_{impl}"] = ms
+            del ds, s_p, s_f, s_e, s_s, s_w, fns
+            lap(f"d_{impl}")
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = was
+
+    # (c) two gloo ranks on the one card: refused before any step
+    gloo = dict(train_folder=spec, valid_folder="none", label="g", epoch=1,
+                batch_size=TRAIN_B, load_path="none",
+                ckpt_dir=os.path.join(root, "gloo", "CKPT"),
+                log_dir=os.path.join(root, "gloo", "LOG"), progress=False,
+                device_data="on", device="cuda")
+    with Ranks(2, device="cuda:0", backend="gloo", timeout=300) as ranks:
+        got = ranks.run(dryrun.scan_refusal, gloo, config("pallas_fused"))
+    print(f"dpscan (c): two gloo ranks on one card, fit(epoch_scan=True): "
+          f"{json.dumps(got)}")
+    check(all(r["refused"] and "cannot capture gloo's" in r["refused"]
+              and not r["made_dirs"] and r["bytes"] == 0 for r in got),
+          "dpscan (c): both gloo ranks refused before any step")
+    line["c"] = got
+    lap("c")
+    print("dpscan: " + json.dumps(line))
+    return {k: dict(zip(("eager", "captured", "replayed"), v))
+            for k, v in counts.items()}
+
+
 def _mb(values) -> str:
     return " / ".join(f"{v / 1e6:.3f}" for v in values)
 
@@ -3243,6 +3607,9 @@ def main(argv=None) -> int:
         dp_counts, backend = dp_phase(torch, np, os.path.join(work, "spec"))
         seconds["dp"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+        dpscan_counts = dpscan_phase(torch, np, work)
+        seconds["dpscan"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         zero_counts = zero_phase(torch, np, os.path.join(work, "spec"),
                                  backend)
         seconds["zero"] = time.perf_counter() - t0
@@ -3280,6 +3647,14 @@ def main(argv=None) -> int:
             entry["dp_launches"] = dp_counts[entry["name"]]
             check(entry["dp_launches"] > 0,
                   f"{entry['name']} launched inside the DP step")
+        if entry["name"] in dpscan_counts:
+            # the world-of-one mesh graph fits': the wrappers' eager
+            # launches, their calls recorded into a graph and the replays'
+            # launches, as the scan phase counts them
+            entry["dpscan_launches"] = dpscan_counts[entry["name"]]
+            check(all(v > 0 for v in entry["dpscan_launches"].values()),
+                  f"{entry['name']} launched, captured and replayed inside "
+                  "the mesh graph fits")
         if entry["name"] in zero_counts:
             # the world-of-one ZeRO-1 and FSDP steps' own count
             entry["zero_launches"] = zero_counts[entry["name"]]

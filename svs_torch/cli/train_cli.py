@@ -38,8 +38,11 @@ hosts (``parallel.multihost``; with --dp, --dp --zero1/--fsdp, --tp or
 --cp): under ``torchrun --nnodes N`` a host is a node, read from its
 environment; ``--coordinator HOST:PORT --num_hosts N --host_id I`` (which
 implies ``--multihost``) makes this process host I of N, one rank a host,
-without torchrun.  --epoch_scan with --dp exits 2 with a message that
-names its ROADMAP item.
+without torchrun; the multi-host run refuses --epoch_scan, as svs_tpu's
+``fit`` does.  ``--epoch_scan`` with ``--dp`` replays a captured graph of
+the DP step, its collectives included, on every rank (``torchrun
+--nproc_per_node N -m svs_torch.cli.train_cli --dp --epoch_scan ...``;
+eager gloo ranks with ``--device cpu``).
 
 Run as ``python -m svs_torch.cli.train_cli``.
 """
@@ -262,9 +265,6 @@ def main(argv=None) -> int:
     if (args.multihost or args.coordinator is not None
             or args.num_hosts is not None or args.host_id is not None):
         _multihost_env(parser, args)
-    if args.dp and args.epoch_scan:
-        parser.error("--epoch_scan with --dp (a captured step over a mesh) "
-                     "is not ported to svs_torch yet (ROADMAP A.10.2)")
     if args.accum < 1:
         parser.error(f"--accum must be a positive microbatch count, "
                      f"got {args.accum}")

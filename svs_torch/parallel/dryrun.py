@@ -61,6 +61,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import math
+import os
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -803,6 +804,26 @@ def mh_fit(mesh: mesh_lib.Mesh, opts_kw: Dict, cfg: SVSConfig,
     state = loop.fit(loop.TrainOptions(mesh=mesh, **opts_kw), cfg)
     return {"host": mesh.host, "steps": state.step,
             "digest": state_digest(state)}
+
+
+def scan_refusal(mesh: mesh_lib.Mesh, opts_kw: Dict, cfg: SVSConfig
+                 ) -> Dict[str, object]:
+    """``fit`` with ``epoch_scan`` over ``mesh``: the ``ValueError`` it
+    raised (None if it trained), whether it had made its checkpoint folder
+    by then (``fit`` makes it after its refusals, before any step) and the
+    bytes this rank then held on its device."""
+    from svs_torch.train import loop
+
+    said = None
+    try:
+        loop.fit(loop.TrainOptions(mesh=mesh, epoch_scan=True, **opts_kw),
+                 cfg)
+    except ValueError as e:
+        said = str(e)
+    held = (torch.cuda.memory_allocated(mesh.device)
+            if mesh.device.type == "cuda" else 0)
+    return {"refused": said, "made_dirs": os.path.exists(opts_kw["ckpt_dir"]),
+            "bytes": held}
 
 
 def sharded_layouts(n: int) -> tuple:

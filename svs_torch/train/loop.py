@@ -29,8 +29,11 @@ config; the default stays ``matmul_bf16``.
 ``epoch_scan`` runs each epoch's full batches as replays of one captured
 CUDA graph of the step (:mod:`svs_torch.train.scan`; eager on the CPU),
 then the ragged tail through the eager step; it needs the dataset on the
-device.  ``val_sdr`` scores the validation songs' separated vocals with
-BSS eval after each validation (:mod:`svs_torch.evaluation.val_sdr`).
+device.  Over a plain-DP mesh the graph is of the DP step, its collectives
+included, on every rank (a single process a host, as svs_tpu allows it:
+loop.py:477-494), and the tail is cut as the per-step loop cuts it.
+``val_sdr`` scores the validation songs' separated vocals with BSS eval
+after each validation (:mod:`svs_torch.evaluation.val_sdr`).
 
 With ``mesh`` (a ``parallel.mesh.Mesh``, one process per device) and
 ``parallel="dp"`` the loop is data-parallel (svs_tpu loop.py:393-447): each
@@ -126,9 +129,6 @@ replaces the distributor of the training and the validation batches (the
 default's ``mesh.shard_batch`` / ``global_batch_from_global``,
 ``halo.shard_batch_time`` or ``pp.pad_batch``) and keeps the dataset on
 the host.
-
-Not ported yet, and refused with ``NotImplementedError`` naming its
-ROADMAP item: ``epoch_scan`` over a DP mesh (A.10.2).
 """
 
 from __future__ import annotations
@@ -150,6 +150,7 @@ from svs_torch.parallel import dp
 from svs_torch.parallel import mesh as mesh_lib
 from svs_torch.parallel import halo, multihost, pp, tp, zero
 from svs_torch.train import checkpoint as ckpt_lib
+from svs_torch.train.scan import SCAN_REFUSAL, refuse_mesh
 from svs_torch.train.step import (TrainState, batch_to_device,
                                   create_train_state, get_learning_rate,
                                   make_eval_step, make_optimizer,
@@ -215,18 +216,7 @@ class TrainOptions:
     device: Optional[str] = None
 
 
-# svs_tpu's refusal of epoch_scan off a single process or plain-DP mesh
-SCAN_REFUSAL = ("epoch_scan requires the device-resident dataset on a "
-                "single-process run, mesh-free or plain-DP mesh "
-                "(device_data='on'/'auto' with the dataset under the HBM "
-                "cap; not cp/tp/zero1/fsdp)")
-
-
 def _refuse_unported(opts: TrainOptions) -> None:
-    def no(what: str, item: str) -> None:
-        raise NotImplementedError(f"{what} is not ported to svs_torch yet "
-                                  f"(ROADMAP {item})")
-
     if opts.parallel not in ("dp", "cp", "tp", "pp"):
         raise ValueError(f"unknown parallel layout {opts.parallel!r}")
     if opts.device_data not in ("auto", "on", "off"):
@@ -286,7 +276,7 @@ def _refuse_unported(opts: TrainOptions) -> None:
     if opts.epoch_scan:
         if opts.zero1 or opts.fsdp:
             raise ValueError(SCAN_REFUSAL)
-        no("epoch_scan over a mesh", "A.10.2")
+        refuse_mesh(opts.mesh)  # gloo ranks sharing a card, before a step
     if (opts.device is not None
             and torch.device(opts.device).type != opts.mesh.device.type):
         raise ValueError(f"device {opts.device!r} is not the mesh's "
@@ -414,8 +404,9 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
     if opts.epoch_scan:
         if not isinstance(train_ds, dd.DeviceDataset):
             raise ValueError(SCAN_REFUSAL)
+        # looked up when fit runs, so that a caller may wrap them
         from svs_torch.train.scan import make_epoch_scan, run_epoch
-        epoch_fn = make_epoch_scan(cfg, augment=opts.augment)
+        epoch_fn = make_epoch_scan(cfg, augment=opts.augment, mesh=mesh)
 
     # a CUDA graph replays Adam only in its capturable form; the eager
     # loop keeps torch's host form
@@ -608,7 +599,8 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
                 # the per-step loop below
                 state, loss_vec = run_epoch(epoch_fn, train_step, state,
                                             train_ds, opts.batch_size,
-                                            epoch_seed, gen, augmenter)
+                                            epoch_seed, gen, augmenter,
+                                            mesh=mesh)
                 losses.append(loss_vec)
                 if opts.progress:
                     print(f"Epoch {ep + 1}/{opts.epoch} [Train] "

@@ -42,8 +42,23 @@ On the CPU (the tests) ``epoch`` runs the same per-step body eagerly, with
 no graph.  On a CUDA device it captures, and a failed capture raises: it
 never falls back to eager steps on the card.  :func:`run_epoch` is one
 epoch as ``fit`` runs it: the replays, then the ragged tail batch through
-the eager step (as svs_tpu's loop does).  The mesh variant, a captured
-step with its collectives, is not ported yet (ROADMAP A.10.2).
+the eager step (as svs_tpu's loop does).
+
+Over a plain data-parallel mesh (``mesh=``, svs_tpu scan.py:102-148) every
+rank runs the same epoch on its own card: the body gathers the global
+batch, remixes it whole (with ``augment``), keeps this rank's block of
+rows and runs the DP step (``parallel.dp``: sync-BN, the global loss, the
+gradient summed over the ranks), so the graph holds the step's
+collectives.  The block is ``mesh.shard_batch``'s: the batch padded with
+zero rows to a multiple of the ranks, with the 0/1 ``weight``; both are
+static device buffers made when the epoch's indices are loaded, so no
+replay touches the host.  NCCL makes its communicator at the first
+collective, which the eager warm-up step runs before any capture; every
+rank captures and replays the same graphs in the same order (a capture
+again after the learning-rate drop happens on every rank alike).  Gloo's
+collectives run on the host, where no graph can hold them: a mesh of more
+than one rank over gloo on a CUDA device (two ranks sharing one card) is
+refused before any step.  On the CPU the gloo ranks run the body eagerly.
 """
 
 from __future__ import annotations
@@ -54,9 +69,37 @@ import numpy as np
 import torch
 
 from svs_torch.data.device_data import epoch_index_arrays, gather_crops
+from svs_torch.parallel import dp
+from svs_torch.parallel import mesh as mesh_lib
 from svs_torch.train.step import TrainState, _accumulator, _apply, \
     loss_and_grads
 from svs_torch.utils.config import SVSConfig
+
+# svs_tpu's refusal of epoch_scan off a single process or plain-DP mesh
+SCAN_REFUSAL = ("epoch_scan requires the device-resident dataset on a "
+                "single-process run, mesh-free or plain-DP mesh "
+                "(device_data='on'/'auto' with the dataset under the HBM "
+                "cap; not cp/tp/zero1/fsdp)")
+
+
+def refuse_mesh(mesh) -> None:
+    """What ``epoch_scan`` refuses of a mesh, before any step: anything
+    but a 1-D data mesh (``TypeError``), a 2-D one or one of several hosts
+    (svs_tpu's rule), and gloo on a CUDA device across ranks (the port's:
+    no CUDA graph holds a host collective)."""
+    if not isinstance(mesh, mesh_lib.Mesh):
+        raise TypeError("epoch_scan's mesh must be a parallel.mesh.Mesh "
+                        f"(make_mesh), not {type(mesh).__name__}")
+    if isinstance(mesh, mesh_lib.Mesh2D) or mesh.hosts > 1:
+        raise ValueError(SCAN_REFUSAL)
+    if mesh.device.type == "cuda" and mesh.backend == "gloo" and \
+            mesh.size > 1:
+        raise ValueError(
+            f"epoch_scan over {mesh.size} gloo ranks on {mesh.device.type}: "
+            "a CUDA graph cannot capture gloo's collectives, which run on "
+            "the host (ranks that share one card run gloo, since NCCL "
+            "refuses them); train these ranks without epoch_scan, or one "
+            "card a rank over NCCL")
 
 
 def make_epoch_scan(cfg: Optional[SVSConfig] = None, augment: bool = False,
@@ -70,24 +113,28 @@ def make_epoch_scan(cfg: Optional[SVSConfig] = None, augment: bool = False,
     stacked ``(perm, g_voc, g_acc)`` of ``Augmenter.epoch_vectors``.  The
     state is updated in place and returned; ``generator`` (dropout's
     source) moves on as ``n_steps`` eager steps would move it; ``losses``
-    is the ``(n_steps,)`` per-step total on the planes' device."""
+    is the ``(n_steps,)`` per-step total on the planes' device.
+
+    ``mesh``: a plain data-parallel ``parallel.mesh.Mesh``; the state is
+    the rank's replicated one, the planes its ``DeviceDataset``'s and the
+    index matrices the global batch's, the same on every rank; ``losses``
+    are the global batch's (:func:`refuse_mesh` says what is refused)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "epoch_scan over a device mesh (a captured step with its "
-            "collectives) is not ported to svs_torch yet (ROADMAP A.10.2); "
-            "make_epoch_scan runs on one device")
-    return _EpochScan(cfg or SVSConfig(), augment)
+        refuse_mesh(mesh)
+    return _EpochScan(cfg or SVSConfig(), augment, mesh)
 
 
 def run_epoch(epoch_fn: Callable, step: Callable, state: TrainState, ds,
               batch_size: int, seed: int,
-              generator: Optional[torch.Generator] = None, augmenter=None
-              ) -> Tuple[TrainState, torch.Tensor]:
+              generator: Optional[torch.Generator] = None, augmenter=None,
+              mesh=None) -> Tuple[TrainState, torch.Tensor]:
     """One shuffled epoch of the ``DeviceDataset`` ``ds``: its full batches
     through ``epoch_fn`` (:func:`make_epoch_scan`'s), then the ragged tail
     through the eager ``step``, in the index stream and generator order of
     the per-step loop.  ``augmenter``: an ``Augmenter`` already set for the
-    epoch.  Returns the state and the per-step totals on the device."""
+    epoch.  ``mesh``: the epoch function's; the tail is then remixed whole
+    and cut to this rank's rows (``mesh.shard_batch``) for the eager DP
+    ``step``.  Returns the state and the per-step totals on the device."""
     songs, starts, tail = epoch_index_arrays(ds.host, batch_size,
                                              shuffle=True, seed=seed)
     losses = []
@@ -101,6 +148,8 @@ def run_epoch(epoch_fn: Callable, step: Callable, state: TrainState, ds,
         batch = ds.gather(tail[0], tail[1])
         if augmenter is not None:
             batch = augmenter(batch, n_real=len(tail[0]))
+        if mesh is not None:
+            batch = mesh_lib.shard_batch(mesh, batch)
         state, aux = step(state, batch, generator)
         losses.append(aux["total"].reshape(1))
     dev = next(iter(ds.planes.values())).device
@@ -108,9 +157,11 @@ def run_epoch(epoch_fn: Callable, step: Callable, state: TrainState, ds,
                    else torch.zeros(0, dtype=torch.float32, device=dev))
 
 
-def _bindings(state: TrainState, planes: Dict[str, torch.Tensor]) -> tuple:
+def _bindings(state: TrainState, planes: Dict[str, torch.Tensor],
+              static=()) -> tuple:
     """What a captured graph holds: the addresses of every tensor it reads
-    or writes in place, and the optimiser's constants."""
+    or writes in place (``static``: the mesh body's weight and pad rows),
+    and the optimiser's constants."""
     opt = state.optimizer
     ptrs = [t.data_ptr() for t in state.model.state_dict().values()]
     for st in opt.state.values():
@@ -118,15 +169,17 @@ def _bindings(state: TrainState, planes: Dict[str, torch.Tensor]) -> tuple:
                  if isinstance(t, torch.Tensor)]
     ptrs += [t.data_ptr() for t in state.acc_buffers or ()]
     ptrs += [p.data_ptr() for p in planes.values()]
+    ptrs += [t.data_ptr() for t in static if t is not None]
     consts = tuple((g["lr"], tuple(g["betas"]), g["eps"],
                     g["weight_decay"]) for g in opt.param_groups)
     return tuple(ptrs), consts
 
 
 class _EpochScan:
-    def __init__(self, cfg: SVSConfig, augment: bool):
+    def __init__(self, cfg: SVSConfig, augment: bool, mesh=None):
         self.cfg = cfg
         self.augment = augment
+        self.mesh = mesh
         self.graphs: Dict[int, Tuple[torch.cuda.CUDAGraph, dict]] = {}
         self.key = None
         # static buffers: the epoch's index matrix (songs, starts and, with
@@ -135,6 +188,12 @@ class _EpochScan:
         self.gains: Optional[torch.Tensor] = None
         self.ctr: Optional[torch.Tensor] = None
         self.losses: Optional[torch.Tensor] = None
+        # with a mesh: this rank's (first row, real rows) of the global
+        # batch, its 0/1 weight and the zero rows past the batch's end
+        self.rows: Tuple[int, int] = (0, 0)
+        self.weight: Optional[torch.Tensor] = None
+        self.pad: Optional[torch.Tensor] = None
+        self.block_spec = None
         self.captures = 0  # how many times the graphs were captured
         self.replays = 0   # how many steps ran as replays
 
@@ -148,16 +207,54 @@ class _EpochScan:
             gains = self.gains.index_select(0, self.ctr)[0]
             from svs_torch.data.augment import apply_remix
             batch = apply_remix(batch, row[2], gains[0], gains[1])
-        grads, metrics = loss_and_grads(self.cfg, state, batch, generator)
+        if self.mesh is None:
+            grads, metrics = loss_and_grads(self.cfg, state, batch,
+                                            generator)
+        else:
+            grads, metrics = dp.dp_loss_and_grads(
+                self.cfg, state, self._block(batch), generator, self.mesh)
         _apply(state, grads)
         self.losses.index_copy_(0, self.ctr, metrics["total"].reshape(1))
         self.ctr.add_(1)
         return metrics
 
+    def _block(self, batch: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """This rank's rows of the global batch, as ``mesh.shard_batch``
+        cuts them, from the static weight and pad rows."""
+        lo, n_own = self.rows
+        out = {}
+        for k, v in batch.items():
+            own = v.narrow(0, lo, n_own)
+            out[k] = own if self.pad is None else torch.cat([own, self.pad])
+        out["weight"] = self.weight
+        return out
+
     # -- buffers
+    def _load_block(self, planes, b: int) -> None:
+        """The mesh body's static buffers for a global batch of ``b``
+        rows: ``mesh.shard_batch``'s cut, made once on the device."""
+        first = next(iter(planes.values()))
+        spec = (b, first.shape[1], first.dtype, first.device)
+        if spec == self.block_spec:
+            return
+        per = -(-b // self.mesh.size)
+        lo = min(self.mesh.rank * per, b)
+        n_own = min(per, b - lo)
+        weight = torch.zeros(per, dtype=torch.float32)
+        weight[:n_own] = 1.0
+        self.weight = weight.to(first.device)
+        self.pad = (first.new_zeros((per - n_own, first.shape[1],
+                                     self.cfg.input_len))
+                    if n_own < per else None)
+        self.rows, self.block_spec = (lo, n_own), spec
+        self.key = None  # new static buffers: capture again
+
     def _load(self, planes, songs, starts, aug) -> int:
         n = songs.shape[0]
         dev = next(iter(planes.values())).device
+        if self.mesh is not None:
+            self._load_block(planes, songs.shape[1])
         cols = [songs, starts] + ([aug[0]] if self.augment else [])
         host_idx = torch.from_numpy(np.stack(cols, axis=1).astype(np.int64))
         if self.idx is None or self.idx.shape != host_idx.shape:
@@ -188,6 +285,9 @@ class _EpochScan:
                              "augment=False takes none")
         songs, starts = np.asarray(songs), np.asarray(starts)
         dev = next(iter(planes.values())).device
+        if self.mesh is not None and dev != self.mesh.device:
+            raise ValueError(f"the planes lie on {dev}, the mesh's rank on "
+                             f"{self.mesh.device}")
         if songs.shape[0] == 0:
             return state, torch.zeros(0, dtype=torch.float32, device=dev)
         n = self._load(planes, songs, starts, aug)
@@ -214,7 +314,7 @@ class _EpochScan:
             return
         if state.acc_grads is not None:
             _accumulator(state, state.acc_grads)  # a loaded cycle
-        key = _bindings(state, planes)
+        key = _bindings(state, planes, (self.weight, self.pad))
         if key != self.key:
             self._capture(state, planes, generator)
             self.key = key

@@ -78,8 +78,8 @@ def test_train_epoch_bench_fields(resident):
         assert rate <= patches / (secs - 0.005) + 0.05
 
 
-def test_epoch_scan_is_not_yet_ported():
-    """The whole-epoch variant has come (train/scan.py, eager on the CPU):
+def test_epoch_scan_bench_fields():
+    """The whole-epoch variant (train/scan.py, eager on the CPU):
     svs_tpu's ``_scan`` fields, 3 full steps of 2 and a tail a epoch."""
     out = bm.train_epoch_bench(NARROW, batch_size=3, n_songs=2,
                                song_frames=150, epochs=1, epoch_scan=True,

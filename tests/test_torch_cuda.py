@@ -605,6 +605,50 @@ def test_capturable_adam_checkpoint_round_trip(card, tmp_path):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("forced", [False, True], ids=["plain", "forced"])
+def test_world_of_one_mesh_graph_epoch_is_the_single_graph_epoch(card,
+                                                                  forced):
+    """A world of one over NCCL: the mesh epoch's replays (plainly, and
+    with the step's collectives forced on: NCCL's all-reduces of one rank
+    recorded into the graph) give the losses and state of the
+    single-device graph epoch of the same batches with the all-ones
+    ``weight`` that ``shard_batch`` appends, bit for bit (``pallas_fused``,
+    dropout on, bf16 convs, cuDNN deterministic)."""
+    import contextlib
+
+    import torch.distributed as dist
+
+    import chip_smoke
+    from svs_torch.parallel import dp
+    from svs_torch.parallel import mesh as mesh_lib
+    from svs_torch.train import scan as tscan
+
+    cfg, planes, songs, starts, (single, meshed) = _scan_setup(
+        card, "pallas_fused")
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    mesh = mesh_lib.make_mesh()
+    try:
+        with chip_smoke.weighted_single():
+            single, want = tscan.make_epoch_scan(cfg)(
+                single, planes, songs, starts,
+                torch.Generator(card).manual_seed(1))
+        with (chip_smoke.forced_collectives() if forced
+              else contextlib.nullcontext()):
+            epoch = tscan.make_epoch_scan(cfg, mesh=mesh)
+            meshed, got = epoch(meshed, planes, songs, starts,
+                                torch.Generator(card).manual_seed(1))
+            torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = was
+    assert epoch.captures == 1 and epoch.replays == SCAN_STEPS - 1
+    assert torch.equal(got, want)
+    for a, b in zip(dp._state_tensors(single), dp._state_tensors(meshed)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_world_of_one_sharded_steps_are_make_train_steps_bits(card):
     """A world of one over NCCL: the ZeRO-1 and FSDP steps under
     ``pallas_fused`` (dropout on, bf16 convs, cuDNN deterministic) are

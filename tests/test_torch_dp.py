@@ -475,13 +475,29 @@ def test_make_mesh_alone_is_a_world_of_one():
         dist.destroy_process_group()
 
 
-def test_train_cli_epoch_scan_with_dp_is_not_ported(capsys):
-    with pytest.raises(SystemExit) as err:
-        train_cli.main(["--label", "x", "--device", "cpu", "--dp",
-                        "--epoch_scan"])
-    assert err.value.code == 2
-    assert "ROADMAP A.10.2" in capsys.readouterr().err
-    # with ZeRO-1 it stays refused, with svs_tpu's message
+def test_train_cli_epoch_scan_with_dp_is_not_ported(songs, tmp_path,
+                                                    capsys):
+    """Ported since (the name is kept): ``train_cli --dp --epoch_scan`` on
+    a world of one writes ``train_cli --dp``'s log, bit for bit, at the
+    default preset's full width, float32, a full batch of 3 and a tail of
+    one; with ZeRO-1 it stays refused, with svs_tpu's message."""
+    import torch.distributed as dist
+
+    def argv(label):
+        return ["--label", label, "--train_folder", songs, "--valid_folder",
+                "none", "--load_path", str(tmp_path / "none.ckpt"),
+                "--epoch", "1", "--batch_size", "3", "--samples_per_song",
+                "2", "--dtype", "float32", "--ckpt_dir",
+                str(tmp_path / "CKPT"), "--log_dir", str(tmp_path / "LOG"),
+                "--dp", "--device", "cpu"]
+
+    try:
+        assert train_cli.main(argv("step")) == 0
+        assert train_cli.main(argv("scan") + ["--epoch_scan"]) == 0
+    finally:
+        dist.destroy_process_group()
+    got = _lines(str(tmp_path), "log_scan.txt")
+    assert got == _lines(str(tmp_path), "log_step.txt") and len(got) == 1
     with pytest.raises(SystemExit) as err:
         train_cli.main(["--label", "x", "--device", "cpu", "--dp",
                         "--zero1", "--epoch_scan"])

@@ -253,11 +253,13 @@ def test_fit_refuses_what_is_not_ported(data, tmp_path):
     # CP is ported (tests/test_torch_cp.py): it needs a data mesh
     with pytest.raises(ValueError, match="needs a data mesh"):
         _port_fit(songs, init, str(tmp_path), parallel="cp")
-    # the device_put hook and multi-host runs are ported
-    # (test_device_put_hook_gives_the_default_dp_fits_bits,
-    # tests/test_torch_multihost.py); epoch_scan over a mesh is not
-    with pytest.raises(NotImplementedError, match="ROADMAP A[.]10[.]2\\)"):
-        _port_fit(songs, init, str(tmp_path), mesh=one, epoch_scan=True)
+    # the device_put hook, multi-host runs and epoch_scan over a mesh are
+    # ported (test_device_put_hook_gives_the_default_dp_fits_bits,
+    # tests/test_torch_multihost.py, tests/test_torch_scan_mesh.py); the
+    # mesh scan refuses the host dataset that the device_put hook keeps
+    with pytest.raises(ValueError, match="not cp/tp/zero1/fsdp"):
+        _port_fit(songs, init, str(tmp_path), mesh=one, epoch_scan=True,
+                  device_put=lambda b: shard_batch(one, b))
     with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         _port_fit(songs, init, str(tmp_path), mesh=object())
 
@@ -321,7 +323,8 @@ MULTIHOST_REFUSALS = {
 
 @pytest.mark.parametrize("flag,item", [
     (["--multihost"], "A.10.7"), (["--coordinator", "h:1"], "A.10.7"),
-    (["--dp", "--epoch_scan"], "A.10.2"), (["--cp", "--dp"], "A.10.6"),
+    (["--dp", "--epoch_scan", "--tp", "1"], "A.10.2"),
+    (["--cp", "--dp"], "A.10.6"),
     (["--tp", "2"], "A.10.4"), (["--pp", "--accum", "2"], "A.10.5"),
     (["--zero1"], "A.10.3"), (["--fsdp"], "A.10.3"),
     (["--num_hosts", "2"], "A.10.7"), (["--host_id", "1"], "A.10.7"),
@@ -359,7 +362,11 @@ def test_train_cli_unported_flags_exit_2(flag, item, capsys, monkeypatch):
         # svs_tpu's does
         assert "--cp is mutually exclusive with --dp/--tp" in said
     else:
-        assert f"ROADMAP {item})" in said
+        # ported (tests/test_torch_scan_mesh.py): --dp --epoch_scan trains;
+        # with --tp it exits 2 in svs_tpu's words
+        assert item == "A.10.2"
+        assert "--epoch_scan with --tp" in said
+        assert "not cp/tp/zero1/fsdp" in said
 
 
 def test_remat_gives_the_same_loss_and_gradients():

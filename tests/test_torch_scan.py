@@ -19,7 +19,8 @@ graph's per-step body eagerly.
   augmentation; a resumed scan fit equals an uninterrupted one; SIGTERM
   under the scan saves at the epoch's end, exits 143 and resumes;
 - what it refuses: a host dataset (``ValueError`` in svs_tpu's words) and
-  a mesh (ROADMAP A.10).
+  a mesh that is not a ``parallel.mesh.Mesh`` (``TypeError``; the mesh
+  variant is tests/test_torch_scan_mesh.py's).
 """
 
 import os
@@ -285,5 +286,5 @@ def test_sigterm_under_epoch_scan_saves_exits_143_and_resumes(songs,
 def test_epoch_scan_refuses_a_host_dataset_and_a_mesh(songs, tmp_path):
     with pytest.raises(ValueError, match="device-resident dataset"):
         _fit(songs, str(tmp_path), epoch_scan=True, device_data="off")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         tscan.make_epoch_scan(TConfig(**NARROW), mesh=object())
