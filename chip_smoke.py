@@ -11,14 +11,17 @@ Phases, each printing what it found on its own line:
              ``svs_torch/csrc`` (one nvcc per source, all started together);
 3. kernels — each kernel against its plain PyTorch version on the card
              (TF32 off) at the main paths' shapes.  The front ends
-             ``stft_magphase`` and ``stft_magnitude`` on both routes: the
-             fft kernel at the decode shapes, at ``bench_cli
+             ``stft_magphase`` and ``stft_magnitude`` on both FFT routes:
+             the fft kernel at the decode shapes, at ``bench_cli
              --frontend``'s 240-s signal, at hop 256 and at n_fft 2048 and
-             4096, the gemm kernel at n_fft 1000, and the zero signal on
-             each; timed by device time (torch.profiler) beside their plain
-             versions, ``torch.stft`` + ``abs`` and the gemm kernel at the
-             same shapes.  The four MR-STFT loss kernels (``spectral_mag``
-             and ``loss_partials``, forward and backward) at the train
+             4096, the mixed kernel on a 4-minute song at n_fft 1000, 1536,
+             441 (odd), 999 (odd, Bluestein), 1018 (Bluestein) and 8192,
+             and the zero signal at n_fft 1024, 1000 and 999; timed by
+             device time (torch.profiler) beside their plain versions,
+             ``torch.stft`` + ``abs`` and, at an even n_fft, the gemm
+             kernel (the earlier design) at the same shapes.  The four
+             MR-STFT loss kernels (``spectral_mag`` and
+             ``loss_partials``, forward and backward) at the train
              step's shapes (B = 32, 97,536 samples, all three resolutions),
              the pp phase's microbatch (B = 8), a two-host step's rank
              (B = 16), the cp phase's whole batch
@@ -270,6 +273,8 @@ FRONTEND_SECONDS = 240
 # kernel tolerance: tests/test_pallas.py's bound for the TPU kernel against
 # the exact FFT; both sides here are f32 sums in different orders
 ATOL, RTOL = 2e-3, 1e-4
+# the front end's mixed-route case whose times the kernels line carries
+MIXED_LABEL = "4-min song, n_fft 1000 (mixed route)"
 # float32 U-Net, cuDNN (TF32 off) against oneDNN on the CPU: the same sums
 # in other orders through 12 conv layers; the sigmoid's slope is <= 1/4
 UNET_F32_ATOL = 1e-4
@@ -503,11 +508,37 @@ def loss_times(torch, np, cdm, cfl) -> dict:
     return out
 
 
+def mixed_ops(cdsp, n_fft: int, n_frames: int, per_bin: int) -> float:
+    """Real operations of the mixed kernel's plan over ``n_frames`` frames:
+    the window multiply, each pass's butterflies and twiddles (and for
+    Bluestein the chirp, both L-point transforms, the filter and the
+    post-chirp), the split step and the epilogue."""
+    plan = cdsp.mixed_plan(n_fft)
+
+    def butterfly(r: int) -> int:
+        if r % 2:   # dft_odd: sums, differences, 2 FMAs a term of each sum
+            h = (r - 1) // 2
+            return 8 * h * h + 10 * h
+        return {2: 4, 4: 16, 8: 56}[r]
+
+    passes = sum(plan.q // r * (butterfly(r) + 6 * (r - 1))
+                 for r, _ in plan.passes)
+    if plan.bluestein:
+        # chirp, forward and inverse transforms, filter, post-chirp
+        passes = 2 * passes + 6 * plan.q + 12 * plan.p
+    n_seq = -(-n_frames // plan.frames_per_seq)
+    n_bins = n_fft // 2 + 1
+    split = 8 if n_fft % 2 else 16
+    return n_seq * passes + n_frames * (n_fft + (split + per_bin) * n_bins)
+
+
 def frontend_phase(torch, np, cdsp, phase: bool):
     """The front-end kernels against their plain versions: ``stft_magphase``
-    (``phase``) or ``stft_magnitude``, on the fft route (power-of-two n_fft)
-    and the gemm route (n_fft 1000), with the gemm kernel timed beside the
-    fft kernel at the same shapes; returns the JSON entry."""
+    (``phase``) or ``stft_magnitude``, on the fft route (power-of-two n_fft
+    in [64, 4096]) and the mixed route (n_fft 1000, 1536, 441, 999, 1018,
+    8192: 7-smooth, odd and Bluestein plans), with the gemm kernel (the
+    earlier design) timed beside each even n_fft at the same shape; returns
+    the JSON entry."""
     rng = np.random.default_rng(0)
 
     def signal(n_samples: int, bucket: int = 1 << 18):
@@ -516,18 +547,26 @@ def frontend_phase(torch, np, cdsp, phase: bool):
         y[:n_samples] = rng.standard_normal(n_samples) * 0.3
         return torch.from_numpy(y).cuda()
 
+    song = signal(4 * 60 * SR)
     cases = [
         # (label, signal, n_fft, hop)
-        ("decode 4-min song, default", signal(4 * 60 * SR), 1024, 768),
+        ("decode 4-min song, default", song, 1024, 768),
         ("main-path 60-s song, default", signal(SONG_SECONDS * SR), 1024, 768),
         ("hq44k 60-s song, hop 256 (K=4)", signal(60 * 44100), 1024, 256),
-        ("4-min song, n_fft 2048", signal(4 * 60 * SR), 2048, 512),
-        ("4-min song, n_fft 4096", signal(4 * 60 * SR), 4096, 1024),
-        ("4-min song, n_fft 1000 (gemm route)", signal(4 * 60 * SR), 1000,
-         250),
+        ("4-min song, n_fft 2048", song, 2048, 512),
+        ("4-min song, n_fft 4096", song, 4096, 1024),
+        (MIXED_LABEL, song, 1000, 250),
+        ("4-min song, n_fft 1536 (mixed route)", song, 1536, 384),
+        ("4-min song, n_fft 441 (mixed route, odd)", song, 441, 110),
+        ("4-min song, n_fft 999 (mixed route, odd, Bluestein)", song, 999,
+         256),
+        ("4-min song, n_fft 1018 (mixed route, Bluestein)", song, 1018, 256),
+        ("4-min song, n_fft 8192 (mixed route)", song, 8192, 2048),
         ("zero signal", torch.zeros(1 << 18, device="cuda"), 1024, 768),
         ("zero signal, n_fft 1000", torch.zeros(1 << 18, device="cuda"),
          1000, 250),
+        ("zero signal, n_fft 999", torch.zeros(1 << 18, device="cuda"),
+         999, 256),
     ]
     if phase:
         name, main_label = "stft_magphase", "decode 4-min song, default"
@@ -538,16 +577,18 @@ def frontend_phase(torch, np, cdsp, phase: bool):
         kernel = cdsp.stft_magnitude
         cases.append((main_label, signal(FRONTEND_SECONDS * SR, bucket=1),
                       1024, 768))
+    routes = ("fft", "mixed", "gemm")
     max_err = 0.0
     timing = {}
     for label, y, n_fft, hop in cases:
         via = cdsp.route(n_fft)
         plain = cdsp.plain_for(n_fft, phase)
-        routes = (cdsp.fft_launches, cdsp.gemm_launches)
+        before = [getattr(cdsp, f"{r}_launches") for r in routes]
         got = kernel(y, n_fft, hop)
         torch.cuda.synchronize()
-        moved = (cdsp.fft_launches - routes[0], cdsp.gemm_launches - routes[1])
-        check(moved == ((1, 0) if via == "fft" else (0, 1)),
+        moved = [getattr(cdsp, f"{r}_launches") - c
+                 for r, c in zip(routes, before)]
+        check(moved == [int(r == via) for r in routes],
               f"{name} {label}: one launch on the {via} route")
         want = plain(y, n_fft, hop)
         if phase:
@@ -586,11 +627,15 @@ def frontend_phase(torch, np, cdsp, phase: bool):
                 y, n_fft, hop, window=window, center=True,
                 pad_mode="constant", return_complex=True).abs(),
         }
-        if via == "fft":
+        if n_fft % 2 == 0:
             # the gemm design at the same shape, through its C entry
             runs["earlier_ms"] = lambda: cdsp.launch(y, n_fft, hop, phase,
                                                      "gemm")
-        t = {k: device_ms(torch, fn) for k, fn in runs.items()}
+        # the plain versions launch hundreds of small kernels a call, whose
+        # traces take seconds to read: 5 calls of them
+        t = {k: device_ms(torch, fn, **({"reps": 5, "warmup": 1}
+                                         if k == "plain_ms" else {}))
+             for k, fn in runs.items()}
         # the same calls back to back by CUDA events: for a kernel of tens
         # of microseconds this reads the host's enqueue, not the card
         t["event_ms"] = cuda_ms(torch, runs["ms"])
@@ -617,10 +662,9 @@ def frontend_phase(torch, np, cdsp, phase: bool):
             form = n_frames * (n_fft + 5 * m * math.log2(m) + 16 * (m - 1)
                                + per_bin * n_bins)
         else:
-            # the DFT as a GEMM: a multiply and an add per tap for each of
-            # the n_fft real values of a frame's spectrum, and the basis
-            form = 2 * n_frames * n_fft * n_fft
-            bytes_ += 4 * n_fft * n_fft
+            # the mixed kernel's plan: its passes' real operations (both
+            # L-point transforms for Bluestein), the pack and the split
+            form = mixed_ops(cdsp, n_fft, n_frames, per_bin)
         t["formulation_bound_ms"] = max(form / PEAK_F32_FLOPS,
                                         bytes_ / PEAK_BYTES) * 1e3
         t["formulation_gflop"] = form / 1e9
@@ -629,15 +673,23 @@ def frontend_phase(torch, np, cdsp, phase: bool):
                              route=via)
     main = timing[main_label]
     for label, t in timing.items():
-        if t["route"] == "fft" and t["n_fft"] == 1024:
-            print(f"kernel {name} {label}: fft {t['ms']:.5f} ms, gemm "
-                  f"{t['earlier_ms']:.5f} ms ({t['earlier_ms'] / t['ms']:.2f}x)"
-                  f", torch.stft + abs {t['library_ms']:.5f} ms "
-                  f"({t['library_ms'] / t['ms']:.2f}x)")
+        if "earlier_ms" in t and (t["route"] == "mixed" or t["n_fft"] == 1024):
+            print(f"kernel {name} {label}: {t['route']} {t['ms']:.5f} ms, "
+                  f"gemm {t['earlier_ms']:.5f} ms "
+                  f"({t['earlier_ms'] / t['ms']:.2f}x), torch.stft + abs "
+                  f"{t['library_ms']:.5f} ms "
+                  f"({t['library_ms'] / t['ms']:.2f}x), bound "
+                  f"{t['bound_ms']:.5f} ms ({t['ms'] / t['bound_ms']:.2f}x)")
+    mixed = timing[MIXED_LABEL]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "earlier_ms", "formulation_bound_ms", "event_ms")
     return {
         "name": name,
         "route": "cuda",
         "source": "svs_torch/csrc/stft_fft.cu",
+        "sources": {"fft": "svs_torch/csrc/stft_fft.cu",
+                    "mixed": "svs_torch/csrc/stft_mixed.cu",
+                    "gemm": "svs_torch/csrc/stft_magphase.cu"},
         "replaces": ("svs_tpu/ops/pallas/dsp.py:179" if phase
                      else "svs_tpu/ops/pallas/dsp.py:115"),
         "launches": None,  # filled from the main path's run
@@ -650,11 +702,16 @@ def frontend_phase(torch, np, cdsp, phase: bool):
         "library": "torch.stft (cuFFT) + abs",
         "earlier_ms": main["earlier_ms"],
         "earlier": ("the gemm design (svs_torch/csrc/stft_magphase.cu, now "
-                    "the route for n_fft that is no power of two), same "
-                    "shape, same run"),
+                    "the route of an even n_fft above 16384), same shape, "
+                    "same run"),
         "formulation_bound_ms": main["formulation_bound_ms"],
-        "timing": "device time per call, torch.profiler, 20 calls",
+        "timing": ("device time per call, torch.profiler, 20 calls (the "
+                   "plain version 5)"),
         "shape": {"samples": main["samples"], "n_fft": 1024, "hop": 768},
+        # the mixed route (every other n_fft up to 16384) at n_fft 1000
+        "mixed": dict({k: mixed[k] for k in keys},
+                      shape={"samples": mixed["samples"], "n_fft": 1000,
+                             "hop": 250}),
         "other_shapes": {k: v for k, v in timing.items() if k != main_label},
     }
 
@@ -2929,14 +2986,15 @@ def slice_phase(torch, np, work: str):
     stages["to_wave_s"] = time.perf_counter() - t0
     check(rc == 0, "data_cli to_wave exit code 0")
     launches = {"stft_magphase": cdsp.launches}
-    routes = {"fft": cdsp.fft_launches, "gemm": cdsp.gemm_launches}
+    routes = {r: getattr(cdsp, f"{r}_launches")
+              for r in ("fft", "mixed", "gemm")}
     print("slice stages: " + json.dumps(stages))
     print("slice launches: " + json.dumps(launches) + ", by route "
           + json.dumps(routes))
     check(launches["stft_magphase"] == 2 * N_SONGS,
           f"stft_magphase launched twice per song (mixture and vocals): "
           f"{launches['stft_magphase']} for {N_SONGS} songs")
-    check(routes == {"fft": 2 * N_SONGS, "gemm": 0},
+    check(routes == {"fft": 2 * N_SONGS, "mixed": 0, "gemm": 0},
           "to_spec went through the fft route only")
 
     n_frames = 1 + SONG_SECONDS * SR // cfg.hop_size
@@ -3390,11 +3448,12 @@ def bench_phase(torch, np, spec: str):
     zero()
     front = run_cli(bench_cli.main, ["--frontend", "--device", "cuda"])
     launches = counts()
-    routes = {"fft": cdsp.fft_launches, "gemm": cdsp.gemm_launches}
+    routes = {r: getattr(cdsp, f"{r}_launches")
+              for r in ("fft", "mixed", "gemm")}
     seconds["frontend_s"] = time.perf_counter() - t0
     print("bench --frontend launches: " + json.dumps(launches)
           + ", front ends by route " + json.dumps(routes))
-    check(routes == {"fft": 204, "gemm": 0},
+    check(routes == {"fft": 204, "mixed": 0, "gemm": 0},
           "bench --frontend went through the fft route only")
     # one warm-up, 100 timed calls and one for the error, each front end
     check(launches["stft_magnitude"] == 102

@@ -1,5 +1,5 @@
-// The STFT front ends' epilogue, shared by both routes (stft_fft.cu and
-// stft_magphase.cu), so that the magnitude of stft_magnitude is the same
+// The STFT front ends' epilogue, shared by the three routes (stft_fft.cu,
+// stft_mixed.cu and stft_magphase.cu), so that the magnitude of stft_magnitude is the same
 // bits as stft_magphase's: |X| and, with kPhase, the unit phase of one bin
 // of one frame, as svs_tpu/ops/pallas/dsp.py:165-174 computes them.
 #pragma once

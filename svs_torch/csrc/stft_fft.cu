@@ -1,8 +1,9 @@
 // Fused STFT front end for Hopper (sm_90a), true float32, as a real FFT in
 // shared memory: magnitude and phase, or magnitude alone.  The fft route,
-// for a power-of-two n_fft in [64, 4096] (every geometry the repo uses);
-// stft_magphase.cu's GEMM takes any other even n_fft (the wrapper,
-// svs_torch/ops/cuda/dsp.py, picks the route by n_fft).
+// for a power-of-two n_fft in [64, 4096] (every geometry the presets use);
+// stft_mixed.cu takes every other n_fft up to 16384 and stft_magphase.cu's
+// GEMM an even one above (the wrapper, svs_torch/ops/cuda/dsp.py, picks
+// the route by n_fft).
 //
 // Replaces two TPU kernels of svs_tpu/ops/pallas/dsp.py:
 // - stft_magphase (_stft_magphase_kernel): centre constant pad,
@@ -48,6 +49,7 @@
 
 #include <cuda_runtime.h>
 
+#include "fft_radix.cuh"
 #include "stft_epilogue.cuh"
 
 namespace {
@@ -70,70 +72,6 @@ struct Tile {
 };
 
 __device__ __forceinline__ int pad(int i) { return i + (i >> 3); }
-
-__device__ __forceinline__ void cmul(float& r, float& i, float2 w) {
-  const float t = r * w.x - i * w.y;
-  i = r * w.y + i * w.x;
-  r = t;
-}
-
-__device__ __forceinline__ void fft2(float& ar, float& ai, float& br,
-                                     float& bi) {
-  const float tr = ar - br, ti = ai - bi;
-  ar = ar + br;
-  ai = ai + bi;
-  br = tr;
-  bi = ti;
-}
-
-// 4-point DFT in place of r[0..3], i[0..3], natural order in and out
-__device__ __forceinline__ void fft4(float* r, float* i) {
-  fft2(r[0], i[0], r[2], i[2]);
-  fft2(r[1], i[1], r[3], i[3]);
-  const float t = r[3];  // (u1 - u3) * -i
-  r[3] = i[3];
-  i[3] = -t;
-  fft2(r[0], i[0], r[1], i[1]);  // U0, U2
-  fft2(r[2], i[2], r[3], i[3]);  // U1, U3
-  float s = r[1];
-  r[1] = r[2];
-  r[2] = s;
-  s = i[1];
-  i[1] = i[2];
-  i[2] = s;
-}
-
-// 8-point DFT in place of r[0..7], i[0..7]: a radix-2 split into two
-// 4-point DFTs, the odd half turned by W8^1, W8^2 = -i and W8^3 first
-__device__ __forceinline__ void fft8(float* r, float* i) {
-  constexpr float c = 0.70710678118654752f;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) fft2(r[k], i[k], r[k + 4], i[k + 4]);
-  float t = r[5];
-  r[5] = c * (t + i[5]);
-  i[5] = c * (i[5] - t);
-  t = r[6];
-  r[6] = i[6];
-  i[6] = -t;
-  t = r[7];
-  r[7] = c * (i[7] - t);
-  i[7] = -c * (t + i[7]);
-  fft4(r, i);
-  fft4(r + 4, i + 4);
-  float sr[8], si[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    sr[k] = r[k];
-    si[k] = i[k];
-  }
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    r[2 * k] = sr[k];
-    i[2 * k] = si[k];
-    r[2 * k + 1] = sr[k + 4];
-    i[2 * k + 1] = si[k + 4];
-  }
-}
 
 // The Stockham pass of radix R after passes whose radices multiply to Ns,
 // then the passes after it.  Thread t of a frame holds butterflies

@@ -1,7 +1,9 @@
 // Fused STFT front end for Hopper (sm_90a), true float32: magnitude and
 // phase, or magnitude alone.  The gemm route: the kernel for an even n_fft
-// that is no power of two in [64, 4096]; stft_fft.cu's real FFT takes
-// those (the wrapper, svs_torch/ops/cuda/dsp.py, picks by n_fft).
+// above 16384, and the earlier design that the FFT routes are timed
+// against; stft_fft.cu's real FFT takes a power of two in [64, 4096] and
+// stft_mixed.cu every other n_fft up to 16384 (the wrapper,
+// svs_torch/ops/cuda/dsp.py, picks by n_fft).
 //
 // Replaces two TPU kernels of svs_tpu/ops/pallas/dsp.py:
 // - stft_magphase (_stft_magphase_kernel): centre constant pad,

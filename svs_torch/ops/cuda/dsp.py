@@ -11,7 +11,7 @@ Replaces two TPU kernels of ``svs_tpu/ops/pallas/dsp.py``:
 - ``stft_magnitude`` (``_stft_mag_kernel``, pallas_call at dsp.py:134): the
   same front end, ``mag`` alone (the ``bench_cli --frontend`` path).
 
-Two routes, picked from ``n_fft`` alone before anything is launched
+Three routes, picked from ``n_fft`` alone before anything is launched
 (:func:`route`), each one kernel template with a magnitude-only instance:
 
 - ``fft`` (power-of-two ``n_fft`` from 64 to 4096, every geometry the repo
@@ -22,30 +22,41 @@ Two routes, picked from ``n_fft`` alone before anything is launched
   ``n_fft/2 + 1`` bins.  The function is bound by its bytes (the signal
   read once, one or three planes written once): ~7.5 us at the 4-minute
   decode shape on an H100 SXM, where the FFT's ~82 MFLOP take ~1.2 us at
-  the f32 peak.  Its outputs are views of rows padded to a multiple of 8
-  frames (:func:`launch`).
-- ``gemm`` (any other even ``n_fft``, e.g. ``data_cli --win_size 1000``):
-  an implicit-framing FFMA GEMM against one basis whose column pairs are
-  the cosine and sine of a bin (:func:`paired_basis`),
-  ``svs_torch/csrc/stft_magphase.cu``; bound by its n_fft-deep f32 FMA
-  work (~86 us at the decode shape).
+  the f32 peak.
+- ``mixed`` (every other ``n_fft`` from 2 to 16,384, odd ones included,
+  e.g. ``data_cli --win_size 1000`` or ``999``): a shared-memory FFT over a
+  pass plan chosen on the host (:func:`mixed_plan`),
+  ``svs_torch/csrc/stft_mixed.cu``.  An even ``n_fft`` packs a frame as
+  ``n_fft/2`` complex values, an odd one packs two frames as the real and
+  imaginary parts of one ``n_fft``-point sequence.  Where that length has
+  no prime factor above 7, radix-8/4/2/3/5/7 passes transform it; else
+  Bluestein's chirp turns it into a cyclic convolution of a power-of-two
+  length L >= 2P - 1 run by the same passes.
+- ``gemm`` (an even ``n_fft`` above 16,384): an implicit-framing FFMA GEMM
+  against one basis whose column pairs are the cosine and sine of a bin
+  (:func:`paired_basis`), ``svs_torch/csrc/stft_magphase.cu``; bound by its
+  n_fft-deep f32 FMA work.  ``launch(..., via="gemm")`` also takes smaller
+  ``n_fft``, which is how the two FFT routes are timed against it.  An odd
+  ``n_fft`` above 16,384 is refused.
 
-Both stay true float32 (no TF32), as the TPU kernels'
-``Precision.HIGHEST``; both share the epilogue
-(``csrc/stft_epilogue.cuh``), so the magnitude of ``stft_magnitude`` is
-the same bits as ``stft_magphase``'s on either route.
+All stay true float32 (no TF32), as the TPU kernels' ``Precision.HIGHEST``;
+all share the epilogue (``csrc/stft_epilogue.cuh``), so the magnitude of
+``stft_magnitude`` is the same bits as ``stft_magphase``'s on every route.
+The fft and mixed routes return views of rows padded to a multiple of 8
+frames (:func:`launch`).
 
 :func:`stft_magphase` and :func:`stft_magnitude` launch the route's kernel
 for a CUDA tensor and take the route's plain version only for a tensor on
 the CPU; a build or launch error raises.  Counts: ``launches`` and
-``mag_launches`` count every launch of the two functions, ``fft_launches``
-and ``gemm_launches`` the launches of each route.
+``mag_launches`` count every launch of the two functions, ``fft_launches``,
+``mixed_launches`` and ``gemm_launches`` the launches of each route.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Tuple
+import functools
+from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -55,24 +66,28 @@ from svs_torch.ops import stft as dsp
 from svs_torch.ops.cuda import build
 
 KERNEL = "stft_fft"            # the fft route's library
+MIXED_KERNEL = "stft_mixed"    # the mixed route's library
 GEMM_KERNEL = "stft_magphase"  # the gemm route's library
-KERNELS = (KERNEL, GEMM_KERNEL)
+KERNELS = (KERNEL, MIXED_KERNEL, GEMM_KERNEL)
 FFT_MIN, FFT_MAX = 64, 4096    # the n_fft the fft route's kernel is built for
-# the fft route's output rows are padded to a multiple of this many frames:
-# a block's 8 frames then fill one 32-byte sector of each row
+MIXED_MAX = 16384              # the largest n_fft of the mixed route
+# the fft and mixed routes' output rows are padded to a multiple of this
+# many frames: a block's 8 frames then fill one 32-byte sector of each row
 _ROW_ALIGN = 8
 _TAP_TILE = 16    # kBK in stft_magphase.cu: basis rows padded to a multiple
 _COL_TILE = 128   # kBN in stft_magphase.cu: basis columns padded likewise
 
 # launches of the CUDA kernels (plain-version calls are not counted):
-# stft_magphase's and stft_magnitude's on either route, and each route's
+# stft_magphase's and stft_magnitude's on any route, and each route's
 launches = 0
 mag_launches = 0
 fft_launches = 0
+mixed_launches = 0
 gemm_launches = 0
 
 _bases: Dict[Tuple[int, torch.device], torch.Tensor] = {}
 _tables: Dict[Tuple[int, torch.device], Tuple[torch.Tensor, torch.Tensor]] = {}
+_mixed: Dict[Tuple[int, torch.device], Dict[str, torch.Tensor]] = {}
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -80,18 +95,27 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def route(n_fft: int) -> str:
-    """``"fft"`` for a power-of-two ``n_fft`` in [64, 4096], ``"gemm"`` for
-    any other even ``n_fft``; an odd one raises ``ValueError``."""
-    if n_fft < 2 or n_fft % 2:
-        raise ValueError(f"bad geometry n_fft={n_fft} (n_fft must be even)")
+    """``"fft"`` for a power-of-two ``n_fft`` in [64, 4096], ``"mixed"`` for
+    any other ``n_fft`` in [2, 16384], odd ones included, ``"gemm"`` for an
+    even ``n_fft`` above that; anything else raises ``ValueError``."""
+    if n_fft < 2:
+        raise ValueError(f"bad geometry n_fft={n_fft} (n_fft must be at "
+                         "least 2)")
     if FFT_MIN <= n_fft <= FFT_MAX and n_fft & (n_fft - 1) == 0:
         return "fft"
-    return "gemm"
+    if n_fft <= MIXED_MAX:
+        return "mixed"
+    if n_fft % 2 == 0:
+        return "gemm"
+    raise ValueError(f"odd n_fft={n_fft} above {MIXED_MAX}: the mixed route "
+                     f"takes odd n_fft up to {MIXED_MAX}, the gemm route even "
+                     "ones only")
 
 
 def reset_counts() -> None:
-    global launches, mag_launches, fft_launches, gemm_launches
-    launches = mag_launches = fft_launches = gemm_launches = 0
+    global launches, mag_launches, fft_launches, mixed_launches, gemm_launches
+    launches = mag_launches = fft_launches = mixed_launches = 0
+    gemm_launches = 0
 
 
 # ----------------------------------------------------------------- gemm route
@@ -185,6 +209,7 @@ def stft_magphase_plain(y: torch.Tensor, n_fft: int = 1024,
     needs ``torch.backends.cuda.matmul.allow_tf32 = False`` to stay true
     f32.  Any even ``n_fft``: it is also the function's reference."""
     _check(y, n_fft, hop_length, "stft_magphase")
+    _check_gemm(n_fft)
     return _epilogue(*_spectrum_plain(y, n_fft, hop_length))
 
 
@@ -194,8 +219,14 @@ def stft_magnitude_plain(y: torch.Tensor, n_fft: int = 1024,
     same framing and basis as an f32 ``torch.matmul``, then sqrt(re^2 +
     im^2) (TF32 off on the card, as :func:`stft_magphase_plain`)."""
     _check(y, n_fft, hop_length, "stft_magnitude")
+    _check_gemm(n_fft)
     re, im = _spectrum_plain(y, n_fft, hop_length)
     return _magnitude(re, im)
+
+
+def _check_gemm(n_fft: int) -> None:
+    if n_fft % 2:
+        raise ValueError(f"the gemm route takes an even n_fft, not {n_fft}")
 
 
 # ------------------------------------------------------------------ fft route
@@ -347,13 +378,337 @@ def _check_fft(n_fft: int) -> None:
                          f"[{FFT_MIN}, {FFT_MAX}], not {n_fft}")
 
 
+# ---------------------------------------------------------------- mixed route
+
+_PACK = 16            # about the points a thread transforms in a pass
+_BLOCK_FRAMES = 8     # frames a block, where they fit
+_SMEM_MAX = 232_448   # the shared memory a block may opt in to (bytes)
+
+
+class MixedPlan(NamedTuple):
+    """The mixed route's plan for one ``n_fft``: ``p`` points of the packed
+    complex sequence (n_fft/2 for an even n_fft, a frame a sequence; n_fft
+    for an odd one, two frames a sequence), ``q`` the length the passes
+    transform (``p``, or Bluestein's power of two L >= 2p - 1) and the
+    (radix, Ns) of each of its decimation-in-time passes."""
+    n_fft: int
+    p: int
+    q: int
+    passes: Tuple[Tuple[int, int], ...]
+
+    @property
+    def bluestein(self) -> bool:
+        return self.q != self.p
+
+    @property
+    def frames_per_seq(self) -> int:
+        return 2 if self.n_fft % 2 else 1
+
+
+def mixed_passes(q: int) -> List[Tuple[int, int]]:
+    """(radix, Ns) of each decimation-in-time pass of the kernel's q-point
+    FFT, :func:`fft_passes` widened to the factors 3, 5 and 7: radix 8
+    while 8 divides what is left, then one radix-2 or radix-4 pass, then
+    the 3s, 5s and 7s; Ns is the product of the earlier passes' radices.
+    A q with a prime factor above 7 raises ``ValueError``."""
+    rest, radices = q, []
+    while rest % 8 == 0:
+        radices.append(8)
+        rest //= 8
+    if rest % 4 == 0 or rest % 2 == 0:
+        radices.append(4 if rest % 4 == 0 else 2)
+        rest //= radices[-1]
+    for r in (3, 5, 7):
+        while rest % r == 0:
+            radices.append(r)
+            rest //= r
+    if rest != 1:
+        raise ValueError(f"{q} has a prime factor above 7")
+    out, ns = [], 1
+    for r in radices:
+        out.append((r, ns))
+        ns *= r
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def mixed_plan(n_fft: int) -> MixedPlan:
+    """The pass plan of the mixed route at ``n_fft``: the packed length p's
+    own passes where p is 7-smooth, else Bluestein's with the power of two
+    L >= 2p - 1."""
+    if route(n_fft) != "mixed":
+        raise ValueError(f"the mixed route takes n_fft in [2, {MIXED_MAX}] "
+                         f"that the fft route does not, not {n_fft}")
+    p = n_fft // 2 if n_fft % 2 == 0 else n_fft
+    try:
+        return MixedPlan(n_fft, p, p, tuple(mixed_passes(p)))
+    except ValueError:
+        q = 1 << (2 * p - 2).bit_length()
+        return MixedPlan(n_fft, p, q, tuple(mixed_passes(q)))
+
+
+def dit_order(q: int, passes) -> np.ndarray:
+    """(q,) int32: where the decimation-in-time passes want input point n
+    so that they leave the transform in natural order, the digit reversal
+    of n over the plan's radices.  The decimation-in-frequency passes of
+    the mirrored plan (Bluestein's forward transform) leave bin k there."""
+    n = np.arange(q)
+    pos, weight = np.zeros(q, np.int64), q
+    for radix, _ in reversed(passes):
+        weight //= radix
+        pos += (n % radix) * weight
+        n = n // radix
+    return pos.astype(np.int32)
+
+
+def mixed_tables(n_fft: int) -> Dict[str, np.ndarray]:
+    """The mixed kernel's tables, float64 rounded to f32 (pairs are (re,
+    im) rows): ``window`` (n_fft,); ``tw`` (q, 2), exp(-2 pi i k / q);
+    ``split`` (p, 2), exp(-2 pi i k / n_fft) for the even split step;
+    ``perm`` (q,) int32, :func:`dit_order`; and for Bluestein ``chirp``
+    (p, 2), exp(-i pi n^2 / p) with n^2 taken mod 2p in integers, and
+    ``filt`` (q, 2), the FFT of the chirp filter conj(chirp) laid out
+    circularly, over q (the inverse transform's scale), in ``perm``'s
+    order.  Empty (0, 2) tables where the plan has no use for them."""
+    plan = mixed_plan(n_fft)
+    p, q = plan.p, plan.q
+
+    def pairs(z: np.ndarray) -> np.ndarray:
+        return np.stack([z.real, z.imag], axis=1).astype(np.float32)
+
+    empty = np.zeros((0, 2), np.float32)
+    perm = dit_order(q, plan.passes)
+    out = {
+        "window": hann(n_fft),
+        "tw": pairs(np.exp(-2j * np.pi * np.arange(q) / q)),
+        "split": (pairs(np.exp(-2j * np.pi * np.arange(p) / n_fft))
+                  if n_fft % 2 == 0 else empty),
+        "perm": perm,
+        "chirp": empty,
+        "filt": empty,
+    }
+    if plan.bluestein:
+        n2 = np.arange(p, dtype=np.int64) ** 2 % (2 * p)
+        chirp = np.exp(-1j * np.pi * n2 / p)
+        b = np.zeros(q, np.complex128)
+        b[:p] = np.conj(chirp)
+        b[q - p + 1:] = np.conj(chirp[1:])[::-1]
+        filt = np.empty(q, np.complex128)
+        filt[perm] = np.fft.fft(b) / q
+        out["chirp"], out["filt"] = pairs(chirp), pairs(filt)
+    return out
+
+
+def _device_mixed(n_fft: int, device: torch.device) -> Dict[str, torch.Tensor]:
+    """The mixed kernel's tables on ``device``, uploaded once per (n_fft,
+    device)."""
+    key = (n_fft, device)
+    if key not in _mixed:
+        _mixed[key] = {k: torch.from_numpy(v).to(device)
+                       for k, v in mixed_tables(n_fft).items()}
+    return _mixed[key]
+
+
+def seq_pairs(q: int) -> int:
+    """(re, im) pairs from one sequence's plane to the next in the kernel:
+    point i lives at i + i/16, so strided passes spread over the banks, and
+    the count is odd, so the epilogue's reads of one bin across sequences
+    fall in different banks."""
+    return (q + q // 16) | 1
+
+
+class MixedGeometry(NamedTuple):
+    """A mixed launch's shape: ``threads`` a sequence, ``seqs`` sequences a
+    block, ``smem`` dynamic shared memory a block (bytes), ``scratch``,
+    whether the planes outgrow it and live in device memory instead, and
+    ``staged``, whether the frames' signal span fits beside the planes."""
+    threads: int
+    seqs: int
+    smem: int
+    scratch: bool
+    staged: bool
+
+
+@functools.lru_cache(maxsize=None)
+def mixed_geometry(plan: MixedPlan, hop_length: int) -> MixedGeometry:
+    """The launch shape the mixed kernel takes at ``plan``, with its shared
+    memory as ``stft_mixed.cu``'s ``dispatch`` computes it: about 16 of
+    the q points a thread, and as many sequences a block as give 8 frames
+    (the fft route's block at n_fft 1024) within 1,024 threads and a
+    block's 227 KB; the planes first, then the frames' signal span where
+    it fits.  Only the planes of Bluestein's L = 32,768 (an odd n_fft
+    above 8,192 with a prime factor above 7) outgrow a block's 227 KB; they
+    live in a device-memory scratch."""
+    threads = min(1024, max(32, _cdiv(_cdiv(plan.q, _PACK), 32) * 32))
+    scratch = 8 * seq_pairs(plan.q) > _SMEM_MAX
+    stride = min(hop_length, plan.n_fft)
+
+    def sizes(seqs: int) -> Tuple[int, bool]:
+        planes = 0 if scratch else 8 * seqs * seq_pairs(plan.q)
+        span = 4 * ((seqs * plan.frames_per_seq - 1) * stride + plan.n_fft)
+        staged = planes + span <= _SMEM_MAX
+        return (planes + span if staged else planes), staged
+
+    seqs = max(1, min(_BLOCK_FRAMES // plan.frames_per_seq, 1024 // threads))
+    while seqs > 1 and sizes(seqs)[0] > _SMEM_MAX:
+        seqs -= 1
+    smem, staged = sizes(seqs)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"n_fft={plan.n_fft} hop={hop_length} needs {smem} "
+                         f"bytes of shared memory a block, more than "
+                         f"{_SMEM_MAX}")
+    return MixedGeometry(threads, seqs, smem, scratch, staged)
+
+
+_C = {r: (np.cos(2 * np.pi * np.arange(r) / r).astype(np.float32),
+          np.sin(2 * np.pi * np.arange(r) / r).astype(np.float32))
+      for r in (3, 5, 7)}
+
+
+def _odd_dft(radix: int, r, i):
+    """radix-point DFT (3, 5 or 7) of lists ``r``, ``i``, the kernel's
+    ``dft_odd``: the sums and differences of points j and radix - j, then
+    each pair of outputs k, radix - k from one cosine and one sine sum."""
+    cos, sin = _C[radix]
+    h = (radix - 1) // 2
+    sr = [r[j] + r[radix - j] for j in range(1, h + 1)]
+    si = [i[j] + i[radix - j] for j in range(1, h + 1)]
+    dr = [r[j] - r[radix - j] for j in range(1, h + 1)]
+    di = [i[j] - i[radix - j] for j in range(1, h + 1)]
+    yr, yi = [None] * radix, [None] * radix
+    yr[0], yi[0] = r[0], i[0]
+    for j in range(h):
+        yr[0], yi[0] = yr[0] + sr[j], yi[0] + si[j]
+    for k in range(1, h + 1):
+        ar, ai, br, bi = r[0], i[0], 0.0, 0.0
+        for j in range(1, h + 1):
+            c, s = float(cos[j * k % radix]), float(sin[j * k % radix])
+            ar, ai = ar + c * sr[j - 1], ai + c * si[j - 1]
+            br, bi = br + s * dr[j - 1], bi + s * di[j - 1]
+        yr[k], yi[k] = ar + bi, ai - br
+        yr[radix - k], yi[radix - k] = ar - bi, ai + br
+    return yr, yi
+
+
+def _mixed_butterfly(radix: int, r, i):
+    return _odd_dft(radix, r, i) if radix % 2 else _butterfly(radix, r, i)
+
+
+def _cmul(ar, ai, w):
+    return ar * w[:, 0] - ai * w[:, 1], ar * w[:, 1] + ai * w[:, 0]
+
+
+def _run_passes(zr, zi, passes, tw, dit: bool):
+    """The kernel's ``run_passes`` over rows of (n, q) planes, in place at
+    g Ns R + r Ns + b for butterfly b of block g.  Decimation in time (the
+    plan's passes in order, digit-reversed in, natural order out) turns
+    point r by W_{Ns R}^{r b} before the R-point DFT; decimation in
+    frequency (the passes last to first, natural in, :func:`dit_order`
+    out) turns output r after it."""
+    n, q = zr.shape
+    for radix, ns in (passes if dit else reversed(passes)):
+        g = q // (ns * radix)
+        vr = list(zr.reshape(n, g, radix, ns).unbind(2))
+        vi = list(zi.reshape(n, g, radix, ns).unbind(2))
+        w = [tw[r * torch.arange(ns, device=zr.device) * g]
+             for r in range(radix)]
+        if dit and ns > 1:
+            for r in range(1, radix):
+                vr[r], vi[r] = _cmul(vr[r], vi[r], w[r])
+        vr, vi = _mixed_butterfly(radix, vr, vi)
+        if not dit and ns > 1:
+            for r in range(1, radix):
+                vr[r], vi[r] = _cmul(vr[r], vi[r], w[r])
+        zr = torch.stack(vr, 2).reshape(n, q)
+        zi = torch.stack(vi, 2).reshape(n, q)
+    return zr, zi
+
+
+def _spectrum_mixed_plain(y: torch.Tensor, n_fft: int, hop_length: int):
+    """re, im (n_fft//2 + 1, n_frames) by the mixed kernel's arithmetic,
+    step by step in f32 tensor ops (no ``torch.fft``): window and pack,
+    the passes (Bluestein's chirp, forward passes, filter and inverse
+    passes where the plan says), the split step."""
+    plan = mixed_plan(n_fft)
+    t = _device_mixed(n_fft, y.device)
+    p, q = plan.p, plan.q
+    xw = _frames(y, n_fft, hop_length) * t["window"]  # (n_frames, n_fft)
+    n_frames = xw.shape[0]
+    if n_fft % 2 == 0:
+        zr, zi = xw[:, 0::2], xw[:, 1::2]   # z[n] = x[2n] + i x[2n+1]
+    else:
+        # frames 2s and 2s+1 as one sequence; an odd count pairs the last
+        # frame with zeros
+        xw = F.pad(xw, (0, 0, 0, n_frames % 2))
+        zr, zi = xw[0::2], xw[1::2]
+    n = zr.shape[0]
+    if plan.bluestein:
+        zr, zi = _cmul(zr, zi, t["chirp"])
+        zr, zi = F.pad(zr, (0, q - p)), F.pad(zi, (0, q - p))
+        zr, zi = _run_passes(zr, zi, plan.passes, t["tw"], dit=False)
+        zr, zi = _cmul(zr, zi, t["filt"])
+        # conjugated, the forward passes give the inverse, conjugated
+        zr, zi = _run_passes(zr, -zi, plan.passes, t["tw"], dit=True)
+        # Z[k] = chirp[k] conj(w[k])
+        zr, zi = _cmul(zr[:, :p], -zi[:, :p], t["chirp"])
+    else:
+        perm = t["perm"].long()
+        pr, pi = zr.new_empty(n, q), zi.new_empty(n, q)
+        pr[:, perm], pi[:, perm] = zr, zi
+        zr, zi = _run_passes(pr, pi, plan.passes, t["tw"], dit=True)
+    if n_fft % 2 == 0:
+        # split: X[k] = E[k] + W^k O[k], as the fft route's
+        k = torch.arange(1, p, device=y.device)
+        ar, ai, br, bi = zr[:, k], zi[:, k], zr[:, p - k], zi[:, p - k]
+        er, ei = 0.5 * (ar + br), 0.5 * (ai - bi)
+        orr, oi = 0.5 * (ai + bi), 0.5 * (br - ar)
+        w = t["split"][k]
+        xr = er + (w[:, 0] * orr - w[:, 1] * oi)
+        xi = ei + (w[:, 0] * oi + w[:, 1] * orr)
+        r0, i0 = zr[:, :1], zi[:, :1]
+        zero = torch.zeros_like(r0)
+        re = torch.cat([r0 + i0, xr, r0 - i0], 1)
+        im = torch.cat([zero, xi, zero], 1)
+    else:
+        # X_a[k] = (Z[k] + conj Z[p-k]) / 2, X_b[k] = (Z[k] - conj Z[p-k]) / 2i
+        k = torch.arange(n_fft // 2 + 1, device=y.device)
+        pk = (p - k) % p
+        ar, ai, br, bi = zr[:, k], zi[:, k], zr[:, pk], zi[:, pk]
+        re = torch.stack([0.5 * (ar + br), 0.5 * (ai + bi)], 1)
+        im = torch.stack([0.5 * (ai - bi), 0.5 * (br - ar)], 1)
+        re = re.reshape(2 * n, -1)[:n_frames]
+        im = im.reshape(2 * n, -1)[:n_frames]
+    return re.T.contiguous(), im.T.contiguous()   # dense (n_bins, n_frames)
+
+
+def stft_magphase_mixed_plain(y: torch.Tensor, n_fft: int = 1000,
+                              hop_length: int = 250):
+    """Plain PyTorch version of the mixed route's kernel: its packing, pass
+    plan, Bluestein steps, split step and epilogue in f32 tensor ops, from
+    the kernel's own f32 tables."""
+    _check(y, n_fft, hop_length, "stft_magphase")
+    return _epilogue(*_spectrum_mixed_plain(y, n_fft, hop_length))
+
+
+def stft_magnitude_mixed_plain(y: torch.Tensor, n_fft: int = 1000,
+                               hop_length: int = 250) -> torch.Tensor:
+    """Plain PyTorch version of the mixed route's magnitude-only kernel."""
+    _check(y, n_fft, hop_length, "stft_magnitude")
+    re, im = _spectrum_mixed_plain(y, n_fft, hop_length)
+    return _magnitude(re, im)
+
+
 # ------------------------------------------------------------------ wrappers
 
 
 def plain_for(n_fft: int, phase: bool):
     """The plain version of the route that ``n_fft`` selects."""
-    if route(n_fft) == "fft":
+    via = route(n_fft)
+    if via == "fft":
         return stft_magphase_fft_plain if phase else stft_magnitude_fft_plain
+    if via == "mixed":
+        return (stft_magphase_mixed_plain if phase
+                else stft_magnitude_mixed_plain)
     return stft_magphase_plain if phase else stft_magnitude_plain
 
 
@@ -362,9 +717,9 @@ def _check(y: torch.Tensor, n_fft: int, hop_length: int, name: str) -> None:
         raise ValueError(f"{name} expects a 1-D signal")
     if y.dtype != torch.float32:
         raise TypeError(f"{name} expects float32, got {y.dtype}")
-    if n_fft < 2 or n_fft % 2 or hop_length < 1:
+    if n_fft < 2 or hop_length < 1:
         raise ValueError(f"bad geometry n_fft={n_fft} hop={hop_length} "
-                         "(n_fft must be even)")
+                         "(n_fft must be at least 2, hop at least 1)")
 
 
 def _kernel_fn(lib: str, name: str, n_tables: int, n_ints: int):
@@ -383,56 +738,99 @@ def _kernel_fn(lib: str, name: str, n_tables: int, n_ints: int):
     return fn
 
 
+def _frame_count(n_samples: int, n_fft: int, hop_length: int) -> int:
+    """Frames of a signal centre-padded by n_fft//2 a side (dsp.py:87-89):
+    1 + T // hop for an even n_fft, 1 + (T - 1) // hop for an odd one."""
+    return 1 + (n_samples + 2 * (n_fft // 2) - n_fft) // hop_length
+
+
+def _launch_mixed(fn, y, n_fft: int, hop_length: int, n_frames: int,
+                  ld: int, outs) -> int:
+    """One launch of the mixed kernel ``fn``; returns its CUDA error."""
+    plan = mixed_plan(n_fft)
+    geo = mixed_geometry(plan, hop_length)
+    t = _device_mixed(n_fft, y.device)
+    n_blocks = _cdiv(n_frames, geo.seqs * plan.frames_per_seq)
+    grid, scratch = n_blocks, None
+    if geo.scratch:
+        # one plane pair a block in device memory, a block an SM
+        grid = min(n_blocks, torch.cuda.get_device_properties(
+            y.device).multi_processor_count)
+        scratch = torch.empty((grid * seq_pairs(plan.q), 2),
+                              dtype=torch.float32, device=y.device)
+    radices = (ctypes.c_int * max(1, len(plan.passes)))(
+        *[r for r, _ in plan.passes])
+    return fn(y.data_ptr(), y.shape[0], t["window"].data_ptr(),
+              t["tw"].data_ptr(), t["split"].data_ptr(),
+              t["chirp"].data_ptr(), t["filt"].data_ptr(),
+              t["perm"].data_ptr(),
+              0 if scratch is None else scratch.data_ptr(),
+              ctypes.addressof(radices), len(plan.passes), n_fft, plan.q,
+              geo.seqs, geo.threads, grid, hop_length, n_frames, ld,
+              *[o.data_ptr() for o in outs],
+              torch.cuda.current_stream(y.device).cuda_stream)
+
+
 def launch(y: torch.Tensor, n_fft: int, hop_length: int, phase: bool,
            via: str):
-    """One launch of route ``via``'s kernel (``"fft"`` or ``"gemm"``) on a
-    CUDA tensor; returns ``mag`` and, with ``phase``, the phase planes.
-    The wrappers pass ``route(n_fft)``; the gemm route also takes a
-    power-of-two ``n_fft``, which is how its time is compared.
+    """One launch of route ``via``'s kernel (``"fft"``, ``"mixed"`` or
+    ``"gemm"``) on a CUDA tensor; returns ``mag`` and, with ``phase``, the
+    phase planes.  The wrappers pass ``route(n_fft)``; the gemm route also
+    takes any smaller even ``n_fft``, which is how its time is compared.
 
-    The fft route writes rows padded to a multiple of 8 frames and returns
-    the ``(..., n_frames)`` views: each block's stores then fill whole
-    32-byte sectors, which an odd ``n_frames`` row pitch would split
-    (2.6x the kernel's time at hop 256, where the planes outgrow L2).
+    The fft and mixed routes write rows padded to a multiple of 8 frames
+    and return the ``(..., n_frames)`` views: each block's stores then fill
+    whole 32-byte sectors, which an odd ``n_frames`` row pitch would split
+    (2.6x the fft kernel's time at hop 256, where the planes outgrow L2).
     ``.contiguous()`` gives dense tensors where one is needed."""
-    global launches, mag_launches, fft_launches, gemm_launches
+    global launches, mag_launches, fft_launches, mixed_launches, gemm_launches
     name = "stft_magphase" if phase else "stft_magnitude"
     _check(y, n_fft, hop_length, name)
     if via == "fft":
         _check_fft(n_fft)
-    elif via != "gemm":
-        raise ValueError(f"unknown route {via!r}; expected fft or gemm")
+    elif via == "mixed":
+        mixed_plan(n_fft)
+    elif via == "gemm":
+        _check_gemm(n_fft)
+    else:
+        raise ValueError(f"unknown route {via!r}; expected fft, mixed or "
+                         "gemm")
     if y.device.type != "cuda" or not y.is_contiguous():
         raise ValueError(f"{name} launches on a contiguous CUDA signal")
     n_bins = n_fft // 2 + 1
-    # frames of the signal centre-padded by n_fft/2 a side (dsp.py:87-89)
-    n_frames = 1 + y.shape[0] // hop_length
-    ld = (_cdiv(n_frames, _ROW_ALIGN) * _ROW_ALIGN if via == "fft"
-          else n_frames)
+    n_frames = _frame_count(y.shape[0], n_fft, hop_length)
+    ld = (n_frames if via == "gemm"
+          else _cdiv(n_frames, _ROW_ALIGN) * _ROW_ALIGN)
     mag = torch.empty((n_bins, ld), dtype=torch.float32, device=y.device)
     outs = [mag]
     if phase:
         outs.append(torch.empty((2, n_bins, ld), dtype=torch.float32,
                                 device=y.device))
-    if via == "fft":
-        window, tw = _device_tables(n_fft, y.device)
-        fn = _kernel_fn(KERNEL, f"svs_stft_fft_{name[5:]}", 2, 4)
-        args = (window.data_ptr(), tw.data_ptr(), n_fft, hop_length,
-                n_frames, ld)
-    else:
-        basis = _device_basis(n_fft, y.device)
-        fn = _kernel_fn(GEMM_KERNEL, f"svs_{name}", 1, 6)
-        args = (basis.data_ptr(), basis.shape[0], basis.shape[1],
-                hop_length, n_fft // 2, n_bins, n_frames)
-    stream = torch.cuda.current_stream(y.device).cuda_stream
     with torch.cuda.device(y.device):
-        rc = fn(y.data_ptr(), y.shape[0], *args,
-                *[o.data_ptr() for o in outs], stream)
+        if via == "mixed":
+            fn = _kernel_fn(MIXED_KERNEL, f"svs_stft_mixed_{name[5:]}", 8, 9)
+            rc = _launch_mixed(fn, y, n_fft, hop_length, n_frames, ld, outs)
+        else:
+            if via == "fft":
+                window, tw = _device_tables(n_fft, y.device)
+                fn = _kernel_fn(KERNEL, f"svs_stft_fft_{name[5:]}", 2, 4)
+                args = (window.data_ptr(), tw.data_ptr(), n_fft, hop_length,
+                        n_frames, ld)
+            else:
+                basis = _device_basis(n_fft, y.device)
+                fn = _kernel_fn(GEMM_KERNEL, f"svs_{name}", 1, 6)
+                args = (basis.data_ptr(), basis.shape[0], basis.shape[1],
+                        hop_length, n_fft // 2, n_bins, n_frames)
+            stream = torch.cuda.current_stream(y.device).cuda_stream
+            rc = fn(y.data_ptr(), y.shape[0], *args,
+                    *[o.data_ptr() for o in outs], stream)
     if rc != 0:
         raise RuntimeError(f"{name} ({via}) kernel launch failed: CUDA "
                            f"error {rc}")
     if via == "fft":
         fft_launches += 1
+    elif via == "mixed":
+        mixed_launches += 1
     else:
         gemm_launches += 1
     outs = [o[..., :n_frames] for o in outs]
@@ -451,10 +849,11 @@ def stft_magphase(y: torch.Tensor, n_fft: int = 1024, hop_length: int = 768):
     tensor goes through the kernel of :func:`route`'s choice (or raises); a
     CPU tensor through that route's plain version.
 
-    On the fft route the CUDA results are strided views of rows padded to a
-    multiple of 8 frames (``stride(-2)`` is that pitch, not ``n_frames``);
-    take ``.contiguous()`` before ``.view()`` or handing ``.data_ptr()``
-    to code that assumes dense rows.  CPU results are dense.
+    On the fft and mixed routes the CUDA results are strided views of rows
+    padded to a multiple of 8 frames (``stride(-2)`` is that pitch, not
+    ``n_frames``); take ``.contiguous()`` before ``.view()`` or handing
+    ``.data_ptr()`` to code that assumes dense rows.  CPU results are
+    dense.
     """
     _check(y, n_fft, hop_length, "stft_magphase")
     via = route(n_fft)
@@ -467,12 +866,13 @@ def stft_magphase(y: torch.Tensor, n_fft: int = 1024, hop_length: int = 768):
 
 def stft_magnitude(y: torch.Tensor, n_fft: int = 1024,
                    hop_length: int = 768) -> torch.Tensor:
-    """Fused |STFT| of ``y (T,)`` float32 -> (n_fft//2 + 1, 1 + T//hop)
-    float32, the contract of svs_tpu's Pallas ``stft_magnitude``
-    (librosa-compatible: centre constant pad, periodic hann).  A CUDA
+    """Fused |STFT| of ``y (T,)`` float32 -> (n_fft//2 + 1, n_frames)
+    float32 (1 + T//hop frames, 1 + (T - 1)//hop at an odd n_fft), the
+    contract of svs_tpu's Pallas ``stft_magnitude`` (librosa-compatible:
+    centre constant pad, periodic hann).  A CUDA
     tensor goes through the kernel of :func:`route`'s choice (or raises); a
-    CPU tensor through that route's plain version.  On the fft route the
-    CUDA result is a strided view of padded rows, as
+    CPU tensor through that route's plain version.  On the fft and mixed
+    routes the CUDA result is a strided view of padded rows, as
     :func:`stft_magphase`'s.
     """
     _check(y, n_fft, hop_length, "stft_magnitude")

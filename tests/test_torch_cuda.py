@@ -10,10 +10,10 @@ Tolerances:
 - stft_magphase and stft_magnitude, atol 2e-3 / rtol 1e-4:
   tests/test_pallas.py's bound for the TPU kernel against the exact FFT;
   kernel and plain version are both true f32 sums (TF32 off) in different
-  orders.  The fft and gemm routes against each other at a power-of-two
-  n_fft: 4e-6 of the largest magnitude, tests/test_torch_fft_frontend.py's
-  bound between their plain versions (each is within its f32 rounding of
-  the exact DFT).
+  orders.  The fft or mixed route against the gemm route: 4e-6 of the
+  largest magnitude, tests/test_torch_fft_frontend.py's and
+  tests/test_torch_mixed_frontend.py's bound between their plain versions
+  (each is within its f32 rounding of the exact DFT).
 - spectral_mag and loss_partials: both sides multiply the same bf16
   operands exactly and sum in f32 in different orders (the tensor cores'
   accumulators against cuBLAS's f32 GEMM), so magnitudes agree to atol
@@ -50,16 +50,29 @@ def card():
     torch.backends.cuda.matmul.allow_tf32 = allow
 
 
+_ROUTES = ("fft", "mixed", "gemm")
+
+
 def _route_counts():
-    return cdsp.fft_launches, cdsp.gemm_launches
+    return tuple(getattr(cdsp, f"{r}_launches") for r in _ROUTES)
 
 
 def _moved(before, n_fft):
     """The route counters after one launch at ``n_fft``: its route's moved
-    by one, the other's not at all."""
-    fft, gemm = before
-    return (fft + 1, gemm) if cdsp.route(n_fft) == "fft" else (fft, gemm + 1)
+    by one, the others' not at all."""
+    via = cdsp.route(n_fft)
+    return tuple(c + (r == via) for r, c in zip(_ROUTES, before))
 
+
+# the mixed route at chip_smoke.py's shapes, cut to 300,000 samples
+MIXED_SHAPES = [
+    (300_000, 1536, 384),     # 768 = 8 * 8 * 4 * 3
+    (300_000, 441, 110),      # odd, 7-smooth
+    (300_000, 999, 256),      # odd, Bluestein (L = 2048)
+    (300_000, 1018, 256),     # even, Bluestein (P = 509, L = 1024)
+    (300_000, 8192, 2048),    # a power of two above the fft route's
+    (100_001, 201, 100),      # odd, an odd frame count (1,001 frames)
+]
 
 FRONTEND_SHAPES = [
     (2_097_152, 1024, 768),   # 4-minute song at 8192 Hz, bucket-padded
@@ -67,7 +80,8 @@ FRONTEND_SHAPES = [
     (9_001, 512, 200),        # ragged frame and bin tiles
     (300_000, 2048, 512),     # fft route, n_fft 2048
     (300_000, 4096, 1024),    # fft route, n_fft 4096
-    (100_000, 1000, 250),     # gemm route: no power of two
+    (100_000, 1000, 250),     # mixed route: P = 500 = 4 * 5^3
+    *MIXED_SHAPES,
 ]
 
 
@@ -90,7 +104,8 @@ def test_stft_magphase_kernel_matches_plain(card, n, n_fft, hop):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_fft,hop", [(1024, 768), (1000, 250)])
+@pytest.mark.parametrize("n_fft,hop", [(1024, 768), (1000, 250), (999, 256),
+                                       (1018, 256)])
 def test_stft_magphase_kernel_zero_signal(card, n_fft, hop):
     mag, ri = cdsp.stft_magphase(torch.zeros(8192, device=card), n_fft, hop)
     torch.cuda.synchronize()
@@ -105,7 +120,8 @@ def test_stft_magphase_kernel_zero_signal(card, n_fft, hop):
     (9_001, 512, 200),        # ragged frame and bin tiles
     (300_000, 2048, 512),     # fft route, n_fft 2048
     (300_000, 4096, 1024),    # fft route, n_fft 4096
-    (100_000, 1000, 250),     # gemm route
+    (100_000, 1000, 250),     # mixed route
+    *MIXED_SHAPES,
 ])
 def test_stft_magnitude_kernel_matches_plain(card, n, n_fft, hop):
     rng = np.random.default_rng(1)
@@ -117,18 +133,20 @@ def test_stft_magnitude_kernel_matches_plain(card, n, n_fft, hop):
     assert (cdsp.launches, cdsp.mag_launches) == (before[0], before[1] + 1)
     assert _route_counts() == _moved(routes, n_fft)
     want = cdsp.plain_for(n_fft, False)(y, n_fft, hop)
-    assert mag.shape == want.shape == (n_fft // 2 + 1, 1 + n // hop)
+    assert mag.shape == want.shape == (n_fft // 2 + 1,
+                                       1 + (n - n_fft % 2) // hop)
     torch.testing.assert_close(mag, want, atol=ATOL, rtol=RTOL)
     # the magnitude of the magphase kernel is the same sum, the same bits
     assert torch.equal(mag, cdsp.stft_magphase(y, n_fft, hop)[0])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_fft,hop", [(1024, 768), (1000, 250)])
+@pytest.mark.parametrize("n_fft,hop", [(1024, 768), (1000, 250), (999, 256),
+                                       (1018, 256)])
 def test_stft_magnitude_kernel_zero_signal(card, n_fft, hop):
     mag = cdsp.stft_magnitude(torch.zeros(8192, device=card), n_fft, hop)
     torch.cuda.synchronize()
-    assert mag.shape == (n_fft // 2 + 1, 1 + 8192 // hop)
+    assert mag.shape == (n_fft // 2 + 1, 1 + (8192 - n_fft % 2) // hop)
     assert bool((mag == 0).all())
 
 
@@ -149,6 +167,53 @@ def test_fft_and_gemm_routes_agree(card, phase):
     if phase:
         torch.testing.assert_close(fft[0] * fft[1], gemm[0] * gemm[1],
                                    atol=bound, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase", [True, False])
+@pytest.mark.parametrize("n_fft,hop", [(1000, 250), (1018, 256)])
+def test_mixed_and_gemm_routes_agree(card, phase, n_fft, hop):
+    """The gemm kernel, the earlier design at these n_fft, gives the mixed
+    kernel's spectrum (7-smooth and Bluestein) to
+    tests/test_torch_mixed_frontend.py's bound between their plain
+    versions."""
+    rng = np.random.default_rng(4)
+    y = torch.from_numpy((rng.standard_normal(500_000) * 0.3).astype(
+        np.float32)).to(card)
+    mixed = cdsp.launch(y, n_fft, hop, phase, "mixed")
+    gemm = cdsp.launch(y, n_fft, hop, phase, "gemm")
+    torch.cuda.synchronize()
+    mag, ref = (mixed[0], gemm[0]) if phase else (mixed, gemm)
+    bound = 4e-6 * ref.abs().max().item()
+    torch.testing.assert_close(mag, ref, atol=bound, rtol=0)
+    if phase:
+        torch.testing.assert_close(mixed[0] * mixed[1], gemm[0] * gemm[1],
+                                   atol=bound, rtol=0)
+
+
+@pytest.mark.cuda
+def test_mixed_route_takes_every_plan_kind(card):
+    """One launch of each kind the host's plan can make, against the plain
+    version: tiny n_fft, Bluestein at L = 32,768 with its planes in the
+    device-memory scratch (8193), an odd 7-smooth n_fft packing from the
+    signal itself (15625 at hop 16000) and beside its span (hop 4000)."""
+    rng = np.random.default_rng(5)
+    y = torch.from_numpy((rng.standard_normal(300_000) * 0.3).astype(
+        np.float32)).to(card)
+    for n_fft, hop in ((2, 1), (3, 2), (11, 4), (32, 8), (8193, 4096),
+                       (15625, 16000), (15625, 4000), (16384, 4096)):
+        geo = cdsp.mixed_geometry(cdsp.mixed_plan(n_fft), hop)
+        x = y[:20_000] if n_fft < 64 else y
+        before = _route_counts()
+        mag, ri = cdsp.stft_magphase(x, n_fft, hop)
+        torch.cuda.synchronize()
+        assert _route_counts() == _moved(before, n_fft)
+        want_mag, want_ri = cdsp.plain_for(n_fft, True)(x, n_fft, hop)
+        torch.testing.assert_close(mag, want_mag, atol=ATOL, rtol=RTOL,
+                                   msg=f"n_fft {n_fft} hop {hop} {geo}")
+        torch.testing.assert_close(mag * ri, want_mag * want_ri, atol=ATOL,
+                                   rtol=0)
+        assert torch.equal(cdsp.stft_magnitude(x, n_fft, hop), mag)
 
 
 @pytest.mark.cuda

@@ -4,7 +4,8 @@ svs_tpu's Pallas kernels.
 On the CPU each wrapper takes the plain PyTorch version of the route its
 n_fft selects (the fft route at these power-of-two sizes: the kernel's
 packing, radix passes, split step and epilogue; the gemm basis is checked
-below); it is held against
+below, the mixed route in tests/test_torch_mixed_frontend.py); it is held
+against
 ``svs_tpu.ops.pallas.dsp.stft_magphase`` / ``stft_magnitude(...,
 interpret=True)`` at K=2, K=3 and K=4, at n_fft 2048 and on the zero
 signal.  Tolerance atol 2e-3 / rtol 1e-4, the bound
@@ -84,8 +85,15 @@ def test_wrapper_rejects_bad_input():
         cdsp.stft_magphase(torch.zeros(2, 100))
     with pytest.raises(TypeError):
         cdsp.stft_magphase(torch.zeros(4096, dtype=torch.float64))
-    with pytest.raises(ValueError, match="even"):
-        cdsp.stft_magphase(torch.zeros(4096), n_fft=1023)
+    # an odd n_fft takes the mixed route up to 16384 and is refused above
+    mag, ri = cdsp.stft_magphase(torch.zeros(4096), n_fft=1023)
+    assert mag.shape == (512, 1 + 4095 // 768) and ri.shape == (2, *mag.shape)
+    with pytest.raises(ValueError, match="odd n_fft=16385 above 16384"):
+        cdsp.stft_magphase(torch.zeros(40_000), n_fft=16385)
+    with pytest.raises(ValueError, match="at least 2"):
+        cdsp.stft_magphase(torch.zeros(4096), n_fft=1)
+    with pytest.raises(ValueError, match="hop"):
+        cdsp.stft_magphase(torch.zeros(4096), n_fft=1024, hop_length=0)
 
 
 def test_cpu_tensor_never_launches():

@@ -4,15 +4,17 @@ kernel svs_torch/csrc/stft_fft.cu) on the CPU.
 Its plain versions (the kernel's packing, Stockham passes, split step and
 epilogue in f32 tensor ops, from the kernel's own f32 tables) are what the
 wrappers take for a CPU tensor at a power-of-two n_fft, so
-tests/test_torch_dsp_kernel.py holds them against svs_tpu's Pallas
-kernels in interpret mode (K = 2, 3, 4 and n_fft 2048).  Here: the gemm
-route against Pallas at an n_fft that is no power of two (atol 2e-3 / rtol
-1e-4, tests/test_pallas.py's bound for the TPU kernel against the exact
-FFT), and the fft plain version against the gemm one, to 4e-6 of the
-largest magnitude: both are f32 evaluations of the same windowed sums,
-each within its rounding of the exact DFT (the FFT's grows with log2
-n_fft, the GEMM's sums with n_fft), which keeps their difference several
-times inside the bound at n_fft 64-4096.
+tests/test_torch_dsp_kernel.py holds them against svs_tpu's Pallas kernels
+in interpret mode (K = 2, 3, 4 and n_fft 2048); the mixed route, every
+other n_fft up to 16384, is tests/test_torch_mixed_frontend.py's. Here: the
+gemm route (the earlier design, and the route of an even n_fft above 16384)
+against Pallas at an n_fft that is no power of two (atol 2e-3 / rtol 1e-4,
+tests/test_pallas.py's bound for the TPU kernel against the exact FFT), and
+the fft plain version against the gemm one, to 4e-6 of the largest
+magnitude: both are f32 evaluations of the same windowed sums, each within
+its rounding of the exact DFT (the FFT's grows with log2 n_fft, the GEMM's
+sums with n_fft), which keeps their difference several times inside the
+bound at n_fft 64-4096.
 
 The kernel itself is held against these plain versions on the card by
 tests/test_torch_cuda.py and ``python3 chip_smoke.py``.
@@ -44,10 +46,12 @@ def _signal(n, seed=0):
 
 
 def test_gemm_route_at_a_non_power_of_two_matches_pallas():
+    """The gemm design, which the mixed route replaced at n_fft 1000 and
+    which stays reachable through ``launch(..., via="gemm")``."""
     y = _signal(20_000, seed=2)
     want_mag, want_ri = (np.asarray(a) for a in pdsp.stft_magphase(
         jnp.asarray(y), 1000, 250, interpret=True))
-    mag, ri = cdsp.stft_magphase(torch.from_numpy(y), 1000, 250)
+    mag, ri = cdsp.stft_magphase_plain(torch.from_numpy(y), 1000, 250)
     np.testing.assert_allclose(mag.numpy(), want_mag, atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(mag.numpy() * ri.numpy(), want_mag * want_ri,
                                atol=ATOL)
@@ -101,10 +105,16 @@ def test_fft_passes():
 def test_route_is_chosen_by_n_fft():
     for n_fft in (64, 128, 256, 512, 1024, 2048, 4096):
         assert cdsp.route(n_fft) == "fft"
-    for n_fft in (1000, 1536, 32, 8192, 2):
+    # every other n_fft up to 16384, odd ones included
+    for n_fft in (1000, 1536, 32, 8192, 2, 1023, 999, 3, 16384, 16383):
+        assert cdsp.route(n_fft) == "mixed"
+    # above it, an even n_fft keeps the gemm route and an odd one is refused
+    for n_fft in (16386, 20000):
         assert cdsp.route(n_fft) == "gemm"
-    for n_fft in (1023, 1, 0):
-        with pytest.raises(ValueError, match="even"):
+    with pytest.raises(ValueError, match="odd n_fft=16385 above 16384"):
+        cdsp.route(16385)
+    for n_fft in (1, 0, -4):
+        with pytest.raises(ValueError, match="at least 2"):
             cdsp.route(n_fft)
     with pytest.raises(ValueError, match="power-of-two"):
         cdsp.stft_magphase_fft_plain(torch.zeros(4096), 1000, 250)
@@ -115,21 +125,23 @@ def test_cpu_wrappers_take_their_routes_plain_version():
     for n_fft, hop, fft in ((1024, 768, True), (1000, 250, False)):
         mag, ri = cdsp.stft_magphase(y, n_fft, hop)
         want = (cdsp.stft_magphase_fft_plain if fft
-                else cdsp.stft_magphase_plain)(y, n_fft, hop)
+                else cdsp.stft_magphase_mixed_plain)(y, n_fft, hop)
         assert torch.equal(mag, want[0]) and torch.equal(ri, want[1])
-        # dense on the CPU (the card's fft route returns padded-row views)
+        # dense on the CPU (the card's fft and mixed routes return
+        # padded-row views)
         assert mag.is_contiguous() and ri.is_contiguous()
         assert cdsp.stft_magnitude(y, n_fft, hop).is_contiguous()
         assert cdsp.plain_for(n_fft, False) is (
             cdsp.stft_magnitude_fft_plain if fft
-            else cdsp.stft_magnitude_plain)
+            else cdsp.stft_magnitude_mixed_plain)
         assert torch.equal(cdsp.stft_magnitude(y, n_fft, hop), mag)
 
 
 def test_cpu_tensor_moves_no_launch_counter():
-    counters = ("launches", "mag_launches", "fft_launches", "gemm_launches")
+    counters = ("launches", "mag_launches", "fft_launches",
+                "mixed_launches", "gemm_launches")
     before = [getattr(cdsp, c) for c in counters]
-    for n_fft, hop in ((1024, 768), (1000, 250)):
+    for n_fft, hop in ((1024, 768), (1000, 250), (20_000, 5000)):
         cdsp.stft_magphase(torch.zeros(4096), n_fft, hop)
         cdsp.stft_magnitude(torch.zeros(4096), n_fft, hop)
     assert [getattr(cdsp, c) for c in counters] == before
@@ -173,9 +185,9 @@ def test_plain_versions_repeat_bit_for_bit_at_the_decode_shape():
 
 
 def test_launch_refuses_a_cpu_tensor_and_an_unknown_route():
-    for via in ("fft", "gemm"):
+    for via, n_fft in (("fft", 1024), ("mixed", 1000), ("gemm", 1024)):
         with pytest.raises(ValueError, match="CUDA"):
-            cdsp.launch(torch.zeros(4096), 1024, 768, True, via)
+            cdsp.launch(torch.zeros(4096), n_fft, 768, True, via)
     with pytest.raises(ValueError, match="route"):
         cdsp.launch(torch.zeros(4096), 1024, 768, True, "dft")
     with pytest.raises(ValueError, match="power-of-two"):
