@@ -43,16 +43,28 @@ Phases, each printing what it found on its own line:
              the fft route); one song's bf16 masks held
              against the same weights and input on the CPU; then
              ``separate_wav`` timed, with one torch.profiler trace of its
-             device time by family;
+             device time by family; then the ``decode graph`` check: the
+             decode as cached captured programs (``infer/graphs.py``) on a
+             60-s and a 4-minute song, each replay against the eager body
+             (``_separate_padded``) bit for bit in the ``segments``,
+             ``overlap`` and ``whole`` modes, with ``vocal_solo`` off,
+             ``both=True`` and PCM16 (0 LSB), and through the entry
+             points; ms a call of ``separate_wav`` and of the padded
+             decode on the card, graph and eager (CUDA events, 5 calls),
+             the first call's warm-up and capture, the busy and idle share
+             of one traced call each, the bytes of each program and of the
+             cache, and a rebound model captured again; one ``decode
+             graph:`` JSON line;
 5. serve   — ``python -m svs_torch.cli.serve_cli`` in its own process on
              the slice's ``.pth`` (60-s warmup on its worker thread), driven
              over HTTP: 50 serial requests of one 60-s song, a burst of 8
              distinct songs (``vocal_solo=0``, ``mode=segments``,
              ``mode=whole`` and a 44.1-kHz stereo WAV among them), each
-             response held against ``separate_wav`` in this process (1 LSB),
-             ``/healthz``'s counts and percentiles, the 404 / 400 / 411 /
-             413 paths, SIGTERM during a second burst (200 or 503 only, exit
-             0); then ``amplitude_to_db`` on the card against the CPU and
+             response held against ``separate_wav`` in this process (1 LSB;
+             both run the cached program, whose bits the slice phase holds
+             against the eager body), ``/healthz``'s counts and
+             percentiles, the 404 / 400 / 411 / 413 paths, SIGTERM during
+             a second burst (200 or 503 only, exit 0); then ``amplitude_to_db`` on the card against the CPU and
              ``viz_cli --device cuda`` (a figure where matplotlib imports,
              else an ImportError that names it); one ``serve:`` JSON line
              (serial p50 / p90, the burst's throughput over its 8192-Hz
@@ -72,7 +84,7 @@ Phases, each printing what it found on its own line:
              front-end kernel, all on the fft route), then the default
              line ``bench_cli --secs 60 --reps 2``
              at the ``default`` preset (PCM16 stream, device-resident
-             decode, the train step at B = 32 with its MFU, the epoch with
+             decode as the replay and as the eager body, the train step at B = 32 with its MFU, the epoch with
              the host pipeline and with the dataset on the card), every
              number finite and positive; one song of the PCM16 stream held
              against ``separate_wav`` (2 LSB), and ``DeviceDataset``
@@ -3057,7 +3069,173 @@ def slice_phase(torch, np, work: str):
     idle = 1.0 - busy / per_song["240s_song_ms"]
     print(f"separate_wav 240-s song: device busy {busy:.3f} ms of "
           f"{per_song['240s_song_ms']:.3f} ms, idle share {idle:.3f}")
+    print("decode graph: " + json.dumps(decode_graph_check(torch, np,
+                                                           model)))
     return launches
+
+
+# the decode graph check's songs (seconds at 8192 Hz), its calls timed by
+# CUDA events, and the signatures held against the eager body bit for bit
+GRAPH_SECONDS, GRAPH_REPS = (SONG_SECONDS, 4 * 60), 5
+# (label, mode, vocal_solo, both, pcm16)
+GRAPH_CASES = (("segments", "segments", True, False, False),
+               ("overlap", "overlap", True, False, False),
+               ("whole", "whole", True, False, False),
+               ("vocal_solo_off", "segments", False, False, False),
+               ("both", "segments", True, True, False),
+               ("pcm16", "segments", True, False, True))
+
+
+def decode_graph_check(torch, np, model) -> dict:
+    """The decode as cached captured programs (``infer/graphs.py``) at
+    the full ``default`` width, on a 60-s and a 4-minute song: each
+    program's replay against the eager body (``_separate_padded``, its
+    PCM16 form) bit for bit in every mode, with ``vocal_solo`` off,
+    ``both=True`` and PCM16 (0 LSB); ms a call of ``separate_wav`` and of
+    the padded decode on the card, graph and eager, by CUDA events over
+    GRAPH_REPS calls; the first call's warm-up and capture (host clock);
+    the device's busy and idle share of one traced call each; the bytes
+    each program and the cache hold; a rebound model captured again; and
+    at float32 the eager body's own spread under cuDNN's default
+    algorithms, and the replay's bits under deterministic ones.  Returns
+    the ``decode graph:`` line."""
+    from svs_torch.infer import graphs, separate
+    from svs_torch.models.unet import UNet
+
+    cfg = model.cfg
+    dev = next(model.parameters()).device
+    cache = graphs.CACHE
+    cache.clear()
+    rng = np.random.default_rng(7)
+    line = {"max_bytes": cache.max_bytes}
+
+    def padded(y, n_pad):
+        return torch.from_numpy(np.pad(y, (0, n_pad - len(y)))).to(dev)
+
+    def eager_wav(y, model=model):
+        """``separate_wav``'s work with the body run eagerly."""
+        n = len(y)
+        with torch.inference_mode():
+            out = separate._separate_padded(
+                model, padded(y, separate._padded_len(n, model.cfg)),
+                model.cfg, True, False, "segments")
+        return out[:n].cpu().numpy()
+
+    for seconds in GRAPH_SECONDS:
+        tag = f"{seconds}s"
+        y = (rng.standard_normal(seconds * SR) * 0.1).astype(np.float32)
+        y16 = (y * 32768.0).clip(-32768, 32767).astype(np.int16)
+        n = len(y)
+        n_pad = separate._padded_len(n, cfg)
+        worst = {}
+        for label, mode, vocal_solo, both, pcm16 in GRAPH_CASES:
+            signature, body = separate._wav_body(cfg, vocal_solo, both,
+                                                 mode, pcm16)
+            x = padded(y16 if pcm16 else y, n_pad)
+            builds = cache.builds
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = separate._run(model, dev, x, signature, body)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            with torch.inference_mode():
+                want = body(model, x)
+            check(cache.builds == builds + 1,
+                  f"decode graph {tag} {label}: its first call captures")
+            prog = cache.program(model, signature, x, body)
+            check(cache.builds == builds + 1,
+                  f"decode graph {tag} {label}: the second lookup hits")
+            diff = max(float((g[:n].double() - w[:n].double()).abs().max())
+                       for g, w in zip(got, want))
+            worst[label] = diff
+            line[f"{tag}_{label}_program_bytes"] = prog.nbytes
+            line[f"{tag}_{label}_first_call_s"] = first_s
+            check(diff == 0.0, f"decode graph {tag} {label}: the replay is "
+                               f"the eager body's bits (max diff {diff})")
+            # the entry points through the same program
+            if pcm16:
+                (o,) = separate.separate_wav_stream(model, [y16], pcm16=True)
+                w16 = want[0][:n].cpu().numpy()
+                check(np.array_equal(o, w16), f"decode graph {tag}: the "
+                      "PCM16 stream is the eager body's codes (0 LSB)")
+            elif both:
+                o = separate.separate_wav(model, y, both=True)
+                check(all(np.array_equal(a, b[:n].cpu().numpy())
+                          for a, b in zip(o, want)),
+                      f"decode graph {tag}: separate_wav(both=True) is the "
+                      "eager body's bits")
+            else:
+                o = separate.separate_wav(model, y, vocal_solo=vocal_solo,
+                                          mode=mode)
+                check(np.array_equal(o, want[0][:n].cpu().numpy()),
+                      f"decode graph {tag} {label}: separate_wav is the "
+                      "eager body's bits")
+            check(cache.builds == builds + 1,
+                  f"decode graph {tag} {label}: the entry point replayed")
+        line[f"{tag}_max_abs_diff"] = worst
+
+        # ms a call, graph and eager: separate_wav (host to host) and the
+        # padded decode with its input on the card
+        signature, body = separate._wav_body(cfg, True, False, "segments",
+                                             False)
+        x = padded(y, n_pad)
+
+        def graph_device():
+            return separate._run(model, dev, x, signature, body)
+
+        @torch.inference_mode()
+        def eager_device():
+            return body(model, x)
+
+        runs = {"wav_graph": lambda: separate.separate_wav(model, y),
+                "wav_eager": lambda: eager_wav(y),
+                "device_graph": graph_device, "device_eager": eager_device}
+        for name, fn in runs.items():
+            line[f"{tag}_{name}_ms"] = cuda_ms(torch, fn, reps=GRAPH_REPS,
+                                               warmup=2)
+        for name in ("wav_graph", "wav_eager"):
+            busy = device_breakdown(torch, runs[name],
+                                    f"decode graph {tag} {name}")
+            line[f"{tag}_{name}_busy_ms"] = busy
+            line[f"{tag}_{name}_idle_share"] = (
+                1.0 - busy / line[f"{tag}_{name}_ms"])
+    line["programs"] = len(cache)
+    line["cache_bytes"] = cache.nbytes
+    line["builds"] = cache.builds
+    check(len(cache) == len(GRAPH_SECONDS) * len(GRAPH_CASES),
+          "decode graph: one program per signature and bucket")
+
+    # a rebound model (new tensors, the same values) is captured again,
+    # and its answer is still the eager body's
+    y = (rng.standard_normal(SONG_SECONDS * SR) * 0.1).astype(np.float32)
+    builds = cache.builds
+    model.load_state_dict({k: v.clone() for k, v in
+                           model.state_dict().items()}, assign=True)
+    o = separate.separate_wav(model, y)
+    line["rebind_builds"] = cache.builds - builds
+    check(cache.builds == builds + 1,
+          "decode graph: a rebound model is captured again")
+    check(np.array_equal(o, eager_wav(y)),
+          "decode graph: the rebound model's program is the eager bits")
+
+    # float32 convs: cuDNN's default algorithms need not give the same
+    # bits twice, so the eager body repeats itself (and a replay can equal
+    # it) only under deterministic algorithms, which key their own program
+    f32 = UNet(dataclasses.replace(cfg, compute_dtype="float32"),
+               generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    line["f32_eager_rerun_max_abs_diff"] = float(
+        np.abs(eager_wav(y, f32) - eager_wav(y, f32)).max())
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        o = separate.separate_wav(f32, y)
+        same = (np.array_equal(o, eager_wav(y, f32))
+                and np.array_equal(eager_wav(y, f32), eager_wav(y, f32)))
+    finally:
+        torch.backends.cudnn.deterministic = was
+    check(same, "decode graph: float32, cuDNN deterministic: the eager body "
+                "repeats itself and the replay is its bits")
+    return line
 
 
 # the serve phase: serve_cli in its own process at the full ``default``
@@ -3478,7 +3656,8 @@ def bench_phase(torch, np, spec: str):
                if isinstance(v, (int, float)) and not isinstance(v, bool)}
     check(all(math.isfinite(v) and v > 0 for v in numbers.values()),
           f"bench default line: every number finite and positive {numbers}")
-    for key in ("decode_device_ms_per_song", "stream_frames_per_sec",
+    for key in ("decode_device_ms_per_song",
+                "decode_device_eager_ms_per_song", "stream_frames_per_sec",
                 "train_step_ms", "train_patches_per_sec",
                 "train_patches_per_sec_device", "train_flops_per_step",
                 "train_mfu_pct"):

@@ -1,0 +1,206 @@
+"""The decode's compiled programs: cached, captured CUDA graphs (the
+counterpart of ``jax.jit``'s cache for svs_tpu's ``_separate_spec_jit``,
+``_separate_wav_jit`` and ``_separate_wav_pcm16_jit``, svs_tpu
+separate.py:114-122, 243-301).
+
+svs_tpu compiles its decode once per static signature and bucketed shape
+and runs the compiled program after that, so a song enters device memory
+once and leaves as separated audio with no host work in between.  Here a
+:class:`Program` is that program on the card: the decode's eager body
+(``separate._separate_padded`` and kin, which stay plain functions and the
+tests' oracle) captured into one ``torch.cuda.CUDAGraph`` over a static
+input buffer, replayed for every later call of its key.
+
+- **Key.** One program per (model, signature, padded shape, dtype, device,
+  config): the signature is the body's function and its static arguments
+  (``mode``, ``vocal_solo``, ``both``, PCM16), the padded shape the
+  caller's bucket.  Beside the key a program holds its *binding*: the
+  address of every ``state_dict()`` tensor, the parameters' dtype and the
+  TF32 and cuDNN algorithm flags, which the graph bakes in.  A model whose tensors were rebound
+  (``model.to(...)``, ``load_state_dict(assign=True)``) gets a new program
+  in place of the stale one; weights updated in place (an optimiser step)
+  keep their addresses, and the program reads them as they are.
+- **Build.** Warm-up calls run eagerly on a side stream (they create the
+  cuFFT plans of ``torch.fft.rfft`` / ``irfft`` and settle cuDNN's choice
+  of algorithm), then the body is captured into static outputs in the
+  graph's own memory pool (PyTorch's recipe, as ``train/scan.py``); the
+  graph runs the cuFFT plans that PyTorch's plan cache holds (4,096 a
+  device, far more than a run's decode shapes).  The
+  capture's error mode is ``thread_local``: a server captures on its
+  worker thread while handler threads run, and those touch no CUDA.  A
+  capture that fails raises; nothing falls back to the eager body.
+- **Calls.** A call copies its input into the static buffer, replays, and
+  returns *copies* of the static outputs, all on the caller's current
+  stream: a result never aliases a buffer that the next replay writes.  A
+  call waits for the program's previous call on whatever stream that ran,
+  so two streams or threads never share the buffers at once.
+- **Memory.** A program's pool keeps the decode's activations that the
+  eager path frees (and XLA frees after each call), so the cache holds at
+  most :data:`MAX_BYTES` (the static inputs and the pools).  Past that
+  bound the least recently used programs are dropped (the newest always
+  stays, even alone past the bound); a dropped pool goes back to PyTorch's
+  allocator.  The programs of a model that was freed are dropped at the
+  next build.
+
+On the CPU a program captures nothing: a call copies into its static
+input, runs the body and returns its outputs, so the key, the buffers and
+the copies run on the host too.  The entry points in ``separate.py`` take
+programs on the card only.
+
+The cache is one per process, as ``jax.jit``'s is, so that its bound holds
+for the process; :data:`CACHE` is it.
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+import weakref
+from typing import Callable, Hashable, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+# The bound on the bytes all cached programs hold.  A program of the
+# ``default`` preset holds 51-103 MB for a 60-s song and 143-245 MB for a
+# 4-minute one (its pool is about the eager decode's peak; ``overlap`` the
+# most; H100, ``chip_smoke.py``), so 4 GiB keeps the 12 signatures of a
+# 4-minute bucket (3 modes x ``vocal_solo`` x f32 / PCM16, ~2 GB) and those
+# of a shorter bucket beside them, and leaves 95 % of an 80-GB card to
+# training and to other work.
+MAX_BYTES = 4 << 30
+# eager calls on a side stream before the capture (PyTorch's recipe): the
+# first makes the cuFFT plans and cuDNN's choices, the second runs warm
+WARMUP_CALLS = 2
+
+Outputs = Tuple[torch.Tensor, ...]
+# a body takes the model as an argument, so that a cached program holds no
+# reference to it (the programs of a freed model can then be dropped)
+Body = Callable[[nn.Module, torch.Tensor], Outputs]
+
+
+def binding(model: nn.Module) -> tuple:
+    """What a captured program reads by address or bakes in: every
+    ``state_dict()`` tensor's address, the parameters' dtype, the TF32
+    flags of cuDNN and cuBLAS, and cuDNN's deterministic and benchmark
+    flags (they choose the algorithms that the graph records)."""
+    return (tuple(t.data_ptr() for t in model.state_dict().values()),
+            next(model.parameters()).dtype,
+            torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+
+
+class Program:
+    """One decode program: ``body`` over a static input shaped as ``x``,
+    on ``device``; captured on a CUDA device, run eagerly on the CPU."""
+
+    @torch.inference_mode()
+    def __init__(self, model: nn.Module, body: Body, x: torch.Tensor,
+                 device: torch.device):
+        self.model = weakref.ref(model)
+        self.binding = binding(model)
+        self.body = body
+        self.device = device
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.outputs: Outputs = ()
+        self.input = torch.empty(x.shape, dtype=x.dtype, device=device)
+        self.input.copy_(x)
+        self._lock = threading.Lock()
+        pool_bytes = self._capture(model) if device.type == "cuda" else 0
+        self.nbytes = self.input.nbytes + pool_bytes
+
+    def _capture(self, model: nn.Module) -> int:
+        """Warm up, capture; returns the bytes of the graph's pool."""
+        dev = self.device
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_CALLS):
+                    self.body(model, self.input)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            # the warm-up's freed blocks go back, so the growth of the
+            # reserved bytes over the capture is the graph's pool
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_reserved(dev)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self.outputs = self.body(model, self.input)
+            self.graph = graph
+            self._done = torch.cuda.Event()
+            return torch.cuda.memory_reserved(dev) - before
+
+    @torch.inference_mode()
+    def __call__(self, x: torch.Tensor) -> Outputs:
+        """The body on ``x`` (any device; its shape and dtype the
+        program's): fresh tensors on the program's device."""
+        with self._lock:
+            if self.graph is None:
+                self.input.copy_(x)
+                return tuple(o.clone() for o in self.body(self.model(),
+                                                          self.input))
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(self._done)  # the last call's copies
+            self.input.copy_(x)
+            self.graph.replay()
+            outs = tuple(o.clone() for o in self.outputs)
+            self._done.record(stream)
+            return outs
+
+
+class ProgramCache:
+    """The programs by key, least recently used first, within
+    ``max_bytes``."""
+
+    def __init__(self, max_bytes: int = MAX_BYTES):
+        self.max_bytes = max_bytes
+        self.builds = 0  # programs built (captured on the card)
+        self.evictions = 0  # programs dropped past the bound
+        self._programs: "collections.OrderedDict[Hashable, Program]" = (
+            collections.OrderedDict())
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return len(self._programs)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(p.nbytes for p in self._programs.values())
+
+    def clear(self) -> None:
+        with self._lock:
+            self._programs.clear()
+
+    def program(self, model: nn.Module, signature: Hashable,
+                x: torch.Tensor, body: Body) -> Program:
+        """The program of ``signature`` on ``x``'s shape and dtype for
+        ``model`` (on its device): the cached one if its binding still
+        holds, else one built now from ``body`` with ``x`` as its first
+        input."""
+        device = next(model.parameters()).device
+        key = (id(model), signature, tuple(x.shape), x.dtype, device,
+               model.cfg)
+        with self._lock:
+            prog = self._programs.get(key)
+            if (prog is not None and prog.model() is model
+                    and prog.binding == binding(model)):
+                self._programs.move_to_end(key)
+                return prog
+            # a stale program of this key (rebound tensors, or a freed
+            # model whose id was reused) and those of freed models go
+            for k in [k for k, p in self._programs.items()
+                      if k == key or p.model() is None]:
+                del self._programs[k]
+            prog = Program(model, body, x, device)
+            self.builds += 1
+            self._programs[key] = prog
+            while len(self._programs) > 1 and self.nbytes > self.max_bytes:
+                self._programs.popitem(last=False)
+                self.evictions += 1
+            return prog
+
+
+CACHE = ProgramCache()

@@ -24,6 +24,13 @@ card it keeps the copies off the compute stream, so that one song's
 transfers overlap another's decode.  :func:`separate_magnitude_mesh`
 spreads one song's windows, or in ``whole`` mode its time axis, over the
 ranks of a data mesh (``parallel.mesh``, ``parallel.halo``).
+
+On the card :func:`separate_magnitude`, :func:`separate_wav` and
+:func:`separate_wav_stream` run their padded body as a cached captured
+program (``infer/graphs.py``), one per signature and bucketed shape, as
+svs_tpu runs its jitted ones; the program computes the padded length and
+the caller takes the song's slice.  On the CPU, which the caller asks for
+explicitly, they run the body eagerly.  The mesh decodes stay eager.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
+from svs_torch.infer import graphs
 from svs_torch.ops import stft as dsp
 from svs_torch.parallel.mesh import Mesh, crosses
 from svs_torch.utils.config import SVSConfig
@@ -155,10 +163,53 @@ def separate_magnitude(
     n_seg = max(_cdiv(t, cfg.input_len), 1)
     t_padded = _cdiv(n_seg, _SEG_BUCKET) * _SEG_BUCKET * cfg.input_len
     mag_p = np.pad(mag.astype(np.float32), ((0, 0), (0, t_padded - t)))
-    m = torch.from_numpy(mag_p).to(_model_device(model, device))
-    mask = _mask_frames(model, m[1:], cfg, vocal_solo, mode)
-    pred = torch.cat([torch.zeros_like(m[:1]), m[1:] * mask])  # DC row 0
+    pred, = _run(model, _model_device(model, device),
+                 torch.from_numpy(mag_p), ("spec", mode, vocal_solo),
+                 lambda mdl, m: (_separate_spec(mdl, m, cfg, vocal_solo,
+                                                mode),))
     return pred[:, :t].cpu().numpy()
+
+
+def _separate_spec(model, m: torch.Tensor, cfg: SVSConfig, vocal_solo: bool,
+                   mode: str) -> torch.Tensor:
+    """(513, T) padded normalised magnitude -> (513, T) masked magnitude
+    (separate.py:114-122); the DC row dropped before the model and re-added
+    as zeros."""
+    mask = _mask_frames(model, m[1:], cfg, vocal_solo, mode)
+    return torch.cat([torch.zeros_like(m[:1]), m[1:] * mask])
+
+
+def _programmed(dev: torch.device) -> bool:
+    """Whether the decode on ``dev`` runs as a cached program: on the
+    card it always does; on the CPU, which a caller asks for explicitly, it
+    runs eagerly (the CPU tests patch this to route the host through the
+    programs)."""
+    return dev.type == "cuda"
+
+
+def _run(model, dev: torch.device, x: torch.Tensor, signature: tuple,
+         body: graphs.Body) -> graphs.Outputs:
+    """``body`` on ``x`` (padded, on any device) on ``dev``: the cached
+    program of ``signature`` where :func:`_programmed`, else eagerly.
+    Returns fresh tensors of the padded length."""
+    if _programmed(dev):
+        return graphs.CACHE.program(model, signature, x, body)(x)
+    return body(model, x.to(dev))
+
+
+def _wav_body(cfg: SVSConfig, vocal_solo: bool, both: bool, mode: str,
+              pcm16: bool) -> Tuple[tuple, graphs.Body]:
+    """The padded wav -> wav decode's signature and body (a tuple of its
+    outputs: the vocal, and the accompaniment with ``both``)."""
+    signature = ("wav", mode, vocal_solo, both, pcm16)
+    if pcm16:
+        return signature, lambda model, y: (_separate_padded_pcm16(
+            model, y, cfg, vocal_solo, mode),)
+    if both:
+        return signature, lambda model, y: _separate_padded(
+            model, y, cfg, vocal_solo, True, mode)
+    return signature, lambda model, y: (_separate_padded(
+        model, y, cfg, vocal_solo, False, mode),)
 
 
 def separate_magnitude_mesh(
@@ -254,9 +305,10 @@ def separate_magnitude_mesh(
         [np.zeros((1, t_pad), np.float32), pred])[:, :t]
 
 
-def _separate_padded(model, y: torch.Tensor, n: int, cfg: SVSConfig,
+def _separate_padded(model, y: torch.Tensor, cfg: SVSConfig,
                      vocal_solo: bool, both: bool, mode: str):
-    """Padded waveform -> separated waveform(s) (separate.py:243-281).
+    """Padded waveform -> separated waveform(s) of the padded length
+    (separate.py:243-281).
 
     Uses the exact complex spectrogram and keeps the absolute scale (the
     file-mediated path loses the norm factor and re-normalises to 0.9)."""
@@ -275,7 +327,7 @@ def _separate_padded(model, y: torch.Tensor, n: int, cfg: SVSConfig,
     def decode(m):
         return dsp.istft(spec * m, hop_length=cfg.hop_size,
                          win_length=cfg.window_size, n_fft=cfg.window_size,
-                         length=y.shape[-1])[:n]
+                         length=y.shape[-1])
 
     vocal = decode(mask)
     if both:
@@ -285,15 +337,14 @@ def _separate_padded(model, y: torch.Tensor, n: int, cfg: SVSConfig,
     return vocal
 
 
-def _separate_padded_pcm16(model, y_i16: torch.Tensor, n: int,
-                           cfg: SVSConfig, vocal_solo: bool, mode: str
-                           ) -> torch.Tensor:
+def _separate_padded_pcm16(model, y_i16: torch.Tensor, cfg: SVSConfig,
+                           vocal_solo: bool, mode: str) -> torch.Tensor:
     """PCM16 variant (separate.py:287-301): int16 in, int16 out; the decode
     (x / 32768) and the re-quantisation run on the device, halving the
     bytes that cross the host link.  ``torch.round`` rounds half to even,
     as ``jnp.round`` does."""
     y = y_i16.to(torch.float32) / 32768.0
-    out = _separate_padded(model, y, n, cfg, vocal_solo, False, mode)
+    out = _separate_padded(model, y, cfg, vocal_solo, False, mode)
     return torch.clamp(torch.round(out * 32768.0), -32768,
                        32767).to(torch.int16)
 
@@ -324,20 +375,21 @@ def separate_wav_stream(
     before song i's result is read back: the copies run from pinned host
     buffers on two side streams (one each way), ordered against the compute
     stream by events, so the card's steady cost per song is
-    max(H2D, decode, D2H) rather than their sum.  Every buffer of a song is
-    held until its result is read, so no stream reads freed memory.
+    max(H2D, decode, D2H) rather than their sum.  The side streams read and
+    write fresh buffers, never the program's static ones: on the compute
+    stream the program copies the song into its static input just before
+    its replay and its static output into a fresh tensor just after.
+    Every buffer of a song is held until its result is read, so no stream
+    reads freed memory.
     """
     cfg = model.cfg
     _check(model, mode)
     dev = _model_device(model, device)
     np_dtype = np.int16 if pcm16 else np.float32
+    signature, body = _wav_body(cfg, vocal_solo, False, mode, pcm16)
 
-    def run(y_dev: torch.Tensor, n: int) -> torch.Tensor:
-        if pcm16:
-            return _separate_padded_pcm16(model, y_dev, n, cfg, vocal_solo,
-                                          mode)
-        return _separate_padded(model, y_dev, n, cfg, vocal_solo, False,
-                                mode)
+    def run(y_p: torch.Tensor) -> torch.Tensor:
+        return _run(model, dev, y_p, signature, body)[0]
 
     if dev.type != "cuda":
         outs = []
@@ -345,7 +397,7 @@ def separate_wav_stream(
             y = np.asarray(y, np_dtype)
             y_p = torch.from_numpy(np.pad(y, (0, _padded_len(len(y), cfg)
                                               - len(y))))
-            outs.append(run(y_p.to(dev), len(y)).cpu().numpy())
+            outs.append(run(y_p)[:len(y)].numpy())
         return outs
 
     compute = torch.cuda.current_stream(dev)
@@ -361,7 +413,7 @@ def separate_wav_stream(
         with torch.cuda.stream(h2d):
             y_dev = host_in.to(dev, non_blocking=True)
         compute.wait_stream(h2d)
-        out = run(y_dev, n)
+        out = run(y_dev)[:n]
         d2h.wait_stream(compute)
         host_out = torch.empty(n, dtype=t_dtype, pin_memory=True)
         with torch.cuda.stream(d2h):
@@ -406,8 +458,8 @@ def separate_wav(
     n = len(y)
     y_p = torch.from_numpy(np.pad(np.asarray(y, np.float32),
                                   (0, _padded_len(n, cfg) - n)))
-    y_p = y_p.to(_model_device(model, device))
-    out = _separate_padded(model, y_p, n, cfg, vocal_solo, both, mode)
+    signature, body = _wav_body(cfg, vocal_solo, both, mode, False)
+    out = _run(model, _model_device(model, device), y_p, signature, body)
     if both:
-        return out[0].cpu().numpy(), out[1].cpu().numpy()
-    return out.cpu().numpy()
+        return out[0][:n].cpu().numpy(), out[1][:n].cpu().numpy()
+    return out[0][:n].cpu().numpy()

@@ -3,8 +3,9 @@
 svs_torch.cli.bench_cli``).
 
 Headline metric: DEVICE-RESIDENT decode frames/s — the whole wav -> STFT ->
-U-Net mask -> iSTFT -> wav program with its input already on the card, a
-burst of calls closed by one :func:`~svs_torch.utils.profiling.fetch_barrier`.
+U-Net mask -> iSTFT -> wav program (on the card a replay of its captured
+graph, ``infer/graphs.py``) with its input already on the card, a burst of
+calls closed by one :func:`~svs_torch.utils.profiling.fetch_barrier`.
 Beside it: host streaming of PCM16 songs (``stream_frames_per_sec``, which
 the host link bounds), the link and device-memory calibrations, the train
 step's ms and MFU at B = 32, and the training epoch with the host input
@@ -190,10 +191,13 @@ def train_step_bench(cfg=None, batch_size: int = 32, steps: int = 100,
 def decode_device_bench(model=None, cfg=None, secs: float = 240.0,
                         reps: int = 300, seed: int = 0,
                         device: DeviceLike = None) -> Dict:
-    """DEVICE-RESIDENT whole-song decode: the padded wav -> wav program
-    (``separate._separate_padded``) run ``reps`` times on a waveform already
-    on the card, closed by ONE barrier; best of 3 bursts.  The card's
-    decode throughput, independent of the host link."""
+    """DEVICE-RESIDENT whole-song decode: the padded wav -> wav decode as
+    ``separate_wav`` runs it on the card (the cached captured program:
+    copy into its static input, replay, copy out; ``infer/graphs.py``) run
+    ``reps`` times on a waveform already on the card, closed by ONE
+    barrier; best of 3 bursts.  The card's decode throughput, independent
+    of the host link.  ``decode_device_eager_ms_per_song`` times the eager
+    body (``separate._separate_padded``) the same way, beside it."""
     from svs_torch.infer import separate
     from svs_torch.models.unet import UNet
     from svs_torch.utils.config import get_config
@@ -209,27 +213,37 @@ def decode_device_bench(model=None, cfg=None, secs: float = 240.0,
     n_pad = separate._padded_len(n, cfg)
     y = np.pad(_music_fixture(n, cfg.sample_rate, seed), (0, n_pad - n))
     y_dev = torch.from_numpy(y).to(dev)
+    signature, body = separate._wav_body(cfg, True, False, "segments",
+                                         False)
 
     @torch.inference_mode()
-    def run():
-        return separate._separate_padded(model, y_dev, n_pad, cfg, True,
-                                         False, "segments")
+    def program():
+        return separate._run(model, dev, y_dev, signature, body)[0]
 
-    fetch_barrier(run())  # warm
-    best = float("inf")
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            out = run()
-        fetch_barrier(out)
-        best = min(best, (time.perf_counter() - t0) / reps)
+    @torch.inference_mode()
+    def eager():
+        return body(model, y_dev)[0]
 
+    def best_secs(run):
+        fetch_barrier(run())  # warm (the program's first call captures it)
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                out = run()
+            fetch_barrier(out)
+            best = min(best, (time.perf_counter() - t0) / reps)
+        return best
+
+    best = best_secs(program)
+    eager_best = best_secs(eager)
     n_frames = 1 + n // cfg.hop_size
     return {
         "decode_device_ms_per_song": round(best * 1e3, 3),
         "decode_device_song_secs": secs,
         "decode_device_frames_per_sec": round(n_frames / best, 1),
         "decode_device_realtime_x": round(secs / best, 0),
+        "decode_device_eager_ms_per_song": round(eager_best * 1e3, 3),
     }
 
 

@@ -23,6 +23,9 @@ Tolerances:
   ulp of difference moves a value by a bf16 ulp, so gradients are held to
   max|d|/max|g| < 2e-2 and cosine > 0.9999 (tests/test_fused_loss.py's
   bounds between two bf16 paths).
+- the decode's captured programs (``svs_torch/infer/graphs.py``): a replay
+  runs the eager body's kernels in its order, so it gives the eager body's
+  bits (PCM16: 0 LSB), with cuDNN's deterministic algorithms for float32.
 """
 
 import ctypes
@@ -871,3 +874,171 @@ def test_two_one_rank_hosts_take_a_dp_step_on_the_card(card):
             assert r["ok"] and r["spread"] == 0.0, r
             assert r["rows"] == [3, 2] and r["pad_to"] == 3, r
             assert tuple(r["kernels"]) == counts, r
+
+
+# -- the decode's cached programs (svs_torch/infer/graphs.py) ---------------
+
+def _decode_model(card, dtype="float32"):
+    from svs_torch.models.unet import UNet
+    from svs_torch.utils.config import SVSConfig
+    cfg = SVSConfig(enc_channels=(4, 8, 8, 16, 16, 16), compute_dtype=dtype)
+    return UNet(cfg, generator=torch.Generator().manual_seed(0)).to(
+        card).eval()
+
+
+def _song(seconds, seed, pcm16=False):
+    y = (np.random.default_rng(seed).standard_normal(int(8192 * seconds))
+         * 0.1).astype(np.float32)
+    return (y * 32768.0).clip(-32768, 32767).astype(np.int16) if pcm16 else y
+
+
+def _eager_decode(model, y, *, vocal_solo=True, both=False, mode="segments",
+                  pcm16=False):
+    """The eager body on the padded song on the card, cut to the song."""
+    from svs_torch.infer import separate
+    cfg, n = model.cfg, len(y)
+    y_p = torch.from_numpy(np.pad(y, (0, separate._padded_len(n, cfg) - n)))
+    with torch.inference_mode():
+        y_p = y_p.to(next(model.parameters()).device)
+        if pcm16:
+            out = (separate._separate_padded_pcm16(model, y_p, cfg,
+                                                   vocal_solo, mode),)
+        else:
+            out = separate._separate_padded(model, y_p, cfg, vocal_solo,
+                                            both, mode)
+            out = out if both else (out,)
+    outs = tuple(o[:n].cpu().numpy() for o in out)
+    return outs if both else outs[0]
+
+
+@pytest.fixture
+def decode_cache(card, monkeypatch):
+    """A fresh cache of programs, cuDNN deterministic: float32 cuDNN
+    convs are not the same bits run to run on the H100 (two eager calls of
+    the narrow or the ``default`` model differed by ~4e-8 with TF32 on or
+    off, while bf16 and deterministic algorithms gave equal bits, eager or
+    replayed), so without it the eager oracle does not repeat itself."""
+    from svs_torch.infer import graphs
+    cache = graphs.ProgramCache()
+    monkeypatch.setattr(graphs, "CACHE", cache)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    return cache
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["segments", "overlap", "whole"])
+def test_decode_replays_are_the_eager_bits(card, decode_cache, mode, dtype):
+    """Each program's replay equals the eager body bit for bit: the wav
+    decode with ``vocal_solo`` on and off, ``both=True``, PCM16 (0 LSB) and
+    the magnitude decode; each key captured once, its second call a
+    replay."""
+    from svs_torch.infer import separate
+    model = _decode_model(card, dtype)
+    y = _song(7.3, 1)
+    for _ in range(2):
+        for vocal_solo in (True, False):
+            got = separate.separate_wav(model, y, vocal_solo=vocal_solo,
+                                        mode=mode)
+            np.testing.assert_array_equal(
+                got, _eager_decode(model, y, vocal_solo=vocal_solo,
+                                   mode=mode))
+        got = separate.separate_wav(model, y, both=True, mode=mode)
+        for g, w in zip(got, _eager_decode(model, y, both=True, mode=mode)):
+            np.testing.assert_array_equal(g, w)
+        y16 = _song(7.3, 2, pcm16=True)
+        (got,) = separate.separate_wav_stream(model, [y16], pcm16=True,
+                                              mode=mode)
+        assert got.dtype == np.int16
+        np.testing.assert_array_equal(
+            got, _eager_decode(model, y16, mode=mode, pcm16=True))
+        mag = np.random.default_rng(3).random((513, 300), np.float32)
+        got = separate.separate_magnitude(model, mag, mode=mode)
+        with torch.inference_mode():
+            m = torch.from_numpy(np.pad(mag, ((0, 0), (0, 1024 - 300))))
+            want = separate._separate_spec(model, m.to(card), model.cfg,
+                                           True, mode)[:, :300].cpu().numpy()
+        np.testing.assert_array_equal(got, want)
+    assert decode_cache.builds == len(decode_cache) == 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pcm16", [False, True])
+def test_interleaved_stream_of_two_lengths_is_the_eager_decode(
+        card, decode_cache, pcm16):
+    """The stream's overlap (song i+1's copy in and replay enqueued while
+    song i's copy out runs) over songs of two buckets, interleaved: each
+    song is the eager body's, and each bucket's program is captured
+    once."""
+    from svs_torch.infer import separate
+    model = _decode_model(card)
+    songs = [_song(s, i, pcm16) for i, s in enumerate((10, 40, 12, 35, 9))]
+    got = separate.separate_wav_stream(model, songs, pcm16=pcm16,
+                                       mode="overlap")
+    for y, o in zip(songs, got):
+        assert o.shape == y.shape
+        np.testing.assert_array_equal(
+            o, _eager_decode(model, y, mode="overlap", pcm16=pcm16))
+    assert decode_cache.builds == 2
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(card, decode_cache, monkeypatch):
+    """No fallback: a body that fails while it is captured makes the call
+    raise, and no program of its key is kept."""
+    from svs_torch.infer import separate
+    real = separate._separate_padded
+
+    def failing(*args, **kwargs):
+        out = real(*args, **kwargs)
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the body cannot be captured")
+        return out
+
+    monkeypatch.setattr(separate, "_separate_padded", failing)
+    model = _decode_model(card)
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        separate.separate_wav(model, _song(3, 0))
+    assert len(decode_cache) == 0
+    monkeypatch.setattr(separate, "_separate_padded", real)
+    y = _song(3, 0)
+    np.testing.assert_array_equal(separate.separate_wav(model, y),
+                                  _eager_decode(model, y))
+
+
+@pytest.mark.cuda
+def test_a_rebound_model_is_captured_again(card, decode_cache):
+    """New tensors (``load_state_dict(assign=True)``) mean a new program:
+    the old tensors stay alive here, so a stale replay would give the old
+    weights' answer."""
+    from svs_torch.infer import separate
+    model = _decode_model(card)
+    y = _song(5, 4)
+    old_sd = model.state_dict()
+    before = separate.separate_wav(model, y)
+    model.load_state_dict({k: v * 0.5 if v.is_floating_point() else v
+                           for k, v in old_sd.items()}, assign=True)
+    got = separate.separate_wav(model, y)
+    assert decode_cache.builds == 2 and len(decode_cache) == 1
+    np.testing.assert_array_equal(got, _eager_decode(model, y))
+    assert not np.array_equal(got, before)
+
+
+@pytest.mark.cuda
+def test_serve_warmup_leaves_its_program_captured(card, decode_cache):
+    """``serve(warmup_secs > 0)`` captures the warm-up length's program on
+    its worker thread, so a first request of that bucket replays it."""
+    from svs_torch.serve import server
+    model = _decode_model(card)
+    httpd = server.serve(model, port=0, warmup_secs=4.0)
+    try:
+        assert decode_cache.builds == 1
+        ((_, signature, *_),) = decode_cache._programs
+        assert signature == ("wav", server.DEFAULT_MODE, True, False, False)
+        y = _song(6, 5)
+        got = httpd.service.separate(y, mode=server.DEFAULT_MODE)
+        assert decode_cache.builds == 1
+        np.testing.assert_array_equal(
+            got, _eager_decode(model, y, mode=server.DEFAULT_MODE))
+    finally:
+        server.close(httpd, 30)
