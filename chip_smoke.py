@@ -73,12 +73,15 @@ Phases, each printing what it found on its own line:
              its one-song stream call, and one in-process stream call of
              the burst's songs for scale);
 6. train   — the training path on the slice's spectra: ``PatchDataset``
-             batches of 32, one seeded full-width ``default`` state, three
+             batches of 32, one seeded full-width ``default`` state, four
              steps from it under each of ``matmul_bf16``, ``pallas_fused``,
-             ``pallas_fused_wide`` and ``pallas_bf16`` (counts zeroed just
-             before each and read just after), ms per step from CUDA
-             events and the device's busy share of a step from a
-             torch.profiler trace;
+             ``pallas_fused_wide`` and ``pallas_bf16`` through
+             ``make_train_step``'s cached program (the first its eager
+             warm-up step, the second its capture; counts zeroed just
+             before each and read just after), ms per call from CUDA
+             events, and the device's busy share and the loss kernels'
+             launches of one more replayed step from a torch.profiler
+             trace;
 7. bench   — the bench entry point: ``bench_cli --frontend`` (counts
              zeroed just before and read just after: 102 launches of each
              front-end kernel, all on the fft route), then the default
@@ -96,18 +99,40 @@ Phases, each printing what it found on its own line:
              checkpoints checked), a resume from its ``.ckpt`` for a third,
              ``infer_cli`` separating a song from that ``.ckpt``, one epoch of
              ``fit`` under each of ``matmul_bf16``, ``pallas_fused`` and
-             ``pallas_bf16`` without dropout (the loss kernels' counts zeroed
-             just before each and read just after; the kernel paths' mean
-             loss against ``matmul_bf16``'s), one epoch traced for the
-             device's idle share, and one ``fine_tune`` step with remat
-             against the same step without it;
+             ``pallas_bf16`` without dropout, traced by torch.profiler (the
+             loss kernels' counts zeroed just before each and read just
+             after: the program's warm-up step and capture, the replays'
+             launches from the trace; the kernel paths' mean loss against
+             ``matmul_bf16``'s), one epoch traced for the device's idle
+             share, and one ``fine_tune`` step with remat against the same
+             step without it;
+8b. step graph — ``make_train_step`` / ``make_eval_step`` as cached
+             captured programs (``train/graphs.py``) at the full
+             ``default`` preset, B = 32, under ``matmul_bf16``,
+             ``pallas_bf16`` and ``pallas_fused``: four program calls and a
+             ragged tail of 20, twice, against the eager body from one
+             seeded state (metrics, parameters, BN and Adam the same bits),
+             the eval programs at B = 32 and 20 against the eager eval;
+             accumulation over 2 (both positions), a weighted batch, a
+             learning-rate change (captured again), the ``fine_tune``
+             preset with remat (B = 4 x 1,536 frames) and a float32 step
+             under cuDNN's deterministic algorithms, each the same bits;
+             the step's ms as replay and as eager body (CUDA events), a
+             traced replay's busy ms, idle share and loss-kernel launches,
+             the first call's and the capture's seconds, each program's
+             bytes and the cache's; then two epochs of ``fit`` with
+             validation and a tail, its steps as programs, against the same
+             fit with the eager bodies (step losses, text log and final
+             state the same bits) and their epoch seconds; one ``step
+             graph:`` JSON line;
 9. scan    — ``fit(epoch_scan=True)`` (each epoch's full batches as replays
              of one captured CUDA graph of the step) at the full ``default``
              preset, B = 32, 35 patches a song (3 full steps and a ragged
              tail an epoch), 2 epochs across a learning-rate drop, under
              each of ``matmul_bf16``, ``pallas_bf16`` and ``pallas_fused``
-             with ``val_sdr``, against the eager fit with the same
-             (capturable) Adam: per-step losses and parameters, captures
+             with ``val_sdr``, against the per-step fit (its steps
+             ``make_train_step``'s cached programs, the same capturable
+             Adam): per-step losses and parameters bit for bit, captures
              and replays, the loss kernels' wrapper counts (eager launches
              and calls recorded into a graph, zeroed just before, read just
              after) and their launches in the fit's replays (the fit traced
@@ -1045,8 +1070,12 @@ def loss_kernel_phase(torch, np):
 
 
 def train_phase(torch, np, spec: str):
-    """Three steps from one seeded full-width state under each
-    mr_mag_impl; returns (launch counts of the phase, first batch)."""
+    """Four steps from one seeded full-width state under each mr_mag_impl,
+    through ``make_train_step``'s cached program (the first call its eager
+    warm-up step, the second its capture and first replay); returns
+    (per loss kernel, summed over the kernel paths: the wrappers' eager
+    launches, their calls recorded into the captures, and the launches of
+    one more replayed step, read from its trace; first batch)."""
     from svs_torch.data.dataset import PatchDataset
     from svs_torch.ops.cuda import diff_mag as cdm
     from svs_torch.ops.cuda import fused_loss as cfl
@@ -1056,11 +1085,8 @@ def train_phase(torch, np, spec: str):
     ds = PatchDataset(spec, samples_per_song=64, input_len=128)
     host = list(ds.batches(TRAIN_B, seed=0, n_steps=4))
     batches = [tstep.batch_to_device(b, "cuda") for b in host]
-    # per step: (spectral_mag fwd, bwd, loss_partials fwd, bwd)
-    per_step = {"matmul_bf16": (0, 0, 0, 0), "pallas_fused": (0, 0, 3, 3),
-                "pallas_fused_wide": (0, 0, 3, 3),
-                "pallas_bf16": (6, 3, 0, 0)}
-    total = [0, 0, 0, 0]
+    total = {k: {"eager": 0, "captured": 0, "traced_replay": 0}
+             for k in LOSS_NAMES}
     first_mr, first_gn = {}, {}
     for impl in IMPLS:
         cfg = dataclasses.replace(get_config("default"), mr_mag_impl=impl)
@@ -1070,7 +1096,7 @@ def train_phase(torch, np, spec: str):
         cdm.reset_counts()
         cfl.reset_counts()
         ms, metrics = [], []
-        for batch in batches[:3]:
+        for batch in batches:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -1079,26 +1105,37 @@ def train_phase(torch, np, spec: str):
             end.synchronize()
             ms.append(start.elapsed_time(end))
             metrics.append({k: float(v) for k, v in m.items()})
-        counts = (cdm.fwd_launches, cdm.bwd_launches, cfl.fwd_launches,
-                  cfl.bwd_launches)
-        want = tuple(3 * n for n in per_step[impl])
-        check(counts == want, f"{impl}: kernel launches {counts} == {want} "
-              "(spectral_mag fwd/bwd, loss_partials fwd/bwd) in 3 steps")
-        total = [a + c for a, c in zip(total, counts)]
+        counts, captured = _loss_counts()
+        per = LOSS_PER_STEP[impl]
+        check(counts == per and captured == per,
+              f"{impl}: kernel launches {counts} and captured calls "
+              f"{captured} == {per} (spectral_mag fwd/bwd, loss_partials "
+              "fwd/bwd): the warm-up step, then one capture")
         for m in metrics:
             check(all(math.isfinite(v) for v in m.values()),
                   f"{impl}: finite losses and grad_norm")
         first_mr[impl] = metrics[0]["mr"]
         first_gn[impl] = metrics[0]["grad_norm"]
+        traced = {}
         busy = device_breakdown(
-            torch, lambda: step(state, batches[3], gen), f"train {impl} step",
-            (("loss_kernels", ("spec::",)),) + FAMILIES)
-        steady = sum(ms[1:]) / len(ms[1:])
-        print(f"train {impl}: ms per step {[round(v, 3) for v in ms]} "
-              f"(steps 2-3 mean {steady:.3f}); device busy {busy:.3f} ms, "
-              f"idle share {1.0 - busy / steady:.3f}; launches "
-              f"{list(counts)}; metrics step 1 {json.dumps(metrics[0])}, "
-              f"step 3 {json.dumps(metrics[2])}")
+            torch, lambda: step(state, batches[3], gen),
+            f"train {impl} step (a replay)",
+            (("loss_kernels", ("spec::",)),) + FAMILIES, kernels=traced)
+        replayed = tuple(traced.get(k, 0) for k in LOSS_NAMES)
+        check(replayed == per, f"{impl}: a traced replay launched the loss "
+              f"kernels {replayed} == {per}")
+        for i, name in enumerate(LOSS_NAMES):
+            total[name]["eager"] += counts[i]
+            total[name]["captured"] += captured[i]
+            total[name]["traced_replay"] += replayed[i]
+        steady = sum(ms[2:]) / len(ms[2:])
+        print(f"train {impl}: ms per call {[round(v, 3) for v in ms]} "
+              f"(warm-up step, capture and replay, replays: mean "
+              f"{steady:.3f}); device busy {busy:.3f} ms, idle share "
+              f"{1.0 - busy / steady:.3f}; wrapper launches {list(counts)}, "
+              f"captured {list(captured)}, a replay's {list(replayed)}; "
+              f"metrics step 1 {json.dumps(metrics[0])}, step 4 "
+              f"{json.dumps(metrics[3])}")
         del state, step
     for impl in IMPLS[1:]:
         rel = abs(first_mr[impl] - first_mr["matmul_bf16"]) / abs(
@@ -1113,9 +1150,7 @@ def train_phase(torch, np, spec: str):
               f"matmul_bf16 {first_gn['matmul_bf16']:.7f}, rel {gn:.2e} "
               f"(bound {GN_RTOL:g})")
         check(gn < GN_RTOL, f"{impl}: first-step grad_norm near matmul_bf16's")
-    names = ("spectral_mag_fwd", "spectral_mag_bwd", "loss_partials_fwd",
-             "loss_partials_bwd")
-    return dict(zip(names, total)), host[0]
+    return total, host[0]
 
 
 # fit: patches a song at B = 32 (3 songs: 3 steps an epoch)
@@ -1129,9 +1164,11 @@ def _read_lines(path: str):
 
 def fit_phase(torch, np, work: str):
     """The training entry point at the full default preset on the slice's
-    spectra; returns the loss kernels' launch counts of the two ``fit``
-    runs under the kernel paths (each zeroed just before and read just
-    after) and the numbers of the phase."""
+    spectra; returns, per loss kernel, summed over the ``fit`` runs under
+    the kernel paths: the wrappers' launches (the program's eager warm-up
+    step) and calls recorded into its capture (each zeroed just before the
+    fit and read just after), and the replays' launches (a torch.profiler
+    trace of the fit, less the eager launches)."""
     from svs_torch.cli import infer_cli, train_cli
     from svs_torch.ops.cuda import diff_mag as cdm
     from svs_torch.ops.cuda import fused_loss as cfl
@@ -1199,12 +1236,13 @@ def fit_phase(torch, np, work: str):
           and (out[1:] <= mix[1:] + 1e-6).all(),
           "infer_cli from the .ckpt: shape, finite, |mask| <= 1")
 
-    # fit under each loss path, one epoch, no dropout, one seeded state
-    per_step = {"matmul_bf16": (0, 0, 0, 0), "pallas_fused": (0, 0, 3, 3),
-                "pallas_bf16": (6, 3, 0, 0)}
-    launches = [0, 0, 0, 0]
+    # fit under each loss path, one epoch, no dropout, one seeded state;
+    # its steps are make_train_step's program (the first its eager warm-up
+    # step, the second its capture), so the replays' launches are read from
+    # a torch.profiler trace of the fit
+    launches = {k: [0, 0, 0] for k in LOSS_NAMES}
     means = {}
-    for impl in per_step:
+    for impl in ("matmul_bf16", "pallas_fused", "pallas_bf16"):
         cfg = dataclasses.replace(get_config("default"), mr_mag_impl=impl,
                                   dropout_rate=0.0,
                                   samples_per_song=FIT_SAMPLES)
@@ -1215,19 +1253,35 @@ def fit_phase(torch, np, work: str):
             device="cuda")
         cdm.reset_counts()
         cfl.reset_counts()
-        state = loop.fit(opts, cfg)
-        counts = (cdm.fwd_launches, cdm.bwd_launches, cfl.fwd_launches,
-                  cfl.bwd_launches)
-        want = tuple(steps * n for n in per_step[impl])
-        check(counts == want, f"fit {impl}: kernel launches {counts} == "
-              f"{want} (spectral_mag fwd/bwd, loss_partials fwd/bwd)")
-        launches = [a + c for a, c in zip(launches, counts)]
+        result = {}
+        events = device_events(torch, lambda: result.setdefault(
+            "state", loop.fit(opts, cfg)))
+        state = result["state"]
+        counts, captured = _loss_counts()
+        seen = {}
+        for key, _, n in events:
+            if _kernel_of(key):
+                seen[_kernel_of(key)] = seen.get(_kernel_of(key), 0) + n
+        per = LOSS_PER_STEP[impl]
+        traced = tuple(seen.get(k, 0) for k in LOSS_NAMES)
+        want = tuple(steps * n for n in per)
+        check(counts == per and captured == per and traced == want,
+              f"fit {impl}: wrapper launches {counts} (the warm-up step) and "
+              f"captured calls {captured} == {per}, the fit's trace "
+              f"{traced} == {want} (spectral_mag fwd/bwd, loss_partials "
+              "fwd/bwd)")
+        for i, name in enumerate(LOSS_NAMES):
+            launches[name][0] += counts[i]
+            launches[name][1] += captured[i]
+            launches[name][2] += traced[i] - counts[i]
         log = _read_lines(os.path.join(log_dir, f"log_fit_{impl}.txt"))
         means[impl] = float(log[0])
-        print(f"fit {impl}: epoch mean loss {means[impl]:.7f}, launches "
-              f"{list(counts)}, params {param_count(state.model)}")
+        print(f"fit {impl}: epoch mean loss {means[impl]:.7f}, wrapper "
+              f"launches {list(counts)}, captured {list(captured)}, the "
+              f"fit's trace {list(traced)}, params "
+              f"{param_count(state.model)}")
         check(param_count(state.model) == 9_823_313, "full-width default")
-        del state
+        del state, result
     for impl in ("pallas_fused", "pallas_bf16"):
         rel = abs(means[impl] - means["matmul_bf16"]) / abs(
             means["matmul_bf16"])
@@ -1291,9 +1345,274 @@ def fit_phase(torch, np, work: str):
     check(gn_rel < GN_RTOL, "remat: the same grad_norm")
     numbers.update(remat_peak_mib=mem1, no_remat_peak_mib=mem0)
     print("fit numbers: " + json.dumps(numbers))
-    names = ("spectral_mag_fwd", "spectral_mag_bwd", "loss_partials_fwd",
-             "loss_partials_bwd")
-    return dict(zip(names, launches))
+    return launches
+
+
+# step graph: the train and eval steps as cached captured programs
+# (train/graphs.py) under the three loss paths, against their eager bodies
+STEP_IMPLS = ("matmul_bf16", "pallas_bf16", "pallas_fused")
+STEP_TAIL_B = 20   # a ragged tail batch's rows
+STEP_WEIGHTED = 8  # padding rows of the weighted batch (weight 0)
+
+
+def _max_diff(torch, a, b) -> float:
+    """The largest |a - b| over two equally long sequences of tensors."""
+    return max(((x.double() - y.double()).abs().max().item()
+                for x, y in zip(a, b)), default=0.0)
+
+
+def step_graph_phase(torch, np, work: str) -> dict:
+    """``make_train_step`` / ``make_eval_step`` on the card: each call the
+    cached captured program of its key (``train/graphs.py``), against the
+    eager bodies (``make_step_fn`` / ``make_eval_fn``) from one seeded
+    state with the same (capturable) Adam and dropout generator seed.
+    Returns, per loss kernel, summed over the program calls of the
+    ``mr_mag_impl`` runs (traced by torch.profiler): the wrappers' eager
+    launches in the programs' warm-up steps, the calls recorded into their
+    captures, and the replays' launches (the trace's less every wrapper
+    launch in it)."""
+    from svs_torch.data.dataset import PatchDataset
+    from svs_torch.ops.cuda import diff_mag as cdm
+    from svs_torch.ops.cuda import fused_loss as cfl
+    from svs_torch.parallel import dp
+    from svs_torch.train import graphs
+    from svs_torch.train import loop
+    from svs_torch.train import step as tstep
+    from svs_torch.utils.config import get_config
+
+    spec = os.path.join(work, "spec")
+    ds = PatchDataset(spec, samples_per_song=64, input_len=128)
+    batches = [tstep.batch_to_device(b, "cuda")
+               for b in ds.batches(TRAIN_B, seed=7, n_steps=4)]
+    tail = {k: v[:STEP_TAIL_B] for k, v in batches[0].items()}
+    weight = torch.ones(TRAIN_B, device="cuda")
+    weight[-STEP_WEIGHTED:] = 0.0
+    weighted = dict(batches[1], weight=weight)
+    default = get_config("default")
+    line = {"device": nvidia_smi_line()}
+    counts = {k: {"eager": 0, "captured": 0, "replayed": 0}
+              for k in LOSS_NAMES}
+    t_phase = time.perf_counter()
+
+    def programs_of(state):
+        return [p for p in graphs.CACHE._programs.values()
+                if p.model() is state.model]
+
+    def run(label, cfg, calls, accum=1, lr_at=None, traced=None):
+        """The program and the eager body from one seeded state over
+        ``calls`` (the learning rate dropped before call ``lr_at``): the
+        same metrics and state bits, one step a call.  ``traced``: a dict
+        that takes the loss kernels' launches in a torch.profiler trace of
+        the calls (the eager body's are read from the wrappers' counts,
+        which the returned ``body_launches`` holds)."""
+        opt = tstep.make_optimizer(cfg, accum)
+        eager, prog = (tstep.create_train_state(0, cfg, opt, device="cuda")
+                       for _ in range(2))
+        body, step = tstep.make_step_fn(cfg), tstep.make_train_step(cfg)
+        ge, gp = (torch.Generator("cuda").manual_seed(1) for _ in range(2))
+        m_diff, secs, body_launches = 0.0, [], [0, 0, 0, 0]
+
+        def all_calls():
+            nonlocal eager, prog, m_diff
+            for i, batch in enumerate(calls):
+                if i == lr_at:
+                    for s in (eager, prog):
+                        tstep.set_learning_rate(s, cfg.lr_after_drop)
+                before = _loss_counts()[0]
+                eager, want = body(eager, batch, ge)
+                body_launches[:] = [a + n - b for a, n, b in zip(
+                    body_launches, _loss_counts()[0], before)]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                prog, got = step(prog, batch, gp)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                m_diff = max(m_diff, _max_diff(
+                    torch, [got[k] for k in want], list(want.values())))
+
+        if traced is None:
+            all_calls()
+        else:
+            # device_events takes a trace again if it held no device time:
+            # the calls run once
+            for key, _, n in device_events(
+                    torch, lambda: None if secs else all_calls()):
+                if _kernel_of(key) in LOSS_NAMES:
+                    traced[_kernel_of(key)] = traced.get(_kernel_of(key),
+                                                         0) + n
+        s_diff = _max_diff(torch, dp._state_tensors(eager),
+                           dp._state_tensors(prog))
+        progs = programs_of(prog)
+        r = dict(metrics_max_diff=m_diff, state_max_diff=s_diff,
+                 programs=[(p.captures, p.replays) for p in progs])
+        print(f"step graph {label}: {len(calls)} program calls against the "
+              f"eager body: metrics max diff {m_diff:g}, state (parameters, "
+              f"BN, Adam) max diff {s_diff:g}; programs (captures, replays) "
+              f"{r['programs']}; call seconds "
+              f"{[round(v, 4) for v in secs]}")
+        check(m_diff == 0.0 and s_diff == 0.0
+              and prog.step == eager.step == len(calls),
+              f"step graph {label}: the eager body's bits, one step a call")
+        line[label] = r
+        return eager, prog, (body, step, ge, gp), secs, progs, tuple(
+            body_launches)
+
+    def evals(label, cfg, eager, prog):
+        d = 0.0
+        for batch in (batches[2], tail):
+            for _ in range(2):
+                got = tstep.make_eval_step(cfg)(prog, batch)
+                want = tstep.make_eval_fn(cfg)(eager, batch)
+                d = max(d, _max_diff(torch, [got[k] for k in want],
+                                     list(want.values())))
+        print(f"step graph {label} eval: B={TRAIN_B} and {STEP_TAIL_B}, two "
+              f"calls each, max diff {d:g} from the eager eval")
+        check(d == 0.0, f"step graph {label}: eval programs give the eager "
+              "eval's bits")
+        line[label]["eval_max_diff"] = d
+
+    graphs.CACHE.clear()
+    for impl in STEP_IMPLS:
+        cfg = dataclasses.replace(default, mr_mag_impl=impl)
+        per = LOSS_PER_STEP[impl]
+        cdm.reset_counts()
+        cfl.reset_counts()
+        calls = batches + [tail, tail]
+        seen = {}
+        eager, prog, (body, step, ge, gp), secs, progs, body_n = run(
+            impl, cfg, calls, traced=seen)
+        got, rec = _loss_counts()
+        # the programs' eager launches: their warm-up steps (the full
+        # batch's and the tail's); captured: the two programs' captures;
+        # replayed: three replays of the full batch's program, one of the
+        # tail's
+        prog_n = tuple(g - b for g, b in zip(got, body_n))
+        rep_n = tuple(seen.get(k, 0) - g for k, g in zip(LOSS_NAMES, got))
+        print(f"step graph {impl}: loss kernel launches (spectral_mag "
+              f"fwd/bwd, loss_partials fwd/bwd): the eager body's "
+              f"{list(body_n)}, the programs' warm-up steps' {list(prog_n)}, "
+              f"captured {list(rec)}, the replays' {list(rep_n)} (the "
+              f"trace's {[seen.get(k, 0) for k in LOSS_NAMES]} less the "
+              "wrappers')")
+        check(body_n == tuple(6 * v for v in per)
+              and prog_n == tuple(2 * v for v in per)
+              and rec == tuple(2 * v for v in per)
+              and rep_n == tuple(4 * v for v in per),
+              f"step graph {impl}: launches of the body {body_n}, the "
+              f"warm-up steps {prog_n}, captured {rec}, replays {rep_n}")
+        evals(impl, cfg, eager, prog)
+        full = next(p for p in progs if p.input["mix"].shape[0] == TRAIN_B)
+        check((full.captures, full.replays) == (1, 3),
+              f"step graph {impl}: the full batch's program captured once")
+        replay_ms = cuda_ms(torch, lambda: step(prog, batches[0], gp),
+                            reps=20, warmup=2)
+        eager_ms = cuda_ms(torch, lambda: body(eager, batches[0], ge),
+                           reps=10, warmup=2)
+        traced = {}
+        busy = device_breakdown(
+            torch, lambda: step(prog, batches[0], gp),
+            f"step graph {impl} replay",
+            (("loss_kernels", ("spec::",)),) + FAMILIES, kernels=traced)
+        replayed = tuple(traced.get(k, 0) for k in LOSS_NAMES)
+        check(replayed == per, f"step graph {impl}: a traced replay "
+              f"launched the loss kernels {replayed} == {per}")
+        for i, name in enumerate(LOSS_NAMES):
+            counts[name]["eager"] += prog_n[i]
+            counts[name]["captured"] += rec[i]
+            counts[name]["replayed"] += rep_n[i]
+        line[impl].update(
+            replay_ms=replay_ms, eager_ms=eager_ms, replay_busy_ms=busy,
+            replay_idle_share=1.0 - busy / replay_ms,
+            warmup_call_s=secs[0], capture_call_s=secs[1],
+            tail_capture_call_s=secs[5],
+            program_bytes={f"{k[0]} B={p.input['mix'].shape[0]}": p.nbytes
+                           for k, p in graphs.CACHE._programs.items()
+                           if p.model() is prog.model},
+            cache_bytes=graphs.CACHE.nbytes, cache_programs=len(graphs.CACHE))
+        print(f"step graph {impl}: B={TRAIN_B} step ms replay "
+              f"{replay_ms:.3f}, eager body {eager_ms:.3f} (CUDA events); "
+              f"a traced replay busy {busy:.3f} ms, idle share "
+              f"{1.0 - busy / replay_ms:.3f}; first call (eager warm-up) "
+              f"{secs[0]:.3f} s, second (capture and replay) {secs[1]:.3f} "
+              f"s; program bytes {line[impl]['program_bytes']}, the cache "
+              f"{graphs.CACHE.nbytes} B in {len(graphs.CACHE)} programs")
+        del eager, prog, body, step, progs, full
+
+    # the other keys of the rules, one case each
+    fused = dataclasses.replace(default, mr_mag_impl="pallas_fused")
+    *_, progs, _ = run("accum_steps=2", dataclasses.replace(
+        default, mr_mag_impl="pallas_bf16"), batches + batches[:2], accum=2)
+    check(sorted(progs[0].graphs or ()) == [0, 1], "step graph "
+          "accum_steps=2: a graph per cycle position, both replayed")
+    *_, progs, _ = run("weighted", dataclasses.replace(
+        default, mr_mag_impl="matmul_bf16"), [weighted] * 3)
+    check("weight" in progs[0].input, "step graph weighted: its program")
+    *_, progs, _ = run("lr change", fused, batches, lr_at=2)
+    check(progs[0].captures == 2, "step graph lr change: captured again")
+    ft = dataclasses.replace(get_config("fine_tune"),
+                             mr_mag_impl="pallas_fused")
+    rng = np.random.default_rng(8)
+    shape = (4, 512, ft.input_len)
+    mix = rng.random(shape, np.float32)
+    ft_batch = tstep.batch_to_device(
+        {"mix": mix, "voc": mix * rng.random(shape, np.float32),
+         "mix_angle": rng.uniform(-np.pi, np.pi, shape).astype(np.float32),
+         "voc_angle": rng.uniform(-np.pi, np.pi, shape).astype(np.float32)},
+        "cuda")
+    check(ft.remat, "fine_tune trains with remat")
+    *_, secs, progs, _ = run("fine_tune remat", ft, [ft_batch] * 3)
+    line["fine_tune remat"]["program_bytes"] = progs[0].nbytes
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        f32 = dataclasses.replace(default, compute_dtype="float32",
+                                  mr_mag_impl="fft")
+        eager, prog, *_ = run("float32 deterministic", f32, batches[:3])
+        evals("float32 deterministic", f32, eager, prog)
+        del eager, prog
+    finally:
+        torch.backends.cudnn.deterministic = was
+    del progs
+    line["seconds"] = {"steps": time.perf_counter() - t_phase}
+
+    # two epochs of fit, the per-step loop and validation as programs,
+    # against the same fit with the eager bodies
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(fused, samples_per_song=SCAN_SAMPLES)
+    root = os.path.join(work, "step_graph")
+
+    def opts(run_name):
+        return loop.TrainOptions(
+            train_folder=spec, valid_folder=spec, label="x", epoch=2,
+            batch_size=TRAIN_B, load_path="none",
+            ckpt_dir=os.path.join(root, run_name, "CKPT"),
+            log_dir=os.path.join(root, run_name, "LOG"), progress=False,
+            val_interval=1, device="cuda")
+
+    fits = {name: _recording_fit(torch, opts(name), cfg,
+                                 eager=name == "eager")
+            for name in ("eager", "programs")}
+    (s_e, l_e, _), (s_p, l_p, _) = fits["eager"], fits["programs"]
+    logs = {k: _read_lines(os.path.join(root, k, "LOG", "log_x.txt"))
+            for k in fits}
+    secs = {k: [json.loads(x)["secs"] for x in _read_lines(
+        os.path.join(root, k, "LOG", "metrics_x.jsonl")) if '"secs"' in x]
+        for k in fits}
+    bits = (np.array_equal(l_e, l_p) and logs["eager"] == logs["programs"]
+            and _same_bits(torch, _full_state(torch, s_e),
+                           _full_state(torch, s_p)))
+    print(f"step graph fit: 2 epochs of {len(l_p) // 2} steps (a tail of "
+          f"{N_SONGS * SCAN_SAMPLES % TRAIN_B}) with validation, "
+          f"pallas_fused: programs against eager bodies, step losses, text "
+          f"log and final state the same bits {bits}; epoch seconds "
+          f"programs {secs['programs']}, eager {secs['eager']}")
+    check(bits and len(l_p) == 2 * -(-N_SONGS * SCAN_SAMPLES // TRAIN_B),
+          "step graph fit: the program fit is the eager fit, bit for bit")
+    line["fit"] = dict(same_bits=bits, epoch_s=secs)
+    line["seconds"]["fits"] = time.perf_counter() - t0
+    del fits, s_e, s_p
+    print("step graph: " + json.dumps(line))
+    return counts
 
 
 # scan: patches a song at B = 32 (3 songs, 105 patches: 3 full steps and a
@@ -1339,27 +1658,27 @@ def _loss_counts():
              cfl.bwd_captured))
 
 
-def _recording_fit(torch, opts, cfg, capturable=False, trace=False,
+def _recording_fit(torch, opts, cfg, eager=False, trace=False,
                    stop=False):
     """``loop.fit(opts, cfg)`` with every step's ``total`` recorded in
-    order (the eager steps', the scan's tail included, and each graph
-    epoch's loss vector).  ``capturable``: the state's Adam in its
-    capturable form, as under ``epoch_scan`` (an eager fit to hold a graph
-    fit against); ``trace``: the whole fit under torch.profiler, its loss
-    kernels' device launches counted by ``_kernel_of``; ``stop``: SIGTERM
-    during the first epoch, and the fit's exit code kept.  Returns (state,
+    order (the per-step loop's, the scan's tail included, and each graph
+    epoch's loss vector).  ``eager``: the train and eval steps as their
+    eager bodies, not the cached programs (``train/graphs.py``);
+    ``trace``: the whole fit under torch.profiler, its loss kernels'
+    device launches counted by ``_kernel_of``; ``stop``: SIGTERM during
+    the first epoch, and the fit's exit code kept.  Returns (state,
     losses, seen): ``seen`` holds the epoch function and its last
     arguments, the traced launches and the exit code."""
     import signal
 
     from torch.profiler import ProfilerActivity, profile
 
-    from svs_torch.train import loop
+    from svs_torch.train import graphs, loop
     from svs_torch.train import scan
 
     totals, seen = [], {}
     make_step, make_scan = loop.make_train_step, scan.make_epoch_scan
-    make_opt = loop.make_optimizer
+    programmed = graphs.programmed
 
     def step_factory(c):
         step = make_step(c)
@@ -1383,12 +1702,9 @@ def _recording_fit(torch, opts, cfg, capturable=False, trace=False,
             return state, losses
         return run
 
-    def optimizer(c, **k):
-        return make_opt(c, **{**k, "capturable": True})
-
     loop.make_train_step, scan.make_epoch_scan = step_factory, scan_factory
-    if capturable:
-        loop.make_optimizer = optimizer
+    if eager:
+        graphs.programmed = lambda dev: False
     prof = profile(activities=[ProfilerActivity.CUDA]) if trace else None
     state = None
     try:
@@ -1402,7 +1718,7 @@ def _recording_fit(torch, opts, cfg, capturable=False, trace=False,
             torch.cuda.synchronize()
     finally:
         loop.make_train_step, scan.make_epoch_scan = make_step, make_scan
-        loop.make_optimizer = make_opt
+        graphs.programmed = programmed
     if trace:
         kernels = {}
         for ev in prof.key_averages():
@@ -1420,37 +1736,44 @@ def _param_envelope(torch, a, b, lr: float):
     return d.max().item(), d.mean().item(), 2.1 * lr
 
 
-def _graph_vs_eager(torch, np, label, eager, graphed, lr):
-    """Per-step losses and parameters of a graph run against the eager run
-    of the same fit; prints and checks; returns the largest relative
-    difference of a step's loss."""
+def _graph_vs_eager(torch, np, label, eager, graphed, lr, bits=False):
+    """Per-step losses and parameters of a graph run against the per-step
+    run of the same fit; prints and checks (``bits``: the same bits, as a
+    replay runs the step's kernels in its order on the same Adam);
+    returns the largest relative difference of a step's loss."""
     (s_e, l_e, _), (s_g, l_g, _) = eager, graphed
     check(l_e.shape == l_g.shape and np.isfinite(l_g).all(),
           f"{label}: {l_e.shape} step losses either way, finite")
     rel = float(np.max(np.abs(l_g - l_e) / np.abs(l_e)))
     pmax, pmean, bound = _param_envelope(torch, s_e, s_g, lr)
-    print(f"{label}: {len(l_e)} step losses graph vs eager, max rel diff "
+    print(f"{label}: {len(l_e)} step losses graph vs per step, max rel diff "
           f"{rel:.3e} (bound {SCAN_LOSS_RTOL:g}); params max |d| "
-          f"{pmax:.3e} (bound {bound:.3e}), mean {pmean:.3e} (bound 2e-4)")
+          f"{pmax:.3e} (bound {bound:.3e}), mean {pmean:.3e} (bound 2e-4); "
+          f"the same bits {rel == 0.0 and pmax == 0.0}")
     check(rel <= SCAN_LOSS_RTOL, f"{label}: step losses within "
-          f"{SCAN_LOSS_RTOL:g} relative of the eager run's")
+          f"{SCAN_LOSS_RTOL:g} relative of the per-step run's")
     check(s_e.step == s_g.step, f"{label}: the same step count")
     check(pmax <= bound and pmean < 2e-4,
           f"{label}: parameters within the envelope")
+    if bits:
+        check(rel == 0.0 and pmax == 0.0, f"{label}: the per-step run's "
+              "losses and parameters, bit for bit")
     return rel
 
 
 def scan_phase(torch, np, work: str):
     """``fit(epoch_scan=True)``, the whole epoch as replays of a captured
-    CUDA graph, against the eager fit (its Adam in the same capturable
-    form) under each loss path.  The graph fits run under torch.profiler,
-    so the loss kernels' launches in their replays are counted in the fit
-    itself.  Returns, per loss kernel, summed over the graph fits under the
-    kernel paths: the wrappers' eager launches (the warm-up step, the
-    tails, validation) and calls recorded into a graph (each count zeroed
-    just before the fit and read just after), and the replays' launches
-    (the profiler's count less the eager launches); and the phase's
-    numbers."""
+    CUDA graph, against the per-step fit (each step the cached program of
+    ``make_train_step``, ``train/graphs.py``; the same capturable Adam)
+    under each loss path.  The graph fits run under torch.profiler, so the
+    loss kernels' launches in their replays are counted in the fit itself.
+    Returns, per loss kernel, summed over the graph fits under the kernel
+    paths: the wrappers' eager launches (the warm-up step, the first
+    epoch's tail, validation's warm-up calls) and calls recorded into a
+    graph (the epoch's two captures, the tail's program and validation's),
+    each count zeroed just before the fit and read just after, and the
+    replays' launches (the profiler's count less the eager launches); and
+    the phase's numbers."""
     from svs_torch.data.device_data import gather_crops
     from svs_torch.evaluation import bss_torch
     from svs_torch.ops.cuda import diff_mag as cdm
@@ -1498,8 +1821,7 @@ def scan_phase(torch, np, work: str):
         cfg = config(impl, **cfg_kw)
         load = dict(load_path=init) if cfg_kw else {}
         t0 = time.perf_counter()
-        eager = _recording_fit(torch, opts(f"eager_{impl}", **load), cfg,
-                               capturable=True)
+        eager = _recording_fit(torch, opts(f"eager_{impl}", **load), cfg)
         t1 = time.perf_counter()
         cdm.reset_counts()
         cfl.reset_counts()
@@ -1511,22 +1833,29 @@ def scan_phase(torch, np, work: str):
         got, rec = _loss_counts()
         epoch, args = graphed[2]["epoch"], graphed[2]["args"]
         seen = graphed[2].get("kernels", {})
-        # eager launches: the warm-up step, a tail an epoch and the
-        # validation batches' forward; captured: both captures (the rate
-        # drops at the second epoch); the rest of the steps are replays
+        # eager launches: the epoch graph's warm-up step, the first
+        # epoch's tail (its program's warm-up step) and validation's
+        # programs' warm-up calls (2 each: the full batches' and the
+        # tail's); captured: the epoch graph's two captures (the rate drops
+        # at the second epoch), the tail's program at the second epoch and
+        # validation's two; replayed: the rest of the epochs' steps, the
+        # second tail and the validation batches
         per = LOSS_PER_STEP[impl]
         n_rep = SCAN_EPOCHS * n_full - 1
-        eager_steps = 1 + SCAN_EPOCHS
-        want = tuple(v * (eager_steps + (n_val if i % 2 == 0 else 0))
+        eager_steps, val_eager = 2, 2 * 2
+        want = tuple(v * (eager_steps + (val_eager if i % 2 == 0 else 0))
                      for i, v in enumerate(per))
-        want_rec = tuple(2 * v for v in per)
+        want_rec = tuple(v * (3 + (2 if i % 2 == 0 else 0))
+                         for i, v in enumerate(per))
         eager_by_kernel = dict(zip(LOSS_NAMES, got))
         eager_by_kernel["adjoint"] = got[1] + got[3]
         rep = {k: n - eager_by_kernel[k] for k, n in seen.items()}
         per_kernel = dict(zip(LOSS_NAMES, per))
         per_kernel["adjoint"] = per[1] + per[3]
-        want_rep = {k: n_rep * v for k, v in per_kernel.items() if v}
-        print(f"scan {impl}: fit {SCAN_EPOCHS} epochs eager "
+        want_rep = {k: (n_rep + 1) * v + (n_val * v if k.endswith("_fwd")
+                                          else 0)
+                    for k, v in per_kernel.items() if v}
+        print(f"scan {impl}: fit {SCAN_EPOCHS} epochs per step "
               f"{t1 - t0:.2f} s, graph {t2 - t1:.2f} s (with val_sdr, "
               f"traced under the kernel paths); captures {epoch.captures}, "
               f"replays {epoch.replays}; wrapper launches {list(got)} (want "
@@ -1542,7 +1871,8 @@ def scan_phase(torch, np, work: str):
               f"{rec} == {want_rec}")
         check(rep == want_rep, f"scan {impl}: the fit's replays ran the "
               f"loss kernels {rep} == {want_rep}")
-        rel = _graph_vs_eager(torch, np, f"scan {impl}", eager, graphed, lr)
+        rel = _graph_vs_eager(torch, np, f"scan {impl}", eager, graphed, lr,
+                              bits=True)
         if impl == "matmul_bf16":
             # the measurements below train the state on: keep the fit's end
             done = graphed[0]
@@ -1558,14 +1888,14 @@ def scan_phase(torch, np, work: str):
 
         # measurements after the fit (its counts are read): the step's
         # time with the graph (replays of the last epoch's index matrices,
-        # 3 steps a call) and eager (gather and step, torch's host-form
-        # Adam, as the eager fit runs it), by CUDA events, and the device's
-        # busy share of one traced graph epoch
+        # 3 steps a call) and eager (gather and the eager body, the
+        # capturable Adam), by CUDA events, and the device's busy share of
+        # one traced graph epoch
         state, planes, songs, starts, gen = args[:5]
         fn = lambda: epoch(state, planes, songs, starts, gen)  # noqa: E731
         graph_ms = cuda_ms(torch, fn, reps=5, warmup=1) / n_full
         busy = sum(ms for _, ms, _ in device_events(torch, fn))
-        step = tstep.make_train_step(cfg)
+        step = tstep.make_step_fn(cfg)
         host_form = tstep.create_train_state(0, cfg, device="cuda")
         s_t = torch.as_tensor(songs[0], dtype=torch.int64, device="cuda")
         st_t = torch.as_tensor(starts[0], dtype=torch.int64, device="cuda")
@@ -1608,8 +1938,7 @@ def scan_phase(torch, np, work: str):
     # augmentation
     kw = dict(accum_steps=2, augment=True)
     cfg = config("matmul_bf16")
-    eager = _recording_fit(torch, opts("e_accum_aug", **kw), cfg,
-                           capturable=True)
+    eager = _recording_fit(torch, opts("e_accum_aug", **kw), cfg)
     graphed = _recording_fit(torch, opts("g_accum_aug", epoch_scan=True,
                                          **kw), cfg)
     _graph_vs_eager(torch, np, "scan accum_steps=2 with augment", eager,
@@ -1801,7 +2130,8 @@ def dp_phase(torch, np, spec: str) -> dict:
               f"{counts} == {DP_PER_STEP[impl]} in one DP step")
         total = [a + c for a, c in zip(total, counts)]
         print(f"dp world 1 (nccl) {impl}: default preset B={TRAIN_B}, DP step "
-              f"{_ms(r['dp_ms'])} ms vs make_train_step {_ms(r['ref_ms'])} ms "
+              f"{_ms(r['dp_ms'])} ms vs the single step's eager body "
+              f"{_ms(r['ref_ms'])} ms "
               f"(CUDA events, means of 5 steps in turns: single, DP, DP, "
               f"single); loss rel {r['loss_rel']:.2e}, "
               f"grad_norm rel {r['grad_norm_rel']:.2e}, BN {r['bn_abs']:.2e}, "
@@ -2108,7 +2438,7 @@ def dpscan_phase(torch, np, work: str) -> dict:
             ds = dd.DeviceDataset(host, mesh=mesh)
             songs, starts, _ = dd.epoch_index_arrays(host, TRAIN_B,
                                                      shuffle=True, seed=5)
-            adam = tstep.make_optimizer(cfg, capturable=True)
+            adam = tstep.make_optimizer(cfg)
 
             def fresh():
                 return (tstep.create_train_state(0, cfg, adam, device="cuda"),
@@ -2532,8 +2862,9 @@ def pp_phase(torch, np, work: str) -> dict:
         # ms and memory: the single step, then the PP steps, in turns
         cfg = dataclasses.replace(default, mr_mag_impl="pallas_fused")
         batch = tstep.batch_to_device(host, dev)
+        # the single step as its eager body: the PP steps are eager
         runs = {"single": (tstep.create_train_state(0, cfg, device=dev),
-                           tstep.make_train_step(cfg))}
+                           tstep.make_step_fn(cfg))}
         for n in (1, PP_MICRO):
             runs[f"pp{n}"] = (
                 pp.shard_state(tstep.create_train_state(0, cfg, device=dev),
@@ -2671,8 +3002,9 @@ def cp_phase(torch, np, work: str, backend: str) -> dict:
         dev = mesh.device
         whole = tstep.batch_to_device(batch, dev)
         whole["weight"] = torch.ones(CP_B, device=dev)
+        # the single step as its eager body: the CP step is eager
         runs = {"single": (tstep.create_train_state(0, cfg, device=dev),
-                           tstep.make_train_step(cfg), whole),
+                           tstep.make_step_fn(cfg), whole),
                 "cp": (tstep.create_train_state(0, cfg, device=dev),
                        halo.make_cp_train_step(mesh, cfg),
                        halo.shard_batch_time(mesh, batch))}
@@ -3658,7 +3990,8 @@ def bench_phase(torch, np, spec: str):
           f"bench default line: every number finite and positive {numbers}")
     for key in ("decode_device_ms_per_song",
                 "decode_device_eager_ms_per_song", "stream_frames_per_sec",
-                "train_step_ms", "train_patches_per_sec",
+                "train_step_ms", "train_step_eager_ms",
+                "train_patches_per_sec",
                 "train_patches_per_sec_device", "train_flops_per_step",
                 "train_mfu_pct"):
         check(key in numbers, f"bench default line has {key}")
@@ -3717,11 +4050,16 @@ FAMILIES = (("conv", ("conv", "cudnn", "xmma", "implicit", "gemm", "dgrad",
             ("copy", ("memcpy", "memset")))
 
 
-def device_breakdown(torch, fn, label: str, families=FAMILIES) -> float:
+def device_breakdown(torch, fn, label: str, families=FAMILIES,
+                     kernels=None) -> float:
     """Device time of one ``fn()`` call by kernel family, from a
-    torch.profiler trace; returns the summed device milliseconds."""
+    torch.profiler trace; returns the summed device milliseconds.
+    ``kernels``: a dict that takes the loss kernels' launches in the trace
+    (``_kernel_of``)."""
     by_family, n_kernels = {}, 0
     for key, ms, count in device_events(torch, fn, cpu=True):
+        if kernels is not None and _kernel_of(key):
+            kernels[_kernel_of(key)] = kernels.get(_kernel_of(key), 0) + count
         name = key.lower()
         family = next((f for f, keys in families
                        if any(k in name for k in keys)), "elementwise")
@@ -3833,6 +4171,9 @@ def main(argv=None) -> int:
         fit_launches = fit_phase(torch, np, work)
         seconds["fit"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+        step_counts = step_graph_phase(torch, np, work)
+        seconds["step_graph"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         scan_counts = scan_phase(torch, np, work)
         seconds["scan"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -3865,16 +4206,33 @@ def main(argv=None) -> int:
         seconds["mh"] = time.perf_counter() - t0
     print("train phase launches: " + json.dumps(train_launches))
     # the loss kernels' launches on the paths that run them: fit under the
-    # kernel loss paths (the fit phase's eager fit), and fit with
+    # kernel loss paths (the fit phase's per-step fits, whose steps are
+    # make_train_step's program: the wrappers' launches in its eager
+    # warm-up step, their calls recorded into its capture and the replays'
+    # launches that the profiler saw in those fits), and fit with
     # epoch_scan: the wrappers' eager launches there (warm-up step, tails,
     # validation), the calls they recorded into the graphs, and the
     # replays' launches that the profiler saw in those fits
-    launches.update(fit_launches)
+    launches.update({k: v[0] for k, v in fit_launches.items()})
     launches["stft_magnitude"] = bench_launches["stft_magnitude"]
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
         check(entry["launches"] > 0,
               f"{entry['name']} launched on its main path")
+        if entry["name"] in fit_launches:
+            _, entry["fit_captured"], entry["fit_replay_launches"] = \
+                fit_launches[entry["name"]]
+            check(entry["fit_captured"] > 0
+                  and entry["fit_replay_launches"] > 0,
+                  f"{entry['name']} captured and replayed in the per-step "
+                  "fit's program")
+        if entry["name"] in step_counts:
+            # the step graph phase's program calls: eager, captured and
+            # replayed (a traced replay's count times the replays)
+            entry["step_graph_launches"] = step_counts[entry["name"]]
+            check(all(v > 0 for v in entry["step_graph_launches"].values()),
+                  f"{entry['name']} launched, captured and replayed by the "
+                  "step programs")
         if entry["name"] in scan_counts:
             entry.update(scan_counts[entry["name"]])
             check(entry["scan_launches"] > 0 and entry["scan_captured"] > 0

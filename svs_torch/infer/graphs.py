@@ -45,7 +45,8 @@ input buffer, replayed for every later call of its key.
 On the CPU a program captures nothing: a call copies into its static
 input, runs the body and returns its outputs, so the key, the buffers and
 the copies run on the host too.  The entry points in ``separate.py`` take
-programs on the card only.
+programs on the card only.  The eval step's programs
+(``train/graphs.eval_program``) are of this class too, over a batch dict.
 
 The cache is one per process, as ``jax.jit``'s is, so that its bound holds
 for the process; :data:`CACHE` is it.
@@ -56,7 +57,7 @@ from __future__ import annotations
 import collections
 import threading
 import weakref
-from typing import Callable, Hashable, Optional, Tuple
+from typing import Callable, Hashable, Optional
 
 import torch
 import torch.nn as nn
@@ -73,10 +74,9 @@ MAX_BYTES = 4 << 30
 # first makes the cuFFT plans and cuDNN's choices, the second runs warm
 WARMUP_CALLS = 2
 
-Outputs = Tuple[torch.Tensor, ...]
 # a body takes the model as an argument, so that a cached program holds no
 # reference to it (the programs of a freed model can then be dropped)
-Body = Callable[[nn.Module, torch.Tensor], Outputs]
+Body = Callable[[nn.Module, object], object]
 
 
 def binding(model: nn.Module) -> tuple:
@@ -92,24 +92,66 @@ def binding(model: nn.Module) -> tuple:
             torch.backends.cudnn.benchmark)
 
 
-class Program:
-    """One decode program: ``body`` over a static input shaped as ``x``,
-    on ``device``; captured on a CUDA device, run eagerly on the CPU."""
+def pool_bytes(record: Callable[[], None], device: torch.device) -> int:
+    """``record()`` (a capture) and the bytes its pool took: the growth
+    of the reserved bytes over it, after the cache's free blocks (a
+    warm-up's) went back."""
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved(device)
+    record()
+    return torch.cuda.memory_reserved(device) - before
 
-    @torch.inference_mode()
-    def __init__(self, model: nn.Module, body: Body, x: torch.Tensor,
-                 device: torch.device):
+
+def _static(x, device: torch.device):
+    """An empty static buffer shaped as ``x`` (a tensor or a dict of
+    them)."""
+    if isinstance(x, dict):
+        return {k: _static(v, device) for k, v in x.items()}
+    return torch.empty(x.shape, dtype=x.dtype, device=device)
+
+
+def _copy(dst, src) -> None:
+    if isinstance(dst, dict):
+        for k, v in dst.items():
+            v.copy_(src[k])
+    else:
+        dst.copy_(src)
+
+
+def _clone(outs):
+    if isinstance(outs, dict):
+        return {k: v.clone() for k, v in outs.items()}
+    return tuple(o.clone() for o in outs)
+
+
+class Program:
+    """One program: ``body`` over a static input shaped as ``x`` (a tensor,
+    or a dict of them: a batch), on ``device``; captured on a CUDA device,
+    run eagerly on the CPU.  The body's outputs are a tuple or a dict of
+    tensors.  ``grad_mode``: the autograd mode the body runs in; the
+    decode's is inference mode, the eval step's (``train/graphs.py``)
+    ``no_grad``: the ``matmul_bf16`` loss caches its DFT filter bank at
+    first use (``losses/mrstft.py``), and a bank made in inference mode
+    cannot be saved for a later train step's backward."""
+
+    def __init__(self, model: nn.Module, body: Body, x, device: torch.device,
+                 grad_mode=torch.inference_mode):
         self.model = weakref.ref(model)
         self.binding = binding(model)
         self.body = body
         self.device = device
+        self.grad_mode = grad_mode
         self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.outputs: Outputs = ()
-        self.input = torch.empty(x.shape, dtype=x.dtype, device=device)
-        self.input.copy_(x)
+        self.outputs = ()
         self._lock = threading.Lock()
-        pool_bytes = self._capture(model) if device.type == "cuda" else 0
-        self.nbytes = self.input.nbytes + pool_bytes
+        with grad_mode():
+            self.input = _static(x, device)
+            _copy(self.input, x)
+            pool = self._capture(model) if device.type == "cuda" else 0
+        inputs = (self.input.values() if isinstance(self.input, dict)
+                  else (self.input,))
+        self.nbytes = pool + sum(t.nbytes for t in inputs)
 
     def _capture(self, model: nn.Module) -> int:
         """Warm up, capture; returns the bytes of the graph's pool."""
@@ -121,32 +163,30 @@ class Program:
                 for _ in range(WARMUP_CALLS):
                     self.body(model, self.input)
             torch.cuda.current_stream(dev).wait_stream(side)
-            # the warm-up's freed blocks go back, so the growth of the
-            # reserved bytes over the capture is the graph's pool
-            torch.cuda.synchronize(dev)
-            torch.cuda.empty_cache()
-            before = torch.cuda.memory_reserved(dev)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self.outputs = self.body(model, self.input)
+
+            def record():
+                with torch.cuda.graph(graph,
+                                      capture_error_mode="thread_local"):
+                    self.outputs = self.body(model, self.input)
+
+            nbytes = pool_bytes(record, dev)
             self.graph = graph
             self._done = torch.cuda.Event()
-            return torch.cuda.memory_reserved(dev) - before
+            return nbytes
 
-    @torch.inference_mode()
-    def __call__(self, x: torch.Tensor) -> Outputs:
-        """The body on ``x`` (any device; its shape and dtype the
+    def __call__(self, x):
+        """The body on ``x`` (any device; its shapes and dtypes the
         program's): fresh tensors on the program's device."""
-        with self._lock:
+        with self._lock, self.grad_mode():
             if self.graph is None:
-                self.input.copy_(x)
-                return tuple(o.clone() for o in self.body(self.model(),
-                                                          self.input))
+                _copy(self.input, x)
+                return _clone(self.body(self.model(), self.input))
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(self._done)  # the last call's copies
-            self.input.copy_(x)
+            _copy(self.input, x)
             self.graph.replay()
-            outs = tuple(o.clone() for o in self.outputs)
+            outs = _clone(self.outputs)
             self._done.record(stream)
             return outs
 
@@ -183,20 +223,32 @@ class ProgramCache:
         device = next(model.parameters()).device
         key = (id(model), signature, tuple(x.shape), x.dtype, device,
                model.cfg)
+        return self.lookup(key, model,
+                           lambda prog: prog.binding == binding(model),
+                           lambda: Program(model, body, x, device))
+
+    def lookup(self, key: Hashable, model: nn.Module,
+               fresh: Callable[[object], bool], build: Callable[[], object]):
+        """The program of ``key`` for ``model`` if it is cached and
+        ``fresh``, else the one ``build`` makes now; the programs past the
+        bound go, least recently used first (the one returned always
+        stays).  A program has ``model`` (a weak reference) and ``nbytes``,
+        which may grow after it is built (``train/graphs.py``'s capture at
+        a later call): the bound is kept at every lookup."""
         with self._lock:
             prog = self._programs.get(key)
             if (prog is not None and prog.model() is model
-                    and prog.binding == binding(model)):
+                    and fresh(prog)):
                 self._programs.move_to_end(key)
-                return prog
-            # a stale program of this key (rebound tensors, or a freed
-            # model whose id was reused) and those of freed models go
-            for k in [k for k, p in self._programs.items()
-                      if k == key or p.model() is None]:
-                del self._programs[k]
-            prog = Program(model, body, x, device)
-            self.builds += 1
-            self._programs[key] = prog
+            else:
+                # a stale program of this key (rebound tensors, or a freed
+                # model whose id was reused) and those of freed models go
+                for k in [k for k, p in self._programs.items()
+                          if k == key or p.model() is None]:
+                    del self._programs[k]
+                prog = build()
+                self.builds += 1
+                self._programs[key] = prog
             while len(self._programs) > 1 and self.nbytes > self.max_bytes:
                 self._programs.popitem(last=False)
                 self.evictions += 1

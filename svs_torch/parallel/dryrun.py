@@ -323,7 +323,9 @@ def layout_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig,
         del state, step
     ref_batch = tstep.batch_to_device(batch, dev)
     ref_batch["weight"] = torch.ones(len(batch["mix"]), device=dev)
-    ref_step = tstep.make_train_step(cfg)
+    # the eager body, whose bits make_train_step's program gives: the
+    # layouts' steps are eager, so they are timed against the same form
+    ref_step = tstep.make_step_fn(cfg)
     if time_reps and cuda:
         runs = {k: (*layout_state(k, cfg, mesh, seed), local(k))
                 for k in layouts}

@@ -1,0 +1,316 @@
+"""The train and eval steps' compiled programs: cached, captured CUDA graphs
+(the counterpart of svs_tpu's ``make_train_step``, ``jax.jit`` of the whole
+step with the state donated, and its jitted ``make_eval_step``, svs_tpu
+train/step.py:148-177).
+
+svs_tpu compiles the step once per static signature and runs the compiled
+program after that: the forward, the loss, the backward and the optimiser
+update with no host round trip.  Here a :class:`TrainProgram` is that
+program on the card: the eager step (``step.make_step_fn``'s body, which
+stays a plain function and the tests' oracle) captured into one
+``torch.cuda.CUDAGraph`` per accumulation position over static batch
+buffers, replayed for every later call of its key.  The eval step's
+program is the decode's :class:`infer.graphs.Program` over a batch
+(:func:`eval_program`).
+
+- **Key.** One program per (kind, model, step config, batch signature,
+  ``accum_steps``, device): the signature is the batch's keys (with or
+  without ``weight``), shapes and dtypes, so a ragged tail batch or a
+  padded one has a program of its own.  Beside the key a program holds its
+  *binding* (:func:`binding`): the address of every ``state_dict()``
+  tensor, of every Adam state tensor and of the accumulation buffers,
+  Adam's constants (lr, betas, eps, weight decay; the graph bakes them in)
+  and the TF32 and cuDNN flags.  A changed binding (the learning-rate drop,
+  a checkpoint restore, ``model.to(...)``) or another dropout generator
+  drops the graphs and captures them again.
+- **Build.** A train step mutates the state, so no call is thrown away: the
+  first call of a program runs the eager step as the *real* step on a side
+  stream (PyTorch's recipe), and so does every call until Adam has its
+  state (``accum_steps`` microbatches); they build the kernels, put the
+  loss kernels' bases on the card and give Adam its moments, so no build,
+  host copy or allocation of optimiser state is captured.  The next call
+  captures (a capture runs nothing) and replays.  N calls leave the state
+  of N eager steps.  The eval body has no side effect: its program runs it
+  ``infer.graphs.WARMUP_CALLS`` times and captures when it is built, as
+  the decode's programs do, and is built again when the model's binding
+  moved.
+- **Calls.** A call copies the batch into the static buffers on the
+  caller's stream, replays, moves the host's ``state.step``,
+  ``mini_step`` and ``acc_grads`` on as the replayed ``_apply`` did, and
+  returns *copies* of the metrics: a result never aliases a buffer that the
+  next replay writes.  Dropout's ``torch.Generator`` is registered with
+  every graph, so each replay draws the masks the eager step would.
+- **Adam.** A graph replays only torch's capturable Adam (its step counts
+  on the card, the bias corrections there in float32, as optax keeps
+  them): a host-form Adam reaching a program on the card raises.
+- **Memory.** A step program's pool keeps the step's activations, so the
+  cache holds at most :data:`MAX_BYTES`, least recently used dropped first
+  (``infer.graphs.ProgramCache``).
+
+A capture that fails raises; nothing on the card falls back to the eager
+body.  On the CPU a program captures nothing: a call copies into its static
+buffers, keeps the key and the binding as on the card (a train program's
+``captures`` counts the bindings it took), runs the body and returns
+copies.
+``step.make_train_step`` and ``step.make_eval_step`` take programs on the
+card only (:func:`programmed`; the CPU tests patch it).
+
+The capture rules (:func:`binding`, :func:`warm_up`, :func:`capture`,
+:func:`replay`) are shared with ``train/scan.py``'s epoch graphs.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import weakref
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from svs_torch.infer import graphs as infer_graphs
+from svs_torch.train.step import TrainState, _accumulator
+
+# The bound on the bytes all cached step programs hold.  A train program of
+# the ``default`` preset at B = 32 holds its pool of the step's activations
+# and its static batch: 0.82 / 1.58 / 2.35 GB under ``pallas_fused`` /
+# ``pallas_bf16`` / ``matmul_bf16``, 0.52 / 1.00 / 1.44 GB at a tail of
+# 20 rows; with validation's two programs (0.13-1.16 GB each) a ``fit``
+# holds 1.68 / 3.89 / 5.69 GB (H100, ``chip_smoke.py``'s step graph
+# phase).  8 GiB keeps a ``fit``'s four programs under every loss path and
+# leaves 89 % of an 80-GB card to the run.
+MAX_BYTES = 8 << 30
+
+Metrics = Dict[str, torch.Tensor]
+Batch = Dict[str, torch.Tensor]
+# a train body: the step without its count (``_apply`` moves the cycle on);
+# an eval body: the metrics of a batch
+TrainBody = Callable[[TrainState, Batch, Optional[torch.Generator]], Metrics]
+EvalBody = Callable[[torch.nn.Module, Batch], Metrics]
+
+
+def programmed(dev: torch.device) -> bool:
+    """Whether the steps on ``dev`` run as cached programs: on the card
+    they always do; on the CPU, which a caller asks for explicitly, they
+    run eagerly (the CPU tests patch this to route the host through the
+    programs)."""
+    return dev.type == "cuda"
+
+
+# ------------------------------------------------- the shared capture rules
+
+def binding(state: TrainState, static=()) -> tuple:
+    """What a captured step reads by address or bakes in: the model's
+    (``infer.graphs.binding``: every ``state_dict()`` address, the dtype,
+    the TF32 and cuDNN flags), every Adam state tensor's and the
+    accumulation buffers' addresses, ``static`` tensors' (an epoch graph's
+    planes and buffers), and Adam's constants."""
+    opt = state.optimizer
+    ptrs = [t.data_ptr() for st in opt.state.values() for t in st.values()
+            if isinstance(t, torch.Tensor)]
+    ptrs += [t.data_ptr() for t in state.acc_buffers or ()]
+    ptrs += [t.data_ptr() for t in static if t is not None]
+    consts = tuple((g["lr"], tuple(g["betas"]), g["eps"], g["weight_decay"])
+                   for g in opt.param_groups)
+    return infer_graphs.binding(state.model), tuple(ptrs), consts
+
+
+def adopt_cycle(state: TrainState) -> None:
+    """An accumulation cycle loaded from a checkpoint into the state's
+    ``acc_buffers``, which a graph reads by address: before the binding is
+    taken."""
+    if state.acc_grads is not None:
+        _accumulator(state, state.acc_grads)
+
+
+def require_capturable(state: TrainState, what: str) -> None:
+    if not all(g["capturable"] for g in state.optimizer.param_groups):
+        raise ValueError(f"{what} on a CUDA device needs the state's Adam in "
+                         "its capturable form (step.make_optimizer's "
+                         "default on a CUDA device)")
+
+
+def adam_ready(state: TrainState) -> bool:
+    """Whether Adam holds its state for every parameter (a capture must
+    not allocate it)."""
+    return len(state.optimizer.state) >= len(
+        state.optimizer.param_groups[0]["params"])
+
+
+def warm_up(state: TrainState, run: Callable[[], Metrics], n: int,
+            device: torch.device) -> Tuple[int, Metrics]:
+    """Eager steps (``run``, then the step count) until Adam has its state,
+    at least one and at most ``n``: real steps of the run, on a side stream
+    of a CUDA device.  Returns how many ran and the last one's metrics."""
+    cuda = device.type == "cuda"
+    if cuda:
+        side = torch.cuda.Stream(device=device)
+        side.wait_stream(torch.cuda.current_stream(device))
+    done, metrics = 0, {}
+    with torch.cuda.stream(side) if cuda else contextlib.nullcontext():
+        while done < n and (done == 0 or not adam_ready(state)):
+            metrics = run()
+            state.step += 1
+            done += 1
+    if cuda:
+        torch.cuda.current_stream(device).wait_stream(side)
+    return done, metrics
+
+
+def capture(state: TrainState, run: Callable[[], Metrics],
+            generator: Optional[torch.Generator], device: torch.device
+            ) -> Tuple[Dict[int, Tuple[torch.cuda.CUDAGraph, Metrics]], int]:
+    """One graph of ``run`` per accumulation position, in one memory pool,
+    each registering ``generator``; a capture runs nothing, so the host's
+    cycle position is put back after it.  Returns the graphs with their
+    static outputs, and the bytes their pool took
+    (``infer.graphs.pool_bytes``)."""
+    graphs = {}
+
+    def record():
+        position, acc = state.mini_step, state.acc_grads
+        pool = None
+        try:
+            for k in range(state.accum_steps):
+                graph = torch.cuda.CUDAGraph()
+                if generator is not None:
+                    graph.register_generator_state(generator)
+                state.mini_step = k
+                state.acc_grads = state.acc_buffers if k else None
+                with torch.cuda.graph(graph, pool=pool):
+                    out = run()
+                pool = graph.pool()
+                graphs[k] = (graph, out)
+        finally:
+            state.mini_step, state.acc_grads = position, acc
+
+    return graphs, infer_graphs.pool_bytes(record, device)
+
+
+def replay(state: TrainState, graphs) -> Metrics:
+    """One step as the replay of the graph at the state's cycle position;
+    moves the host's step count and cycle position on as the replayed
+    ``_apply`` did.  Returns that graph's static outputs."""
+    k = state.mini_step
+    graph, out = graphs[k]
+    graph.replay()
+    state.step += 1
+    state.mini_step = (k + 1) % state.accum_steps
+    state.acc_grads = state.acc_buffers if state.mini_step else None
+    return out
+
+
+# ------------------------------------------------------------ the programs
+
+def signature(batch: Batch) -> tuple:
+    return tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(
+        batch.items()))
+
+
+class TrainProgram:
+    """One train step program: ``body`` over static buffers shaped as
+    ``batch``.  On a CUDA device its graphs are captured after its eager
+    warm-up and replayed; on the CPU the same calls run the body where a
+    capture and a replay would be (the key, the binding and the copies
+    run there too)."""
+
+    def __init__(self, model, body: TrainBody, batch: Batch,
+                 device: torch.device):
+        self.model = weakref.ref(model)
+        self.body = body
+        self.device = device
+        self.input = {k: torch.empty(v.shape, dtype=v.dtype, device=device)
+                      for k, v in batch.items()}
+        self.static_bytes = sum(v.nbytes for v in self.input.values())
+        self.pool_bytes = 0
+        self.graphs: Optional[dict] = None
+        self.binding = None
+        self.generator: Optional[torch.Generator] = None
+        self.warm = False  # whether a call ran the eager warm-up step
+        self.captures = 0  # times the graphs were captured
+        self.replays = 0   # calls that ran as replays
+        self._done: Optional[torch.cuda.Event] = None
+
+    @property
+    def nbytes(self) -> int:
+        return self.static_bytes + self.pool_bytes
+
+    def __call__(self, state: TrainState, batch: Batch,
+                 generator: Optional[torch.Generator] = None
+                 ) -> Tuple[TrainState, Metrics]:
+        cuda = self.device.type == "cuda"
+        if cuda:
+            require_capturable(state, "a train step program")
+        if self._done is not None:  # the last call's copies out
+            torch.cuda.current_stream(self.device).wait_event(self._done)
+        with torch.no_grad():
+            for k, v in batch.items():
+                self.input[k].copy_(v)
+
+        def run():
+            return self.body(state, self.input, generator)
+
+        if not (self.warm and adam_ready(state)):
+            _, metrics = warm_up(state, run, 1, self.device)
+            self.warm = True
+            return state, self._copy_out(metrics)
+        adopt_cycle(state)
+        now = binding(state)
+        if (self.binding is None or now != self.binding
+                or generator is not self.generator):
+            # the stale graphs' pool goes back first; a capture that raises
+            # leaves no binding, so the next call captures again
+            self.graphs = self.binding = None
+            if cuda:
+                self.graphs, self.pool_bytes = capture(
+                    state, run, generator, self.device)
+            self.binding, self.generator = now, generator
+            self.captures += 1
+        if cuda:
+            metrics = replay(state, self.graphs)
+        else:
+            metrics = run()
+            state.step += 1
+        self.replays += 1
+        return state, self._copy_out(metrics)
+
+    def _copy_out(self, metrics: Metrics) -> Metrics:
+        out = {k: v.detach().clone() for k, v in metrics.items()}
+        if self.device.type == "cuda":
+            self._done = torch.cuda.Event()
+            self._done.record(torch.cuda.current_stream(self.device))
+        return out
+
+
+def _key(kind: str, model, cfg, batch: Batch, accum_steps: int = 1):
+    device = next(model.parameters()).device
+    return (kind, id(model), cfg, signature(batch), accum_steps,
+            device), device
+
+
+def train_program(state: TrainState, cfg, batch: Batch,
+                  body: TrainBody) -> TrainProgram:
+    """The cached train program of ``body`` for the state's model, ``cfg``,
+    ``accum_steps`` and the batch's signature, built now if there is none
+    (its binding is checked at each call)."""
+    model = state.model
+    key, device = _key("train", model, cfg, batch, state.accum_steps)
+    return CACHE.lookup(key, model, lambda prog: True,
+                        lambda: TrainProgram(model, body, batch, device))
+
+
+def eval_program(model, cfg, batch: Batch,
+                 body: EvalBody) -> infer_graphs.Program:
+    """The cached eval program of ``body`` for ``model``, ``cfg`` and the
+    batch's signature: the decode's :class:`infer.graphs.Program` over the
+    batch (warmed up and captured when it is built, again when the model's
+    binding moved), in ``no_grad``."""
+    key, device = _key("eval", model, cfg, batch)
+    return CACHE.lookup(
+        key, model,
+        lambda prog: prog.binding == infer_graphs.binding(model),
+        lambda: infer_graphs.Program(model, body, batch, device,
+                                     grad_mode=torch.no_grad))
+
+
+# one a process, as jax.jit's cache is, so that its bound holds for it
+CACHE = infer_graphs.ProgramCache(MAX_BYTES)

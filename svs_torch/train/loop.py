@@ -16,9 +16,14 @@ Contracts kept from the reference (train.py:239-389) and svs_tpu:
 - SIGTERM sets a flag; the loop saves at its next safe point and exits 143;
 - the per-epoch crop seed ``seed * 100003 + ep``.
 
-The step is svs_torch's eager step (:mod:`svs_torch.train.step`), which
-updates the state in place; the epoch's losses stay on the device until
-the epoch ends and are fetched once, so no step waits on the card.
+The step is svs_torch's (:mod:`svs_torch.train.step`), which updates the
+state in place: on one CUDA device the train and eval steps run as cached
+captured programs (:mod:`svs_torch.train.graphs`, svs_tpu's jitted steps:
+one per batch shape, so the ragged tail and validation's last batch have
+their own), eagerly on the CPU; the layouts' steps below stay eager.  Adam
+is its capturable form on a CUDA device, whatever the path.  The epoch's
+losses stay on the device until the epoch ends and are fetched once, so no
+step waits on the card.
 Dropout draws from one ``torch.Generator`` on the training device, seeded
 from ``seed + 1`` (svs_tpu's ``jax.random.key(seed + 1)``; the two streams
 differ).  The MR-STFT loss's magnitudes follow ``cfg.mr_mag_impl``: the
@@ -28,7 +33,7 @@ config; the default stays ``matmul_bf16``.
 
 ``epoch_scan`` runs each epoch's full batches as replays of one captured
 CUDA graph of the step (:mod:`svs_torch.train.scan`; eager on the CPU),
-then the ragged tail through the eager step; it needs the dataset on the
+then the ragged tail through the train step; it needs the dataset on the
 device.  Over a plain-DP mesh the graph is of the DP step, its collectives
 included, on every rank (a single process a host, as svs_tpu allows it:
 loop.py:477-494), and the tail is cut as the per-step loop cuts it.
@@ -408,10 +413,10 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
         from svs_torch.train.scan import make_epoch_scan, run_epoch
         epoch_fn = make_epoch_scan(cfg, augment=opts.augment, mesh=mesh)
 
-    # a CUDA graph replays Adam only in its capturable form; the eager
-    # loop keeps torch's host form
-    optimizer = make_optimizer(cfg, accum_steps=opts.accum_steps,
-                               capturable=opts.epoch_scan)
+    # capturable on a CUDA device (the form a CUDA graph replays), so the
+    # step programs, epoch_scan's graphs and the eager layouts' steps all
+    # update as one Adam
+    optimizer = make_optimizer(cfg, accum_steps=opts.accum_steps)
     state = create_train_state(opts.seed, cfg, optimizer, device=dev)
     sharded = opts.zero1 or opts.fsdp  # on a mesh (_refuse_unported)
     is_tp = opts.parallel == "tp"  # on a Mesh2D (_refuse_unported)
@@ -595,7 +600,7 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
             every = max(1, n_steps // 10)
             if epoch_fn is not None:
                 # the full batches as graph replays, the ragged tail through
-                # the eager step: the index stream and generator order of
+                # the train step: the index stream and generator order of
                 # the per-step loop below
                 state, loss_vec = run_epoch(epoch_fn, train_step, state,
                                             train_ds, opts.batch_size,

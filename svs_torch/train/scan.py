@@ -14,16 +14,17 @@ card, so a replay takes no argument from the host.  Per epoch there is one
 host-to-device copy (the stacked indices, and augment's stacked draws) and
 one fetch of the loss vector, svs_tpu's contract (scan.py:49-63).
 
-What the capture needs, and how it is met:
+What the capture needs, and how it is met (the rules ``train/graphs.py``
+shares with the step programs):
 
 - Adam runs in its capturable form (its step counts on the card:
-  ``make_optimizer(capturable=True)``, which ``fit`` asks for under
-  ``epoch_scan``), so the eager step and a replay are the same bits.  The
-  learning rate, betas and eps are baked into the graph, so a changed rate
-  (the epoch-400 drop) captures it again; so does anything that rebinds a
-  tensor the graph holds (a parameter, a BN buffer, an Adam moment, the
-  accumulation buffers, the dataset's planes): the graph is keyed on their
-  addresses.
+  ``make_optimizer``'s default on a CUDA device), so the eager step and a
+  replay are the same bits.  The learning rate, betas and eps are baked
+  into the graph, so a changed rate (the epoch-400 drop) captures it
+  again; so does anything that rebinds a tensor the graph holds (a
+  parameter, a BN buffer, an Adam moment, the accumulation buffers, the
+  dataset's planes) or a TF32 or cuDNN flag: the graph is keyed on them
+  (``graphs.binding``).
 - The first steps of the first epoch run eagerly on a side stream before
   the capture (PyTorch's recipe): they build the kernels, put the loss
   kernels' bases on the card and give Adam its state, so no build, host
@@ -42,7 +43,8 @@ On the CPU (the tests) ``epoch`` runs the same per-step body eagerly, with
 no graph.  On a CUDA device it captures, and a failed capture raises: it
 never falls back to eager steps on the card.  :func:`run_epoch` is one
 epoch as ``fit`` runs it: the replays, then the ragged tail batch through
-the eager step (as svs_tpu's loop does).
+the train step ``fit`` runs (``make_train_step``'s program of the tail's
+shape on the card, as svs_tpu's loop runs its jitted step).
 
 Over a plain data-parallel mesh (``mesh=``, svs_tpu scan.py:102-148) every
 rank runs the same epoch on its own card: the body gathers the global
@@ -71,8 +73,8 @@ import torch
 from svs_torch.data.device_data import epoch_index_arrays, gather_crops
 from svs_torch.parallel import dp
 from svs_torch.parallel import mesh as mesh_lib
-from svs_torch.train.step import TrainState, _accumulator, _apply, \
-    loss_and_grads
+from svs_torch.train import graphs as step_graphs
+from svs_torch.train.step import TrainState, _apply, loss_and_grads
 from svs_torch.utils.config import SVSConfig
 
 # svs_tpu's refusal of epoch_scan off a single process or plain-DP mesh
@@ -130,10 +132,10 @@ def run_epoch(epoch_fn: Callable, step: Callable, state: TrainState, ds,
               mesh=None) -> Tuple[TrainState, torch.Tensor]:
     """One shuffled epoch of the ``DeviceDataset`` ``ds``: its full batches
     through ``epoch_fn`` (:func:`make_epoch_scan`'s), then the ragged tail
-    through the eager ``step``, in the index stream and generator order of
+    through ``step``, in the index stream and generator order of
     the per-step loop.  ``augmenter``: an ``Augmenter`` already set for the
     epoch.  ``mesh``: the epoch function's; the tail is then remixed whole
-    and cut to this rank's rows (``mesh.shard_batch``) for the eager DP
+    and cut to this rank's rows (``mesh.shard_batch``) for the DP
     ``step``.  Returns the state and the per-step totals on the device."""
     songs, starts, tail = epoch_index_arrays(ds.host, batch_size,
                                              shuffle=True, seed=seed)
@@ -157,29 +159,12 @@ def run_epoch(epoch_fn: Callable, step: Callable, state: TrainState, ds,
                    else torch.zeros(0, dtype=torch.float32, device=dev))
 
 
-def _bindings(state: TrainState, planes: Dict[str, torch.Tensor],
-              static=()) -> tuple:
-    """What a captured graph holds: the addresses of every tensor it reads
-    or writes in place (``static``: the mesh body's weight and pad rows),
-    and the optimiser's constants."""
-    opt = state.optimizer
-    ptrs = [t.data_ptr() for t in state.model.state_dict().values()]
-    for st in opt.state.values():
-        ptrs += [t.data_ptr() for t in st.values()
-                 if isinstance(t, torch.Tensor)]
-    ptrs += [t.data_ptr() for t in state.acc_buffers or ()]
-    ptrs += [p.data_ptr() for p in planes.values()]
-    ptrs += [t.data_ptr() for t in static if t is not None]
-    consts = tuple((g["lr"], tuple(g["betas"]), g["eps"],
-                    g["weight_decay"]) for g in opt.param_groups)
-    return tuple(ptrs), consts
-
-
 class _EpochScan:
     def __init__(self, cfg: SVSConfig, augment: bool, mesh=None):
         self.cfg = cfg
         self.augment = augment
         self.mesh = mesh
+        # per accumulation position: the graph and its static metrics
         self.graphs: Dict[int, Tuple[torch.cuda.CUDAGraph, dict]] = {}
         self.key = None
         # static buffers: the epoch's index matrix (songs, starts and, with
@@ -300,66 +285,31 @@ class _EpochScan:
         return state, self.losses.clone()
 
     def _replay_epoch(self, state, planes, generator, n: int) -> None:
+        """The epoch's steps on the card (``train/graphs.py``'s capture
+        rules): eager warm-up steps before the first capture, a capture
+        whenever the binding moved, then replays."""
         if generator is None:
             raise ValueError("epoch_scan on a CUDA device needs dropout's "
                              "torch.Generator (a graph registers it)")
-        if not all(g["capturable"] for g in state.optimizer.param_groups):
-            raise ValueError("epoch_scan needs the state's Adam in its "
-                             "capturable form "
-                             "(step.make_optimizer(capturable=True))")
+        step_graphs.require_capturable(state, "epoch_scan")
+        dev = self.idx.device
+
+        def run():
+            return self._body(state, planes, generator)
+
         done = 0
         if not self.graphs:
-            done = self._warm_up(state, planes, generator, n)
+            done, _ = step_graphs.warm_up(state, run, n, dev)
         if done == n:
             return
-        if state.acc_grads is not None:
-            _accumulator(state, state.acc_grads)  # a loaded cycle
-        key = _bindings(state, planes, (self.weight, self.pad))
+        step_graphs.adopt_cycle(state)
+        key = step_graphs.binding(state, [*planes.values(), self.weight,
+                                          self.pad])
         if key != self.key:
-            self._capture(state, planes, generator)
+            self.graphs = {}
+            self.graphs, _ = step_graphs.capture(state, run, generator, dev)
             self.key = key
+            self.captures += 1
         for _ in range(done, n):
-            k = state.mini_step
-            self.graphs[k][0].replay()
-            # what the replayed _apply did to the host's cycle position
-            state.step += 1
-            state.mini_step = (k + 1) % state.accum_steps
-            state.acc_grads = state.acc_buffers if state.mini_step else None
+            step_graphs.replay(state, self.graphs)
             self.replays += 1
-
-    def _warm_up(self, state, planes, generator, n: int) -> int:
-        """Eager steps of the epoch on a side stream until Adam has its
-        state (at least one): returns how many ran."""
-        params = list(state.model.parameters())
-        dev = params[0].device
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        done = 0
-        with torch.cuda.stream(side):
-            while done < n and (done == 0 or len(state.optimizer.state)
-                                < len(params)):
-                self._body(state, planes, generator)
-                state.step += 1
-                done += 1
-        torch.cuda.current_stream(dev).wait_stream(side)
-        return done
-
-    def _capture(self, state, planes, generator) -> None:
-        """One graph per accumulation position, in one memory pool; capture
-        runs nothing, so the host's cycle position is put back after it."""
-        self.graphs = {}
-        position, acc = state.mini_step, state.acc_grads
-        pool = None
-        try:
-            for k in range(state.accum_steps):
-                graph = torch.cuda.CUDAGraph()
-                graph.register_generator_state(generator)
-                state.mini_step = k
-                state.acc_grads = state.acc_buffers if k else None
-                with torch.cuda.graph(graph, pool=pool):
-                    metrics = self._body(state, planes, generator)
-                pool = graph.pool()
-                self.graphs[k] = (graph, metrics)
-        finally:
-            state.mini_step, state.acc_grads = position, acc
-        self.captures += 1

@@ -15,8 +15,14 @@ svs_tpu's; inside, the idiom is PyTorch's:
 - ``accum_steps > 1`` (``optax.MultiSteps``): each call accumulates the
   running MEAN of the microbatch gradients and Adam steps only on every
   k-th call, with that mean; BN running statistics move on every call.
-- There is no ``jit``: the step runs eagerly, and its metrics are returned
-  as device tensors so that the step never waits on the card.
+- svs_tpu jits the step; here :func:`make_step_fn` is the eager step, and
+  :func:`make_train_step` / :func:`make_eval_step` run it on a CUDA device
+  as cached captured programs (:mod:`svs_torch.train.graphs`), eagerly on
+  the CPU.  Metrics are returned as device tensors so that the step never
+  waits on the card.
+- Adam on a CUDA device is torch's capturable form (its step counts on
+  the card and the bias corrections there in float32, as optax keeps
+  them), the only form a CUDA graph replays; on the CPU the host form.
 """
 
 from __future__ import annotations
@@ -47,19 +53,17 @@ class AdamSpec:
     parameters, so the spec is built into one by :func:`create_train_state`."""
     learning_rate: float
     accum_steps: int = 1
-    capturable: bool = False
 
     def build(self, params) -> torch.optim.Adam:
-        """torch's Adam; with ``capturable`` on a CUDA device its capturable
-        form, which keeps the step counts on the card and takes the bias
-        corrections there in float32, so that a CUDA graph of the step can
-        replay it (``train/scan.py``).  Otherwise, and always on the CPU,
-        the host form."""
+        """torch's Adam: on a CUDA device its capturable form, which keeps
+        the step counts on the card and takes the bias corrections there in
+        float32, so that a CUDA graph of the step can replay it
+        (``train/graphs.py``, ``train/scan.py``); on the CPU the host
+        form."""
         params = list(params)
         return torch.optim.Adam(params, lr=self.learning_rate, betas=BETAS,
                                 eps=EPS,
-                                capturable=(self.capturable and bool(params)
-                                            and params[0].is_cuda))
+                                capturable=bool(params) and params[0].is_cuda)
 
 
 @dataclasses.dataclass
@@ -77,17 +81,17 @@ class TrainState:
     acc_buffers: Optional[List[torch.Tensor]] = None
 
 
-def make_optimizer(cfg: Optional[SVSConfig] = None, accum_steps: int = 1,
-                   capturable: bool = False) -> AdamSpec:
+def make_optimizer(cfg: Optional[SVSConfig] = None,
+                   accum_steps: int = 1) -> AdamSpec:
     """Adam (:data:`BETAS`, :data:`EPS`) at ``cfg.learning_rate``;
     ``accum_steps > 1`` updates once every ``accum_steps`` microbatches
     with their MEAN gradient (``optax.MultiSteps``).  A run resumes with
-    the same ``accum_steps``.  ``capturable``: the form a CUDA graph
-    replays (``epoch_scan``)."""
+    the same ``accum_steps``.  On a CUDA device Adam takes the form a CUDA
+    graph replays (:class:`AdamSpec`)."""
     cfg = cfg or SVSConfig()
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    return AdamSpec(cfg.learning_rate, accum_steps, capturable)
+    return AdamSpec(cfg.learning_rate, accum_steps)
 
 
 def create_train_state(rng: Union[int, torch.Generator] = 0,
@@ -181,17 +185,31 @@ def make_step_fn(cfg: Optional[SVSConfig] = None):
     norm of the microbatch gradient handed to the optimiser.  Unlike
     svs_tpu's, it takes no optimizer: the state carries its Adam and
     ``accum_steps``."""
-    cfg = cfg or SVSConfig()
+    body = _step_body(cfg or SVSConfig())
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        grads, metrics = loss_and_grads(cfg, state, batch, generator)
-        _apply(state, grads)
+        metrics = body(state, batch, generator)
         state.step += 1
         return state, metrics
 
     return step
+
+
+def _step_body(cfg: SVSConfig):
+    """The step without its count: the loss, the gradients and the
+    optimiser call (which moves an accumulation cycle on); the metrics.
+    What a train program captures."""
+
+    def body(state: TrainState, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
+        grads, metrics = loss_and_grads(cfg, state, batch, generator)
+        _apply(state, grads)
+        return metrics
+
+    return body
 
 
 def loss_and_grads(cfg: SVSConfig, state: TrainState,
@@ -215,19 +233,46 @@ def loss_and_grads(cfg: SVSConfig, state: TrainState,
 
 
 def make_train_step(cfg: Optional[SVSConfig] = None):
-    """svs_tpu's jitted step; here the same eager :func:`make_step_fn`."""
-    return make_step_fn(cfg)
-
-
-def make_eval_step(cfg: Optional[SVSConfig] = None):
-    """Validation step (reference train.py:316-347): eval-mode BN, no
-    dropout, the same combined loss; returns the metrics dict."""
+    """svs_tpu's jitted step: ``step(state, batch, generator) -> (state,
+    metrics)`` as :func:`make_step_fn`'s, run on a CUDA device as the cached
+    captured program of its key (:mod:`svs_torch.train.graphs`: the first
+    call of a key runs the eager step, later ones replay; the metrics are
+    fresh tensors), eagerly on the CPU."""
     cfg = cfg or SVSConfig()
+    eager, body = make_step_fn(cfg), _step_body(cfg)
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        from svs_torch.train import graphs  # it imports this module
+        if not graphs.programmed(next(state.model.parameters()).device):
+            return eager(state, batch, generator)
+        return graphs.train_program(state, cfg, batch, body)(
+            state, batch, generator)
+
+    return step
+
+
+def make_eval_fn(cfg: Optional[SVSConfig] = None):
+    """The eager validation step (reference train.py:316-347): eval-mode
+    BN, no dropout, the same combined loss; returns the metrics dict and
+    leaves the model's mode as it found it."""
+    body = _eval_body(cfg or SVSConfig())
 
     @torch.no_grad()
     def step(state: TrainState, batch: Dict[str, torch.Tensor]
              ) -> Dict[str, torch.Tensor]:
-        model = state.model
+        return body(state.model, batch)
+
+    return step
+
+
+def _eval_body(cfg: SVSConfig):
+    """The eval step on the model alone: what an eval program captures
+    (it holds no reference to the model)."""
+
+    def body(model: UNet, batch: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
         was_training = model.training
         model.eval()
         try:
@@ -238,6 +283,23 @@ def make_eval_step(cfg: Optional[SVSConfig] = None):
         finally:
             model.train(was_training)
         return aux
+
+    return body
+
+
+def make_eval_step(cfg: Optional[SVSConfig] = None):
+    """svs_tpu's jitted eval step: :func:`make_eval_fn`'s, run on a CUDA
+    device as the cached captured program of its key, eagerly on the
+    CPU."""
+    cfg = cfg or SVSConfig()
+    eager, body = make_eval_fn(cfg), _eval_body(cfg)
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+        from svs_torch.train import graphs  # it imports this module
+        if not graphs.programmed(next(state.model.parameters()).device):
+            return eager(state, batch)
+        return graphs.eval_program(state.model, cfg, batch, body)(batch)
 
     return step
 

@@ -8,8 +8,9 @@ graph, ``infer/graphs.py``) with its input already on the card, a burst of
 calls closed by one :func:`~svs_torch.utils.profiling.fetch_barrier`.
 Beside it: host streaming of PCM16 songs (``stream_frames_per_sec``, which
 the host link bounds), the link and device-memory calibrations, the train
-step's ms and MFU at B = 32, and the training epoch with the host input
-pipeline and with the dataset resident on the card.
+step's ms (on the card its cached program's replay, ``train/graphs.py``,
+and its eager body) and MFU at B = 32, and the training epoch with the
+host input pipeline and with the dataset resident on the card.
 
 Every time here is a wall clock around work that ends in a synchronise of
 the card: the time a user feels.  Same function names, arguments and JSON
@@ -129,15 +130,23 @@ def train_step_bench(cfg=None, batch_size: int = 32, steps: int = 100,
     STEP only (the epoch bench below covers the input pipeline); best of 3
     bursts of ``steps``.
 
+    ``train_step_ms`` is the step as ``make_train_step`` runs it (on the
+    card the cached captured program's replay, ``train/graphs.py``; its
+    first calls, the eager warm-up and the capture, run before the
+    bursts); ``train_step_eager_ms`` times the eager body
+    (``make_step_fn``) the same way, beside it.
+
     ``train_flops_per_step`` is what ``torch.utils.flop_counter`` counts over
-    the warm-up step (forward, backward and Adam; the convs and matmuls).
-    Under a kernel-backed ``mr_mag_impl`` it is None: the hand kernels are
-    launched through ctypes, invisible to the counter, and a partial count
-    would understate the MFU.  ``hbm_gibps`` (a
-    same-run :func:`hbm_bandwidth_bench`) is reported beside it."""
+    one eager body step (forward, backward and Adam; the convs and
+    matmuls), taken before the program's warm-up and capture, which would
+    count again.  Under a kernel-backed ``mr_mag_impl`` it is None: the hand
+    kernels are launched through ctypes, invisible to the counter, and a
+    partial count would understate the MFU.  ``hbm_gibps`` (a same-run
+    :func:`hbm_bandwidth_bench`) is reported beside it."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    from svs_torch.train.step import create_train_state, make_train_step
+    from svs_torch.train.step import (create_train_state, make_step_fn,
+                                      make_train_step)
     from svs_torch.utils.config import get_config
 
     dev = resolve_device(device)
@@ -152,30 +161,39 @@ def train_step_bench(cfg=None, batch_size: int = 32, steps: int = 100,
     }
     batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
     state = create_train_state(0, cfg, device=dev)
-    step = make_train_step(cfg)
+    eager, program = make_step_fn(cfg), make_train_step(cfg)
     gen = torch.Generator(dev).manual_seed(2)
 
     with FlopCounterMode(display=False) as counter:
-        state, aux = step(state, batch, gen)  # warm-up step, counted
+        state, aux = eager(state, batch, gen)  # one eager step, counted
     fetch_barrier(aux["total"])
     flops_per_step = (None if cfg.mr_mag_impl in _KERNEL_MAG_IMPLS
                       else float(counter.get_total_flops()) or None)
 
-    # the state chains step to step, so the last step's loss depends on the
-    # whole burst; the barrier synchronises the card either way
-    best = float("inf")
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for _ in range(steps):
+    def best_secs(step):
+        nonlocal state
+        for _ in range(2):  # the program's warm-up step and its capture
             state, aux = step(state, batch, gen)
         fetch_barrier(aux["total"])
-        best = min(best, (time.perf_counter() - t0) / steps)
+        # the state chains step to step, so the last step's loss depends
+        # on the whole burst; the barrier synchronises the card either way
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state, aux = step(state, batch, gen)
+            fetch_barrier(aux["total"])
+            best = min(best, (time.perf_counter() - t0) / steps)
+        return best
 
+    best = best_secs(program)
+    eager_best = best_secs(eager)
     peak = _device_peak_flops(dev)
     mfu = (flops_per_step / best / peak * 100.0
            if flops_per_step and peak else None)
     out = {
         "train_step_ms": round(best * 1e3, 2),
+        "train_step_eager_ms": round(eager_best * 1e3, 2),
         "train_steps_per_sec": round(1.0 / best, 2),
         "train_batch": batch_size,
         "train_dtype": cfg.compute_dtype,
@@ -262,10 +280,11 @@ def train_epoch_bench(cfg=None, batch_size: int = 32, n_songs: int = 4,
     fields get a ``_device`` suffix.  ``epoch_scan=True`` (implies
     ``device_resident``) benches the whole epoch as replays of one captured
     CUDA graph of the step (train/scan.py; eager on the CPU), the ragged
-    tail through the eager step; its fields get a ``_scan`` suffix."""
+    tail through the train step; its fields get a ``_scan`` suffix.  On the
+    card every step is ``make_train_step``'s program."""
     from svs_torch.data.dataset import PatchDataset
     from svs_torch.train.step import (batch_to_device, create_train_state,
-                                      make_optimizer, make_train_step)
+                                      make_train_step)
     from svs_torch.utils.config import get_config
 
     dev = resolve_device(device)
@@ -290,8 +309,7 @@ def train_epoch_bench(cfg=None, batch_size: int = 32, n_songs: int = 4,
         if device_resident or epoch_scan:
             from svs_torch.data.device_data import DeviceDataset
             ds = DeviceDataset(ds, device=dev)
-        state = create_train_state(
-            0, cfg, make_optimizer(cfg, capturable=epoch_scan), device=dev)
+        state = create_train_state(0, cfg, device=dev)
         step = make_train_step(cfg)
         gen = torch.Generator(dev).manual_seed(1)
 

@@ -493,7 +493,7 @@ def test_perfect_prediction_has_a_finite_zero_safe_gradient(card):
 # The whole-epoch training of train/scan.py: a captured CUDA graph of the
 # step, replayed, against the eager step on the same card.  Both run the
 # same kernels and the same Adam (its capturable form, as fit builds it
-# under epoch_scan), and the bf16 step is
+# on the card), and the bf16 step is
 # deterministic on the H100, so they agree to the bit there; the bounds
 # are the acceptance's: the per-step losses within 1e-5 relative and the
 # parameters within __graft_entry__.py's envelope (max |d| <= 2.1 lr, mean
@@ -516,7 +516,7 @@ def _scan_setup(card, impl, dropout=0.5, accum=1):
     rng = np.random.default_rng(0)
     songs = rng.integers(0, 2, (SCAN_STEPS, SCAN_B)).astype(np.int32)
     starts = rng.integers(0, 300 - 128, (SCAN_STEPS, SCAN_B)).astype(np.int32)
-    opt = tstep.make_optimizer(cfg, accum, capturable=True)
+    opt = tstep.make_optimizer(cfg, accum)
     return cfg, planes, songs, starts, [
         tstep.create_train_state(0, cfg, opt, device=card) for _ in range(2)]
 
@@ -633,17 +633,17 @@ def test_accumulation_graphs_match_the_eager_cycle(card):
 
 
 @pytest.mark.cuda
-def test_only_epoch_scan_asks_for_the_capturable_adam(card):
-    """The eager loop keeps torch's host-form Adam on the card; the
-    capturable form is built on request (``fit`` under ``epoch_scan``)."""
+def test_cuda_adam_is_capturable_by_default(card):
+    """Since the step programs (``train/graphs.py``) every CUDA state needs
+    it: Adam on the card is the capturable form (``fit`` builds it on
+    every path), on the CPU the host form."""
     from svs_torch.train import step as tstep
     from svs_torch.utils.config import get_config
     cfg = get_config("default")
     p = [torch.zeros(4, device=card, requires_grad=True)]
-    assert not tstep.make_optimizer(cfg).build(p).param_groups[0][
-        "capturable"]
-    assert tstep.make_optimizer(cfg, capturable=True).build(p).param_groups[
-        0]["capturable"]
+    assert tstep.make_optimizer(cfg).build(p).param_groups[0]["capturable"]
+    assert not tstep.make_optimizer(cfg).build(
+        [torch.zeros(4, requires_grad=True)]).param_groups[0]["capturable"]
 
 
 @pytest.mark.cuda
@@ -1042,3 +1042,144 @@ def test_serve_warmup_leaves_its_program_captured(card, decode_cache):
             got, _eager_decode(model, y, mode=server.DEFAULT_MODE))
     finally:
         server.close(httpd, 30)
+
+
+# ------------------------------------------------------------- step programs
+# ``make_train_step`` / ``make_eval_step`` on the card: a cached captured
+# program per key (``train/graphs.py``).  A replay runs the eager body's
+# kernels in its order on the same Adam (capturable), so the state and the
+# metrics are the eager body's bits (bf16 convs, cuDNN deterministic).
+
+
+@pytest.fixture
+def step_cache(card, monkeypatch):
+    """A fresh cache of step programs, cuDNN's deterministic algorithms."""
+    from svs_torch.train import graphs
+    cache = graphs.infer_graphs.ProgramCache(graphs.MAX_BYTES)
+    monkeypatch.setattr(graphs, "CACHE", cache)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    yield cache
+    cache.clear()
+
+
+def _step_states(card, impl, accum=1):
+    import dataclasses
+
+    from svs_torch.train import step as tstep
+    from svs_torch.utils.config import get_config
+    cfg = dataclasses.replace(get_config("default"), mr_mag_impl=impl)
+    opt = tstep.make_optimizer(cfg, accum)
+    return cfg, [tstep.create_train_state(0, cfg, opt, device=card)
+                 for _ in range(2)]
+
+
+def _step_batch(card, seed, b=SCAN_B):
+    rng = np.random.default_rng(seed)
+    shape = (b, 512, 128)
+    mix = rng.random(shape, np.float32)
+    host = {"mix": mix, "voc": mix * rng.random(shape, np.float32),
+            "mix_angle": rng.uniform(-3, 3, shape).astype(np.float32),
+            "voc_angle": rng.uniform(-3, 3, shape).astype(np.float32)}
+    return {k: torch.from_numpy(v).to(card) for k, v in host.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["matmul_bf16", "pallas_bf16",
+                                  "pallas_fused"])
+def test_step_program_replays_are_the_eager_bits(card, step_cache, impl):
+    """Four calls (dropout on) against four eager steps: the warm-up call,
+    one capture, three replays; the same metrics and state bits, the
+    tail's program and the eval programs too."""
+    from svs_torch.parallel import dp
+    from svs_torch.train import step as tstep
+    cfg, (eager, prog) = _step_states(card, impl)
+    eager_step, prog_step = tstep.make_step_fn(cfg), tstep.make_train_step(cfg)
+    ge, gp = (torch.Generator(card).manual_seed(1) for _ in range(2))
+    for i, b in enumerate((SCAN_B,) * 4 + (3, 3)):
+        batch = _step_batch(card, i, b)
+        eager, want = eager_step(eager, batch, ge)
+        prog, got = prog_step(prog, batch, gp)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (i, k)
+    assert prog.step == eager.step == 6
+    for a, b in zip(dp._state_tensors(eager), dp._state_tensors(prog)):
+        assert torch.equal(a, b)
+    full, tail = step_cache._programs.values()
+    assert (full.captures, full.replays) == (1, 3)
+    assert (tail.captures, tail.replays) == (1, 1)
+    assert full.pool_bytes > 0 and full.graphs is not None
+    for b in (SCAN_B, 3):
+        batch = _step_batch(card, 10, b)
+        for _ in range(2):
+            got = tstep.make_eval_step(cfg)(prog, batch)
+            want = tstep.make_eval_fn(cfg)(eager, batch)
+            for k in want:
+                assert torch.equal(got[k], want[k]), (b, k)
+
+
+@pytest.mark.cuda
+def test_step_program_refuses_a_host_form_adam(card, step_cache):
+    from svs_torch.train import step as tstep
+    cfg, (state, _) = _step_states(card, "matmul_bf16")
+    # the host form, built directly (make_optimizer's is capturable here)
+    state.optimizer = torch.optim.Adam(state.model.parameters(),
+                                       lr=cfg.learning_rate)
+    with pytest.raises(ValueError, match="capturable"):
+        tstep.make_train_step(cfg)(state, _step_batch(card, 0),
+                                   torch.Generator(card).manual_seed(1))
+    assert state.step == 0 and not state.optimizer.state
+
+
+@pytest.mark.cuda
+def test_a_failed_step_capture_raises(card, step_cache, monkeypatch):
+    """No fallback: a step that fails while it is captured makes the call
+    raise (the first call, the eager warm-up, ran), and so does the next
+    call, which captures again."""
+    from svs_torch.train import step as tstep
+    real = tstep.loss_and_grads
+
+    def failing(*args, **kwargs):
+        out = real(*args, **kwargs)
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the step cannot be captured")
+        return out
+
+    monkeypatch.setattr(tstep, "loss_and_grads", failing)
+    cfg, (state, _) = _step_states(card, "matmul_bf16")
+    step, gen = tstep.make_train_step(cfg), torch.Generator(card)
+    step(state, _step_batch(card, 0), gen)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="cannot be captured"):
+            step(state, _step_batch(card, 1), gen)
+    assert state.step == 1
+
+
+@pytest.mark.cuda
+def test_step_program_captures_again_after_a_rate_change_and_a_restore(
+        card, step_cache, tmp_path):
+    """The learning-rate drop and a checkpoint restore (a fresh Adam state
+    in its capturable form) each capture again; the state stays the eager
+    body's, with accumulation over 2."""
+    from svs_torch.parallel import dp
+    from svs_torch.train import checkpoint as ckpt
+    from svs_torch.train import step as tstep
+    cfg, (eager, prog) = _step_states(card, "pallas_fused", accum=2)
+    eager_step, prog_step = tstep.make_step_fn(cfg), tstep.make_train_step(cfg)
+    ge, gp = (torch.Generator(card).manual_seed(1) for _ in range(2))
+    path = str(tmp_path / "s.ckpt")
+    for i in range(8):
+        if i == 4:
+            for s in (eager, prog):
+                tstep.set_learning_rate(s, cfg.lr_after_drop)
+        if i == 6:
+            for s in (eager, prog):
+                ckpt.save(path, s, epoch=1)
+                ckpt.load(path, s)
+        batch = _step_batch(card, i)
+        eager, want = eager_step(eager, batch, ge)
+        prog, got = prog_step(prog, batch, gp)
+        assert torch.equal(got["total"], want["total"]), i
+    (program,) = step_cache._programs.values()
+    assert program.captures == 3 and sorted(program.graphs) == [0, 1]
+    for a, b in zip(dp._state_tensors(eager), dp._state_tensors(prog)):
+        assert torch.equal(a, b)

@@ -15,9 +15,10 @@ eval step on one state agrees to 1e-7), the same
 ``metrics_*.jsonl`` keys, the same checkpoint trees, and the same
 learning-rate schedule across a lowered ``lr_drop_epoch``.  A resumed port
 fit equals an uninterrupted one bit for bit (the same data order, Adam
-state and learning rate), remat gives the same loss and gradients bit for
-bit (it recomputes the same ops), and SIGTERM saves, exits 143 and
-resumes.
+state and learning rate; the interrupted run and its resume through the
+step programs, ``train/graphs.py``, as on a card), remat gives the same
+loss and gradients bit for bit (it recomputes the same ops), and SIGTERM
+saves, exits 143 and resumes (the interrupted run through the programs).
 """
 
 import dataclasses
@@ -40,6 +41,7 @@ from svs_torch.data.dataset import PatchDataset
 from svs_torch.models.unet import UNet
 from svs_torch.parallel.mesh import Mesh, shard_batch
 from svs_torch.train import flax_msgpack as fm
+from svs_torch.train import graphs
 from svs_torch.train import loop as tloop
 from svs_torch.train import step as tstep
 from svs_torch.utils.config import SVSConfig as TConfig
@@ -163,13 +165,23 @@ def test_one_epoch_fit_writes_what_svs_tpu_writes(data, tmp_path):
             float(tlog[1].split()[-1]), rel=1e-6)
 
 
-def test_resumed_fit_equals_an_uninterrupted_one(data, tmp_path):
+def test_resumed_fit_equals_an_uninterrupted_one(data, tmp_path,
+                                                 monkeypatch):
+    """The uninterrupted fit eager; the interrupted one and its resume
+    routed through the step programs (``train/graphs.py``), as the card
+    runs them: the same bits either way."""
     songs, init = data
     full = _port_fit(songs, init, str(tmp_path / "full"))
     half = str(tmp_path / "half")
+    cache = graphs.infer_graphs.ProgramCache(graphs.MAX_BYTES)
+    monkeypatch.setattr(graphs, "programmed", lambda dev: True)
+    monkeypatch.setattr(graphs, "CACHE", cache)
     _port_fit(songs, init, half, epoch=1)
     resumed = _port_fit(songs, os.path.join(half, "CKPT", "svs_t.ckpt"),
                         half, epoch=2)
+    # per fit: the train step's program, validation's
+    assert cache.builds == 4 and any(
+        p.replays for p in cache._programs.values())
     assert resumed.step == full.step
     for k, v in full.model.state_dict().items():
         if "num_batches" not in k:  # not in svs_tpu's format, never read
@@ -187,8 +199,9 @@ _SIGTERM_SCRIPT = textwrap.dedent("""
     sys.path.insert(0, {root!r})
     import torch
     torch.set_num_threads(1)
-    from svs_torch.train import loop
+    from svs_torch.train import graphs, loop
     from svs_torch.utils.config import SVSConfig
+    graphs.programmed = lambda dev: True  # the step programs, as on a card
     make = loop.make_train_step
 
     def stepping(cfg):
@@ -210,6 +223,8 @@ _SIGTERM_SCRIPT = textwrap.dedent("""
 
 
 def test_sigterm_saves_exits_143_and_resumes(data, tmp_path):
+    """SIGTERM at the second step of a fit through the step programs;
+    the resume runs eagerly."""
     songs, init = data
     ckpt, log = str(tmp_path / "CKPT"), str(tmp_path / "LOG")
     script = _SIGTERM_SCRIPT.format(root=ROOT, songs=songs, init=init,
