@@ -155,14 +155,31 @@ Phases, each printing what it found on its own line:
              and read just after) is held against ``make_train_step`` on
              the same batch with an all-ones ``weight`` (the same bits,
              and within ``__graft_entry__``'s envelope), both timed by
-             CUDA events; ``separate_magnitude_mesh`` of a 4-minute song's
+             CUDA events, each as its program and its eager body; the DP
+             train and eval steps as cached programs
+             (``layout_programs``) against their eager bodies
+             (``step.eager``) under ``matmul_bf16``, ``pallas_bf16`` and
+             ``pallas_fused``: two full batches, a batch of 24 rows padded
+             to 32 and a ragged tail of 20 twice, the same bits (metrics,
+             parameters, BN, Adam), the eval programs on a full and a
+             padded tail batch too, replay and eager ms (CUDA
+             events), a traced replay's idle share and loss-kernel
+             launches, the warm-up and capture calls' seconds, each
+             program's bytes, and the loss kernels' launches of the calls
+             (eager, captured, replayed from a trace); two epochs of a
+             programmed ``fit`` against the eager ``fit``, bit for bit
+             (``layout_fit_programs``); the DP program's replay beside the
+             single step program's, unweighted and with the all-ones
+             ``weight``, in turns (``program_turns``);
+             ``separate_magnitude_mesh`` of a 4-minute song's
              magnitude (float32) against ``separate_magnitude``; then
              whether NCCL runs two ranks on one card (a pool of two worker
              processes: its all-reduce must then be right, and the one
              refusal taken is NCCL's duplicate GPU), and two ranks on the card (gloo with CUDA tensors where NCCL
              refuses) stepping B = 2 x 16 of the float32 ``default`` model
              against the single-process B = 32 step, the ranks' states the
-             same bits; any failure fails the run;
+             same bits, no program built over gloo; any failure fails the
+             run;
 13. dpscan — ``epoch_scan`` over a data-parallel mesh, cuDNN deterministic:
              the scan phase's fit (``default`` preset, B = 32, 3 full steps
              and a ragged tail an epoch, 2 epochs across the learning-rate
@@ -194,7 +211,10 @@ Phases, each printing what it found on its own line:
              over dp's backend, float32, 2 x 16: each sharded step the DP
              two-rank step's bits, each rank's resting state within 1 % of
              117.9 / 78.6 / 58.9 MB (DP / ZeRO-1 / FSDP), its peak memory
-             and the steps' ms (CUDA events, in turns) printed beside;
+             and the steps' ms (CUDA events, in turns) printed beside, no
+             program built over gloo; at the world of one each sharded
+             layout's train and eval programs against their eager bodies
+             and a programmed ``fit`` of each, as the dp phase's;
 15. tp     — tensor parallelism (``svs_torch.parallel.tp``) beside DP, cuDNN
              deterministic: a (1, 1) mesh over NCCL, the full-width
              ``default`` step at B = 32 under ``pallas_fused`` and
@@ -206,7 +226,10 @@ Phases, each printing what it found on its own line:
              gathered states the same bits, enc4's kernel cut to 64 of its
              128 output channels, each rank's resting state within 1 % of
              58,946,172 bytes (FSDP's over two ranks), its peak memory and
-             the steps' ms (CUDA events, in turns) printed beside DP's;
+             the steps' ms (CUDA events, in turns) printed beside DP's,
+             no program built over gloo; at (1, 1) the TP train and eval
+             programs against their eager bodies and a programmed ``fit``,
+             as the dp phase's;
 16. pp     — pipeline parallelism (``svs_torch.parallel.pp``) with both
              stages on ``cuda:0``, the ``default`` preset, B = 32, split 3,
              cuDNN deterministic: the one-microbatch PP step under
@@ -229,9 +252,13 @@ Phases, each printing what it found on its own line:
              under ``pallas_fused`` and ``pallas_bf16`` (counts zeroed just
              before each step and read just after) within the dry run's
              envelope of ``make_train_step`` on the same batch and
-             generator, whether the bits agree printed, the steps' ms in
-             turns; the whole-song CP decode (float32, ``default``
-             preset) of a 3072-frame song, which both decodes pad alike,
+             generator, whether the bits agree printed, the programs'
+             replay ms in turns; the CP train program against its eager
+             body at that shape under the three loss paths
+             (``layout_programs``: B = 4 patches, a batch whose last row
+             weighs 0, a tail of 2; its validation is the single eval
+             program's on the whole batch); the whole-song CP decode
+             (float32, ``default`` preset) of a 3072-frame song, which both decodes pad alike,
              within 3e-5 of ``separate_magnitude(mode="whole")``, and of a
              240-s song (2560 frames, which the unsharded decode pads to
              3072) within 3e-5 of the unsharded forward at CP's padding,
@@ -239,7 +266,8 @@ Phases, each printing what it found on its own line:
              beside the unsharded decode's; one
              epoch of ``fit(parallel="cp")`` (the dataset on the card,
              time-sharded) whose ``.ckpt`` the single-device ``fit``
-             resumes; then one pool of 4 ranks on the card over dp's
+             resumes, and two programmed epochs against the eager ones;
+             then one pool of 4 ranks on the card over dp's
              backend, float32: on its first 2 (``pallas_fused``) and on
              all 4 (``pallas_bf16``) the CP step within the envelope, the
              ranks' states the same bits, and on 2 ranks both decodes;
@@ -2092,15 +2120,311 @@ def eval_phase(torch, np, work: str) -> dict:
     return seconds
 
 
+# the layout programs' checks (layout_programs, layout_fit_programs): the
+# rows of a global batch's ragged tail and of a padded batch's real rows
+LAYOUT_TAIL_B = 20
+LAYOUT_PADDED_B = 24
+
+
+def _host_batches(np, spec: str, b: int, n: int, seed: int, frames=128):
+    """``n`` global host batches of ``b`` patches of ``frames`` frames from
+    the slice's spectra."""
+    from svs_torch.data.dataset import PatchDataset
+
+    ds = PatchDataset(spec, samples_per_song=64, input_len=frames)
+    return [{k: np.asarray(v) for k, v in batch.items()}
+            for batch in ds.batches(b, seed=seed, n_steps=n)]
+
+
+def layout_programs(torch, np, label: str, kind: str, mesh, cfg, hosts,
+                    evals, counts: dict) -> dict:
+    """Layout ``kind``'s train step over ``mesh`` as its cached program
+    (``train/graphs.py``) against its eager body (``step.eager``), each
+    from the state of seed 0 with a dropout generator of seed 1, over the
+    global host batches ``hosts`` (``(batch, pad_rows_to)``, cut as ``fit``
+    cuts them: ``dryrun.layout_batch``): the metrics of every call and the
+    full state after the last (parameters, BN, Adam's moments) the same
+    bits; its eval program (captured when it is built) against the eager
+    eval on each of ``evals`` (``(batch, rows)``), the same bits; the
+    replay's and the eager body's ms by CUDA events; a traced replay's
+    busy ms, idle share and loss-kernel launches; the first call's (the
+    eager warm-up) and the second's (the capture and a replay) seconds;
+    each program's bytes.  The loss kernels' launches of the program
+    calls, read as the step graph phase reads them (the wrappers' counts
+    zeroed just before and read just after, the replays' from a
+    torch.profiler trace of the calls less the wrappers' eager launches),
+    are added into ``counts``."""
+    from svs_torch.ops.cuda import diff_mag as cdm
+    from svs_torch.ops.cuda import fused_loss as cfl
+    from svs_torch.parallel import dryrun
+    from svs_torch.train import graphs
+
+    dev = mesh.device
+    graphs.CACHE.clear()
+    eager_state, step = dryrun.layout_state(kind, cfg, mesh, 0)
+    prog_state, _ = dryrun.layout_state(kind, cfg, mesh, 0)
+    body = step.eager
+    ge, gp = (torch.Generator(dev).manual_seed(1) for _ in range(2))
+    calls = [dryrun.layout_batch(kind, mesh, h, pad) for h, pad in hosts]
+    secs, got = [], []
+
+    def program_calls():
+        for batch in calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got.append(step(prog_state, batch, gp)[1])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+
+    cdm.reset_counts()
+    cfl.reset_counts()
+    wants = [body(eager_state, batch, ge)[1] for batch in calls]
+    body_n = list(_loss_counts()[0])
+    cdm.reset_counts()
+    cfl.reset_counts()
+    seen = {}
+    # device_events takes a trace again if it held no device time: the
+    # calls run once
+    for key, _, n in device_events(
+            torch, lambda: None if secs else program_calls()):
+        if _kernel_of(key) in LOSS_NAMES:
+            seen[_kernel_of(key)] = seen.get(_kernel_of(key), 0) + n
+    prog_n, rec = _loss_counts()
+    rep_n = tuple(seen.get(k, 0) - g for k, g in zip(LOSS_NAMES, prog_n))
+    m_diff = max(_max_diff(torch, [g[k] for k in w], list(w.values()))
+                 for g, w in zip(got, wants))
+    full_e, full_p = dryrun._full(eager_state), dryrun._full(prog_state)
+    s_diff = max(dryrun._max_diff(full_e[k], full_p[k])
+                 for k in ("sd", "mu", "nu"))
+    programs = dryrun.programs(prog_state.model)
+    r = dict(metrics_max_diff=m_diff, state_max_diff=s_diff,
+             programs=programs, body_launches=body_n,
+             warmup_launches=list(prog_n), captured=list(rec),
+             replay_launches=list(rep_n),
+             warmup_call_s=secs[0], capture_call_s=secs[1])
+    check(m_diff == 0.0 and s_diff == 0.0
+          and prog_state.step == eager_state.step == len(calls)
+          and sorted(programs) == [(1, 1), (1, 2)],
+          f"{label}: {len(calls)} program calls give the eager body's bits "
+          f"(metrics {m_diff:g}, state {s_diff:g}), a program a signature "
+          f"{programs}")
+    evaluate = dryrun.layout_eval_step(kind, cfg, mesh)
+    e_diff = 0.0
+    for host, rows in evals:
+        # a program is captured when it is built: its first call replays
+        batch = dryrun.layout_val_batch(kind, mesh, host, rows)
+        out = evaluate(prog_state, batch)
+        want = evaluate.eager(eager_state, batch)
+        e_diff = max(e_diff, _max_diff(torch, [out[k] for k in want],
+                                       list(want.values())))
+    check(e_diff == 0.0, f"{label}: eval programs give the eager eval's "
+          "bits")
+    r["eval_max_diff"] = e_diff
+    r["replay_ms"] = cuda_ms(torch, lambda: step(prog_state, calls[0], gp),
+                             reps=10, warmup=1)
+    r["eager_ms"] = cuda_ms(torch, lambda: body(eager_state, calls[0], ge),
+                            reps=3, warmup=1)
+    traced = {}
+    busy = device_breakdown(
+        torch, lambda: step(prog_state, calls[0], gp), f"{label} replay",
+        (("loss_kernels", ("spec::",)),) + FAMILIES, kernels=traced)
+    r.update(replay_busy_ms=busy, replay_idle_share=1.0 - busy / r[
+        "replay_ms"], replay_trace_launches=[traced.get(k, 0)
+                                             for k in LOSS_NAMES])
+    r["program_bytes"] = {
+        f"{'train' if hasattr(p, 'captures') else 'eval'} B="
+        f"{tuple(p.input.values())[0].shape[0]}": p.nbytes
+        for p in graphs.CACHE.programs_of(prog_state.model)}
+    print(f"{label}: {len(calls)} program calls against the eager body: "
+          f"metrics max diff {m_diff:g}, state (parameters, BN, Adam) "
+          f"{s_diff:g}, eval {e_diff:g}; programs (captures, replays) "
+          f"{programs}; loss kernel launches (spectral_mag fwd/bwd, "
+          f"loss_partials fwd/bwd): eager body {body_n}, the programs' "
+          f"warm-up steps {list(prog_n)}, captured {list(rec)}, replays "
+          f"{list(rep_n)} (a traced replay's {r['replay_trace_launches']}); "
+          f"step ms replay {r['replay_ms']:.3f}, eager body "
+          f"{r['eager_ms']:.3f} (CUDA events); a traced replay busy "
+          f"{busy:.3f} ms, idle share {r['replay_idle_share']:.3f}; first "
+          f"call {secs[0]:.3f} s, second (capture) {secs[1]:.3f} s; "
+          f"program bytes {r['program_bytes']}")
+    per = LOSS_PER_STEP[cfg.mr_mag_impl]
+    n_prog = len(programs)
+    replays = len(calls) - n_prog
+    # a trace of the calls may lack a replay's kernel records (ROADMAP
+    # C.7): it must hold whole replays, at least one and at most all
+    seen_replays = {n // v for n, v in zip(rep_n, per) if v}
+    r["traced_replays"] = (seen_replays.pop() if len(seen_replays) == 1
+                           and all(n % v == 0 for n, v in zip(rep_n, per)
+                                   if v) else None)
+    if any(per) and r["traced_replays"] != replays:
+        print(f"{label}: the trace of the calls held {r['traced_replays']} "
+              f"of the {replays} replays' loss-kernel records")
+    check(tuple(body_n) == tuple(len(calls) * v for v in per)
+          and prog_n == tuple(n_prog * v for v in per)
+          and rec == tuple(n_prog * v for v in per)
+          and (not any(per) or (r["traced_replays"] is not None
+                                and 0 < r["traced_replays"] <= replays))
+          and tuple(r["replay_trace_launches"]) == per,
+          f"{label}: loss-kernel launches of the eager body {body_n}, the "
+          f"warm-up steps {prog_n}, captured {rec}, replays {rep_n} (of "
+          f"{replays} replays)")
+    for i, name in enumerate(LOSS_NAMES):
+        c = counts.setdefault(name, {"eager": 0, "captured": 0,
+                                     "replayed": 0})
+        c["eager"] += prog_n[i]
+        c["captured"] += rec[i]
+        c["replayed"] += rep_n[i]
+    del eager_state, prog_state, step, body
+    graphs.CACHE.clear()
+    return r
+
+
+def layout_fit_programs(torch, np, label: str, work: str, mesh, cfg,
+                        **layout) -> dict:
+    """Two epochs of ``fit(mesh=mesh, **layout)`` with validation (the
+    ``default`` preset, B = 32, ``SCAN_SAMPLES`` patches a song: 3 full
+    steps and a ragged tail an epoch), its steps as the layout's programs,
+    against the same fit with the eager bodies: the text log, the metrics
+    (but the epochs' seconds) and the final state (parameters, BN, Adam's
+    moments) the same bits; the epoch seconds of each."""
+    from svs_torch.parallel import dryrun
+    from svs_torch.train import graphs, loop
+
+    spec = os.path.join(work, "spec")
+    root = os.path.join(work, f"layout_fit_{label.replace(' ', '_')}")
+    cfg = dataclasses.replace(cfg, samples_per_song=SCAN_SAMPLES)
+
+    def opts(run_name):
+        return loop.TrainOptions(
+            train_folder=spec, valid_folder=spec, label="x", epoch=2,
+            batch_size=TRAIN_B, load_path="none",
+            ckpt_dir=os.path.join(root, run_name, "CKPT"),
+            log_dir=os.path.join(root, run_name, "LOG"), progress=False,
+            val_interval=1, device=str(mesh.device), mesh=mesh, **layout)
+
+    t0 = time.perf_counter()
+    out, builds = {}, {}
+    for name in ("eager", "programs"):
+        graphs.CACHE.clear()
+        before = graphs.CACHE.builds
+        state, _, _ = _recording_fit(torch, opts(name), cfg,
+                                     eager=name == "eager")
+        builds[name] = graphs.CACHE.builds - before
+        out[name] = (state.step, dryrun._full(state), [
+            {k: v for k, v in json.loads(x).items() if k != "secs"}
+            for x in _read_lines(os.path.join(root, name, "LOG",
+                                              "metrics_x.jsonl"))],
+            _read_lines(os.path.join(root, name, "LOG", "log_x.txt")))
+        del state
+    graphs.CACHE.clear()
+    (s_e, f_e, m_e, l_e), (s_p, f_p, m_p, l_p) = out["eager"], out[
+        "programs"]
+    diff = max(dryrun._max_diff(f_e[k], f_p[k]) for k in ("sd", "mu", "nu"))
+    secs = {k: [json.loads(x)["secs"] for x in _read_lines(
+        os.path.join(root, k, "LOG", "metrics_x.jsonl")) if '"secs"' in x]
+        for k in out}
+    steps = 2 * -(-N_SONGS * SCAN_SAMPLES // TRAIN_B)
+    same = l_e == l_p and m_e == m_p
+    print(f"{label} fit: 2 epochs of {steps // 2} steps (a tail of "
+          f"{N_SONGS * SCAN_SAMPLES % TRAIN_B}) with validation: programs "
+          f"({builds['programs']} built) against the eager bodies (built "
+          f"{builds['eager']}): log and metrics the same {same}, final "
+          f"state max diff {diff:g}; epoch seconds "
+          f"programs {secs['programs']}, eager {secs['eager']} "
+          f"({time.perf_counter() - t0:.1f} s for both)")
+    check(s_e == s_p == steps and same and diff == 0.0
+          and builds["eager"] == 0 and builds["programs"] >= 3,
+          f"{label} fit: the program fit is the eager fit, bit for bit")
+    return dict(same_bits=True, epoch_s=secs, programs_built=builds[
+        "programs"])
+
+
+def layout_hosts(np, spec: str, frames: int = 128, b: int = TRAIN_B):
+    """The layout checks' global host batches as ``fit`` hands them to a
+    step: two full batches, a batch of ``LAYOUT_PADDED_B`` real rows
+    padded to ``b`` with a 0 ``weight``, then a ragged tail of
+    ``LAYOUT_TAIL_B`` rows twice (CP, whose batch is not cut by rows: its
+    padded batch carries the 0 ``weight``); and the eval batches: a full
+    one and the tail padded to ``b``."""
+    full = _host_batches(np, spec, b, 4, 21, frames)
+    tail = {k: v[:LAYOUT_TAIL_B] for k, v in full[3].items()}
+    padded = {k: v[:LAYOUT_PADDED_B] for k, v in full[2].items()}
+    hosts = [(full[0], None), (full[1], None), (padded, b), (tail, None),
+             (tail, None)]
+    return hosts, [(full[1], b), (tail, b)]
+
+
+def cp_hosts(np, frames: int, b: int):
+    """The CP checks' batches (``layout_hosts``' with the padded batch a
+    full one whose last row weighs 0, and the tail of its own shape, as
+    CP's validation runs the whole batch), random patches of ``frames``
+    frames as the cp phase's (the slice's songs are shorter)."""
+    full = []
+    for seed in (31, 32, 33):
+        rng = np.random.default_rng(seed)
+        shape = (b, 512, frames)
+        full.append({"mix": rng.random(shape, np.float32),
+                     "voc": rng.random(shape, np.float32) * 0.5,
+                     "mix_angle": (rng.random(shape, np.float32) - 0.5) * 6,
+                     "voc_angle": (rng.random(shape, np.float32) - 0.5) * 6})
+    weighted = dict(full[2], weight=np.r_[np.ones(b - 1), 0.0].astype(
+        np.float32))
+    tail = {k: v[:b // 2] for k, v in full[1].items()}
+    hosts = [(full[0], None), (full[1], None), (weighted, None),
+             (tail, None), (tail, None)]
+    return hosts, [(full[1], b), (tail, b // 2)]
+
+
 def _ms(pair) -> str:
     return " / ".join(f"{v:.3f}" for v in pair)
 
 
+def program_turns(torch, mesh, cfg, host) -> dict:
+    """ms a replay (CUDA events, means of 20 after each program's warm-up
+    and capture) of the single step's program on ``host`` (``single``), on
+    it with the all-ones ``weight`` that ``shard_batch`` appends
+    (``weighted``) and of the world-of-one DP program (``dp``), in turns:
+    single, weighted, dp, dp, weighted, single."""
+    from svs_torch.parallel import dryrun
+    from svs_torch.train import graphs
+    from svs_torch.train import step as tstep
+
+    dev = mesh.device
+    graphs.CACHE.clear()
+    one = tstep.batch_to_device(host, dev)
+    weighted = dict(one, weight=torch.ones(len(host["mix"]), device=dev))
+    runs = {name: (tstep.create_train_state(0, cfg, device=dev),
+                   tstep.make_train_step(cfg), batch)
+            for name, batch in (("single", one), ("weighted", weighted))}
+    runs["dp"] = (*dryrun.layout_state("dp", cfg, mesh, 0),
+                  dryrun.layout_batch("dp", mesh, host))
+    gens = {k: torch.Generator(dev).manual_seed(2) for k in runs}
+    ms = {}
+    for name in ("single", "weighted", "dp", "dp", "weighted", "single"):
+        state, step, batch = runs[name]
+        gen = gens[name]
+        ms.setdefault(name, []).append(cuda_ms(
+            torch, lambda: step(state, batch, gen), reps=20, warmup=2))
+    del runs
+    graphs.CACHE.clear()
+    ratio = (sum(ms["dp"]) / sum(ms["single"]) - 1.0,
+             sum(ms["dp"]) / sum(ms["weighted"]) - 1.0)
+    print(f"dp world 1 program vs the single step's program, "
+          f"{cfg.mr_mag_impl}, B={TRAIN_B}, replay ms (CUDA events, means "
+          f"of 20 in turns single, weighted, dp, dp, weighted, single): "
+          + "; ".join(f"{k} {_ms(v)}" for k, v in ms.items())
+          + f"; the DP program {100 * ratio[0]:+.2f} % against the "
+          f"unweighted single program, {100 * ratio[1]:+.2f} % against the "
+          f"weighted one; {nvidia_smi_line()}")
+    return dict(ms, dp_over_single=ratio[0], dp_over_weighted=ratio[1])
+
+
 def dp_phase(torch, np, spec: str) -> dict:
     """The data-parallel layer on the card; returns the loss kernels'
-    launches in the world-of-one DP steps, and the backend two ranks on
-    the card run over (NCCL, or gloo where NCCL refuses a duplicate
-    GPU)."""
+    launches in the world-of-one DP steps, the backend two ranks on the
+    card run over (NCCL, or gloo where NCCL refuses a duplicate GPU), and
+    the loss kernels' launches in the DP programs' calls (``eager``,
+    ``captured``, ``replayed``, ``layout_programs``')."""
     import torch.distributed as dist
 
     from svs_torch.data.dataset import PatchDataset
@@ -2108,7 +2432,11 @@ def dp_phase(torch, np, spec: str) -> dict:
     from svs_torch.models.unet import UNet
     from svs_torch.parallel import dryrun, mesh as mesh_lib
     from svs_torch.parallel.launch import Ranks
+    from svs_torch.train import graphs
     from svs_torch.utils.config import get_config
+
+    work = os.path.dirname(spec)
+    graph_counts = {}
 
     ds = PatchDataset(spec, samples_per_song=64, input_len=128)
     host = {k: np.asarray(v) for k, v in
@@ -2125,25 +2453,49 @@ def dp_phase(torch, np, spec: str) -> dict:
         cfg = dataclasses.replace(default, mr_mag_impl=impl)
         r = dryrun.layout_parity(mesh, cfg, host, ("dp",), time_reps=5)["dp"]
         r["dp_ms"] = [t[0] for t in r["ms"]]
+        r["dp_eager_ms"] = [t[0] for t in r["eager_ms"]]
         counts = tuple(r["kernels"])
         check(counts == DP_PER_STEP[impl], f"dp {impl}: loss-kernel launches "
               f"{counts} == {DP_PER_STEP[impl]} in one DP step")
         total = [a + c for a, c in zip(total, counts)]
         print(f"dp world 1 (nccl) {impl}: default preset B={TRAIN_B}, DP step "
-              f"{_ms(r['dp_ms'])} ms vs the single step's eager body "
-              f"{_ms(r['ref_ms'])} ms "
-              f"(CUDA events, means of 5 steps in turns: single, DP, DP, "
+              f"program {_ms(r['dp_ms'])} ms, eager body "
+              f"{_ms(r['dp_eager_ms'])} ms vs the single step's program "
+              f"{_ms(r['ref_ms'])} ms, eager body {_ms(r['ref_eager_ms'])} "
+              f"ms (CUDA events, means of 5 steps in turns: single, DP, DP, "
               f"single); loss rel {r['loss_rel']:.2e}, "
               f"grad_norm rel {r['grad_norm_rel']:.2e}, BN {r['bn_abs']:.2e}, "
               f"params max {r['params_max']:.2e} mean {r['params_mean']:.2e}; "
-              f"launches {list(counts)}")
+              f"program vs eager body {r['vs_eager']:g}; launches "
+              f"{list(counts)}")
         check(r["ok"], f"dp {impl}: the world-of-one DP step within the "
               "dry-run envelope of make_train_step")
         check(all(r[k] == 0.0 for k in ("loss_rel", "grad_norm_rel", "bn_abs",
                                         "params_max")),
               f"dp {impl}: the world-of-one DP step gives make_train_step's "
               "bits")
+        check(r["programmed"] and r["vs_eager"] == 0.0,
+              f"dp {impl}: the DP program gives its eager body's bits")
         line[f"w1_{impl}"] = r
+
+    # the DP train and eval steps as programs (train/graphs.py) against
+    # their eager bodies under the three loss paths, the programmed fit,
+    # and the DP program's replay beside the single step program's
+    t_graph = time.perf_counter()
+    hosts, evals = layout_hosts(np, spec)
+    for impl in STEP_IMPLS:
+        cfg = dataclasses.replace(default, mr_mag_impl=impl)
+        line[f"program_{impl}"] = layout_programs(
+            torch, np, f"dp program {impl}", "dp", mesh, cfg, hosts, evals,
+            graph_counts)
+    line["program_fit"] = layout_fit_programs(
+        torch, np, "dp program", work, mesh,
+        dataclasses.replace(default, mr_mag_impl="pallas_fused"))
+    for impl in DP_PER_STEP:
+        line[f"vs_single_{impl}"] = program_turns(
+            torch, mesh, dataclasses.replace(default, mr_mag_impl=impl),
+            host)
+    line["program_s"] = time.perf_counter() - t_graph
 
     frames = SP_SECONDS * SR // 768 + 1
     mag = np.abs(np.random.default_rng(4).standard_normal(
@@ -2171,6 +2523,7 @@ def dp_phase(torch, np, spec: str) -> dict:
         check(err <= SP_ATOL, f"sp {mode}: the mesh decode equals the "
               "unsharded one")
         line[f"sp_{mode}"] = dict(ms, max_abs_err=err)
+    graphs.CACHE.clear()  # its programs hold the group's collectives
     dist.destroy_process_group()
 
     # two ranks on the one card: NCCL first, gloo with CUDA tensors if it
@@ -2207,8 +2560,10 @@ def dp_phase(torch, np, spec: str) -> dict:
                   f"grad_norm rel {r['grad_norm_rel']:.2e}, BN "
                   f"{r['bn_abs']:.2e}, params max {r['params_max']:.2e} "
                   f"mean {r['params_mean']:.2e}, "
-                  f"rank spread {r['spread']:g}; DP step {_ms(r['dp_ms'])} "
-                  f"ms vs {_ms(r['ref_ms'])} ms (CUDA events on rank 0, "
+                  f"rank spread {r['spread']:g}; programmed "
+                  f"{r['programmed']} (programs {r['programs']}); DP step "
+                  f"{_ms(r['dp_ms'])} ms vs the single step's program "
+                  f"{_ms(r['ref_ms'])} ms (CUDA events on rank 0, "
                   f"means of 3 steps in turns); rank 0 launches "
                   f"{r['kernels']}")
             check(tuple(r["kernels"]) == DP_PER_STEP[impl],
@@ -2216,9 +2571,13 @@ def dp_phase(torch, np, spec: str) -> dict:
             check(r["ok"] and r["spread"] == 0.0,
                   f"dp world 2 {impl}: the single-process step within the "
                   "dry-run envelope, the ranks the same bits")
+            check(backend == "nccl" or (not r["programmed"]
+                                        and r["programs"] == []),
+                  f"dp world 2 {impl}: gloo ranks on the card built no "
+                  f"program and ran the eager body ({r['programs']})")
             line[f"w2_{impl}"] = dict(r, backend=backend)
     print("dp: " + json.dumps(line))
-    return dict(zip(LOSS_NAMES, total)), backend
+    return dict(zip(LOSS_NAMES, total)), backend, graph_counts
 
 
 # dpscan: the mesh epoch_scan at a world of one over NCCL, under the loss
@@ -2322,8 +2681,9 @@ def _nccl_launches(torch, fn) -> int:
 def dpscan_phase(torch, np, work: str) -> dict:
     """``epoch_scan`` over a data-parallel mesh on the card (see the
     module's docstring); returns, per loss kernel, summed over the mesh
-    fits under the kernel paths: the wrappers' eager launches (the warm-up
-    step and the tails), the calls recorded into a graph (each count
+    fits under the kernel paths: the wrappers' eager launches (the graph's
+    warm-up step and the tail program's), the calls recorded into a graph
+    (the epoch graphs' and the tail program's; each count
     zeroed just before the fit and read just after) and the replays'
     launches (the fit's profiler count less the eager launches)."""
     import torch.distributed as dist
@@ -2393,14 +2753,19 @@ def dpscan_phase(torch, np, work: str) -> dict:
                                     cfg, trace=True)
             got, rec = _loss_counts()
             epoch, seen = meshed[2]["epoch"], meshed[2]["kernels"]
-            want = tuple(v * (1 + SCAN_EPOCHS) for v in per)
-            want_rec = tuple(2 * v for v in per)
+            # eager: the epoch graph's warm-up step and the first tail
+            # (the DP program's warm-up); captured: the graph twice (the
+            # learning-rate drop) and the DP program once; replayed: the
+            # graph's replays and the second tail's
+            want = tuple(2 * v for v in per)
+            want_rec = tuple(3 * v for v in per)
             eager_by_kernel = dict(zip(LOSS_NAMES, got))
             eager_by_kernel["adjoint"] = got[1] + got[3]
             rep = {k: n - eager_by_kernel[k] for k, n in seen.items()}
             per_kernel = dict(zip(LOSS_NAMES, per))
             per_kernel["adjoint"] = per[1] + per[3]
-            want_rep = {k: n_rep * v for k, v in per_kernel.items() if v}
+            want_rep = {k: (n_rep + 1) * v for k, v in per_kernel.items()
+                        if v}
             files = (written(f"single_{impl}"), written(f"mesh_{impl}"))
             same = {k: files[0][k] == files[1][k] for k in files[0]}
             bits = _same_bits(torch, _full_state(torch, single[0]),
@@ -2576,15 +2941,22 @@ def zero_phase(torch, np, spec: str, backend: str) -> dict:
     ``backend`` (dp_phase's: gloo where NCCL refused a duplicate GPU),
     float32, 2 x 16 (each sharded step the DP step's bits, each rank's
     resting state within ``ZERO_MB_RTOL`` of ``ZERO_MB``).  cuDNN's
-    deterministic algorithms throughout, TF32 off.  Returns the loss
-    kernels' launches in the world-of-one sharded steps."""
+    deterministic algorithms throughout, TF32 off.  At the world of one
+    the ZeRO-1 and FSDP train and eval steps as programs against their
+    eager bodies under the three loss paths (``layout_programs``) and a
+    programmed ``fit`` of each (``layout_fit_programs``); the gloo ranks
+    build no program.  Returns the loss kernels' launches in the
+    world-of-one sharded steps, and in the programs' calls."""
     import torch.distributed as dist
 
     from svs_torch.data.dataset import PatchDataset
     from svs_torch.parallel import dryrun, mesh as mesh_lib
     from svs_torch.parallel.launch import Ranks
+    from svs_torch.train import graphs
     from svs_torch.utils.config import get_config
 
+    work = os.path.dirname(spec)
+    graph_counts = {}
     ds = PatchDataset(spec, samples_per_song=64, input_len=128)
     host = {k: np.asarray(v) for k, v in
             next(iter(ds.batches(TRAIN_B, seed=11))).items()}
@@ -2609,22 +2981,42 @@ def zero_phase(torch, np, spec: str, backend: str) -> dict:
                 total = [a + c for a, c in zip(total, counts)]
                 check(all(x[k] == 0.0 for k in ("loss_rel", "grad_norm_rel",
                                                 "bn_abs", "params_max"))
-                      and x["vs_dp"] == 0.0 and x["shards_ok"],
+                      and x["vs_dp"] == 0.0 and x["shards_ok"]
+                      and x["programmed"] and x["vs_eager"] == 0.0,
                       f"zero {kind} {impl}: the world-of-one step gives "
                       "make_train_step's bits (metrics, parameters, BN, "
-                      "Adam's moments)")
+                      "Adam's moments), its program its eager body's")
             print(f"zero world 1 (nccl) {impl}: default preset B={TRAIN_B}, "
-                  "the same bits as make_train_step and the DP step; ms "
+                  "the same bits as make_train_step and the DP step, each "
+                  "program its eager body's; ms, program / eager body "
                   "(CUDA events, means of 5 steps in turns single, DP, "
                   "ZeRO-1, FSDP, FSDP, ZeRO-1, DP, single; cudnn "
-                  f"deterministic): single {_ms(r['dp']['ref_ms'])}; "
-                  + "; ".join(f"{k} {_ms([t[0] for t in r[k]['ms']])}"
+                  f"deterministic): single {_ms(r['dp']['ref_ms'])} / "
+                  f"{_ms(r['dp']['ref_eager_ms'])}; "
+                  + "; ".join(f"{k} {_ms([t[0] for t in r[k]['ms']])} / "
+                              f"{_ms([t[0] for t in r[k]['eager_ms']])}"
                               for k in dryrun.LAYOUTS)
                   + "; peak MB " + ", ".join(
                       f"{k} {_mb(r[k]['peak'])}" for k in dryrun.LAYOUTS)
                   + "; launches " + ", ".join(
                       f"{k} {r[k]['kernels']}" for k in dryrun.LAYOUTS))
             line[f"w1_{impl}"] = r
+        # the ZeRO-1 and FSDP train and eval steps as programs against
+        # their eager bodies, and a programmed fit of each
+        t_graph = time.perf_counter()
+        hosts, evals = layout_hosts(np, spec)
+        for kind in ("zero1", "fsdp"):
+            for impl in STEP_IMPLS:
+                cfg = dataclasses.replace(default, mr_mag_impl=impl)
+                line[f"program_{kind}_{impl}"] = layout_programs(
+                    torch, np, f"zero {kind} program {impl}", kind, mesh,
+                    cfg, hosts, evals, graph_counts)
+            line[f"program_fit_{kind}"] = layout_fit_programs(
+                torch, np, f"zero {kind} program", work, mesh,
+                dataclasses.replace(default, mr_mag_impl="pallas_fused"),
+                **{kind: True})
+        line["program_s"] = time.perf_counter() - t_graph
+        graphs.CACHE.clear()
         dist.destroy_process_group()
     finally:
         torch.backends.cudnn.deterministic = was
@@ -2663,6 +3055,11 @@ def zero_phase(torch, np, spec: str, backend: str) -> dict:
                       "bits, the ranks' gathered states the same, each "
                       "leaf the channel rule's slice")
             for kind in dryrun.LAYOUTS:
+                check(backend == "nccl" or (not r[kind]["programmed"]
+                                            and r[kind]["programs"] == []),
+                      f"zero world 2 {kind} {impl}: gloo ranks on the card "
+                      "built no program and ran the eager body")
+            for kind in dryrun.LAYOUTS:
                 want = ZERO_MB[kind] * 1e6
                 check(all(abs(b - want) <= ZERO_MB_RTOL * want
                           for b in r[kind]["bytes"]),
@@ -2671,7 +3068,7 @@ def zero_phase(torch, np, spec: str, backend: str) -> dict:
                       f"{want:g}")
             line[f"w2_{impl}"] = dict(r, backend=backend)
     print("zero: " + json.dumps(line))
-    return dict(zip(LOSS_NAMES, total))
+    return dict(zip(LOSS_NAMES, total)), graph_counts
 
 
 def tp_phase(torch, np, spec: str, backend: str) -> dict:
@@ -2685,15 +3082,21 @@ def tp_phase(torch, np, spec: str, backend: str) -> dict:
     float32 (the TP step within the dry run's envelope of the
     single-process step, the ranks' gathered states the same bits, each
     rank's resting state within ``ZERO_MB_RTOL`` of ``TP_BYTES``).  cuDNN's
-    deterministic algorithms throughout, TF32 off.  Returns the loss
-    kernels' launches in the world-of-one TP steps."""
+    deterministic algorithms throughout, TF32 off.  At the (1, 1) mesh the
+    TP train and eval steps as programs against their eager bodies under
+    the three loss paths and a programmed ``fit``; the gloo ranks build no
+    program.  Returns the loss kernels' launches in the world-of-one TP
+    steps, and in the programs' calls."""
     import torch.distributed as dist
 
     from svs_torch.data.dataset import PatchDataset
     from svs_torch.parallel import dryrun, mesh as mesh_lib
     from svs_torch.parallel.launch import Ranks
+    from svs_torch.train import graphs
     from svs_torch.utils.config import get_config
 
+    work = os.path.dirname(spec)
+    graph_counts = {}
     ds = PatchDataset(spec, samples_per_song=64, input_len=128)
     host = {k: np.asarray(v) for k, v in
             next(iter(ds.batches(TRAIN_B, seed=11))).items()}
@@ -2718,20 +3121,40 @@ def tp_phase(torch, np, spec: str, backend: str) -> dict:
             total = [a + c for a, c in zip(total, counts)]
             check(all(x[k] == 0.0 for k in ("loss_rel", "grad_norm_rel",
                                             "bn_abs", "params_max"))
-                  and x["vs_dp"] == 0.0 and x["shards_ok"],
+                  and x["vs_dp"] == 0.0 and x["shards_ok"]
+                  and x["programmed"] and x["vs_eager"] == 0.0,
                   f"tp {impl}: the (1, 1) step gives make_train_step's "
-                  "bits (metrics, parameters, BN, Adam's moments)")
+                  "bits (metrics, parameters, BN, Adam's moments), its "
+                  "program its eager body's")
             print(f"tp (1, 1) (nccl) {impl}: default preset B={TRAIN_B}, "
-                  "the same bits as make_train_step and the DP step; ms "
+                  "the same bits as make_train_step and the DP step, each "
+                  "program its eager body's; ms, program / eager body "
                   "(CUDA events, means of 5 steps in turns single, DP, TP, "
                   "TP, DP, single; cudnn deterministic): single "
-                  f"{_ms(r['dp']['ref_ms'])}; "
-                  + "; ".join(f"{k} {_ms([t[0] for t in r[k]['ms']])}"
+                  f"{_ms(r['dp']['ref_ms'])} / "
+                  f"{_ms(r['dp']['ref_eager_ms'])}; "
+                  + "; ".join(f"{k} {_ms([t[0] for t in r[k]['ms']])} / "
+                              f"{_ms([t[0] for t in r[k]['eager_ms']])}"
                               for k in ("dp", "tp"))
                   + "; peak MB " + ", ".join(
                       f"{k} {_mb(r[k]['peak'])}" for k in ("dp", "tp"))
                   + f"; launches {list(counts)}")
             line[f"w1_{impl}"] = r
+        # the TP train and eval steps as programs against their eager
+        # bodies, and a programmed fit
+        t_graph = time.perf_counter()
+        hosts, evals = layout_hosts(np, spec)
+        for impl in STEP_IMPLS:
+            cfg = dataclasses.replace(default, mr_mag_impl=impl)
+            line[f"program_{impl}"] = layout_programs(
+                torch, np, f"tp program {impl}", "tp", mesh, cfg, hosts,
+                evals, graph_counts)
+        line["program_fit"] = layout_fit_programs(
+            torch, np, "tp program", work, mesh,
+            dataclasses.replace(default, mr_mag_impl="pallas_fused"),
+            parallel="tp")
+        line["program_s"] = time.perf_counter() - t_graph
+        graphs.CACHE.clear()
         dist.destroy_process_group()
     finally:
         torch.backends.cudnn.deterministic = was
@@ -2780,10 +3203,14 @@ def tp_phase(torch, np, spec: str, backend: str) -> dict:
                           for b in x["bytes"]),
                       f"tp {shape}: resting bytes a rank {x['bytes']} "
                       f"within {ZERO_MB_RTOL:g} of {TP_BYTES}")
+                check(backend == "nccl" or all(
+                    not r[k]["programmed"] and r[k]["programs"] == []
+                    for k in ("dp", "tp")), f"tp {shape} {impl}: gloo ranks "
+                    "on the card built no program and ran the eager body")
                 line[f"{shape[0]}x{shape[1]}_{impl}"] = dict(r,
                                                              backend=backend)
     print("tp: " + json.dumps(line))
-    return dict(zip(LOSS_NAMES, total))
+    return dict(zip(LOSS_NAMES, total)), graph_counts
 
 
 def pp_phase(torch, np, work: str) -> dict:
@@ -2877,8 +3304,9 @@ def pp_phase(torch, np, work: str) -> dict:
             step(state, batch, torch.Generator(dev).manual_seed(5))  # warm
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
+            gen = torch.Generator(dev).manual_seed(2)
             ms.setdefault(name, []).append(dryrun._event_ms(
-                lambda g: step(state, batch, g), dev, PP_REPS, 0))
+                lambda: step(state, batch, gen), dev, PP_REPS))
             peak[name] = torch.cuda.max_memory_allocated(dev)
         resting = pp.stage_bytes(runs["pp1"][0])
         del runs
@@ -2934,13 +3362,15 @@ def pp_phase(torch, np, work: str) -> dict:
 def cp_phase(torch, np, work: str, backend: str) -> dict:
     """Context parallelism on the card (see the module's docstring); returns
     the loss kernels' launches inside the world-of-one CP steps, each
-    step's count zeroed just before it and read just after."""
+    step's count zeroed just before it and read just after, and in the CP
+    programs' calls."""
     import torch.distributed as dist
 
     from svs_torch.cli import train_cli
     from svs_torch.parallel import dryrun, mesh as mesh_lib
     from svs_torch.parallel import halo
     from svs_torch.parallel.launch import Ranks
+    from svs_torch.train import graphs
     from svs_torch.train import loop
     from svs_torch.train import step as tstep
     from svs_torch.utils.config import get_config
@@ -2953,6 +3383,7 @@ def cp_phase(torch, np, work: str, backend: str) -> dict:
     mag = np.random.default_rng(6).random((513, CP_FRAMES), np.float32)
     line = {"smi": nvidia_smi_line(), "seconds": {}}
     total = [0, 0, 0, 0]
+    graph_counts = {}
     t0 = time.perf_counter()
 
     def lap(what):
@@ -2995,34 +3426,51 @@ def cp_phase(torch, np, work: str, backend: str) -> dict:
                   f"{DP_PER_STEP[impl]} inside the CP step")
             check(r["ok"], f"cp {impl}: the world-of-one CP step within the "
                   "dry-run envelope of make_train_step")
+            check(r["programmed"] and r["programs"] == [(0, 0)],
+                  f"cp {impl}: the CP step a program (its first call the "
+                  "eager warm-up step)")
             total = [a + c for a, c in zip(total, r["kernels"])]
             line[f"w1_{impl}"] = r
-        # ms a step in turns: single, CP, CP, single
+        # ms a step in turns: single, CP, CP, single, each as its program
+        # (after its warm-up and capture)
         cfg = dataclasses.replace(fine, mr_mag_impl="pallas_fused")
         dev = mesh.device
         whole = tstep.batch_to_device(batch, dev)
         whole["weight"] = torch.ones(CP_B, device=dev)
-        # the single step as its eager body: the CP step is eager
         runs = {"single": (tstep.create_train_state(0, cfg, device=dev),
-                           tstep.make_step_fn(cfg), whole),
+                           tstep.make_train_step(cfg), whole),
                 "cp": (tstep.create_train_state(0, cfg, device=dev),
                        halo.make_cp_train_step(mesh, cfg),
                        halo.shard_batch_time(mesh, batch))}
+        gens = {k: torch.Generator(dev).manual_seed(2) for k in runs}
         ms = {}
         for name in ("single", "cp", "cp", "single"):
             state, step, inp = runs[name]
+            gen = gens[name]
             ms.setdefault(name, []).append(dryrun._event_ms(
-                lambda g: step(state, inp, g), dev, CP_REPS, 0))
+                lambda: step(state, inp, gen), dev, CP_REPS, warmup=2))
         del runs
         print(f"cp world 1 ms a step, fine_tune B={CP_B} pallas_fused, cudnn "
-              f"deterministic (CUDA events, means of {CP_REPS} steps in turns "
-              "single, cp, cp, single): " + "; ".join(
-                  f"{k} {_ms(v)}" for k, v in ms.items())
+              f"deterministic, the programs' replays (CUDA events, means of "
+              f"{CP_REPS} steps in turns single, cp, cp, single): "
+              + "; ".join(f"{k} {_ms(v)}" for k, v in ms.items())
               + f"; {nvidia_smi_line()}")
         line["w1_ms"] = ms
+        graphs.CACHE.clear()
+        lap("w1_steps")
+        # the CP train step as its program against its eager body under
+        # the three loss paths (its validation is the single eval step's
+        # program on the whole batch)
+        hosts, evals = cp_hosts(np, fine.input_len, CP_B)
+        for impl in STEP_IMPLS:
+            cfg = dataclasses.replace(fine, mr_mag_impl=impl)
+            line[f"program_{impl}"] = layout_programs(
+                torch, np, f"cp program {impl} (fine_tune B={CP_B} x "
+                f"{fine.input_len} frames)", "cp", mesh, cfg, hosts, evals,
+                graph_counts)
+        lap("programs")
     finally:
         torch.backends.cudnn.deterministic = was
-    lap("w1_steps")
 
     def decodes(n, run):
         """The CP decode over ``n`` ranks of the CP_FRAMES song, which both
@@ -3070,6 +3518,12 @@ def cp_phase(torch, np, work: str, backend: str) -> dict:
                           mesh=mesh, parallel="cp"), cfg)
     fit_s = time.perf_counter() - t0
     check(state.step == steps, f"cp fit: {steps} CP steps in the epoch")
+    del state
+    line["program_fit"] = layout_fit_programs(
+        torch, np, "cp program", work, mesh,
+        dataclasses.replace(default, mr_mag_impl="pallas_fused"),
+        parallel="cp")
+    graphs.CACHE.clear()
     dist.destroy_process_group()
     ckpt = os.path.join(out, "CKPT", "svs_cp.ckpt")
     resumed = loop.fit(opts("cp", epoch=2, load_path=ckpt), cfg)
@@ -3102,6 +3556,10 @@ def cp_phase(torch, np, work: str, backend: str) -> dict:
             check(r["ok"] and r["spread"] == 0.0,
                   f"cp world {n} {impl}: the single-process step within the "
                   "dry-run envelope, the ranks the same bits")
+            check(backend == "nccl" or (not r["programmed"]
+                                        and r["programs"] == []),
+                  f"cp world {n} {impl}: gloo ranks on the card built no "
+                  "program and ran the eager body")
             line[f"w{n}_{impl}"] = r
             if n == 2:
                 decodes(n, lambda m: ranks.run(
@@ -3120,7 +3578,7 @@ def cp_phase(torch, np, work: str, backend: str) -> dict:
           f"{err.getvalue().strip().splitlines()[-1]}")
     check(code == 2, "train_cli --cp --dp exits 2")
     print("cp: " + json.dumps(line))
-    return dict(zip(LOSS_NAMES, total))
+    return dict(zip(LOSS_NAMES, total)), graph_counts
 
 
 def mh_phase(torch, np, work: str) -> dict:
@@ -4113,6 +4571,14 @@ def loss_times_main(tree: str) -> int:
     return 0
 
 
+def _add_counts(into: dict, counts: dict) -> None:
+    """``layout_programs``' launch counts of a phase, added into ``into``."""
+    for name, c in counts.items():
+        mine = into.setdefault(name, {k: 0 for k in c})
+        for k, v in c.items():
+            mine[k] += v
+
+
 def main(argv=None) -> int:
     import numpy as np
     import torch
@@ -4183,23 +4649,28 @@ def main(argv=None) -> int:
         eval_phase(torch, np, work)
         seconds["eval"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        dp_counts, backend = dp_phase(torch, np, os.path.join(work, "spec"))
+        dp_counts, backend, layout_counts = dp_phase(
+            torch, np, os.path.join(work, "spec"))
         seconds["dp"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         dpscan_counts = dpscan_phase(torch, np, work)
         seconds["dpscan"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        zero_counts = zero_phase(torch, np, os.path.join(work, "spec"),
-                                 backend)
+        zero_counts, counts = zero_phase(
+            torch, np, os.path.join(work, "spec"), backend)
+        _add_counts(layout_counts, counts)
         seconds["zero"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        tp_counts = tp_phase(torch, np, os.path.join(work, "spec"), backend)
+        tp_counts, counts = tp_phase(torch, np, os.path.join(work, "spec"),
+                                     backend)
+        _add_counts(layout_counts, counts)
         seconds["tp"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         pp_counts = pp_phase(torch, np, work)
         seconds["pp"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        cp_counts = cp_phase(torch, np, work, backend)
+        cp_counts, counts = cp_phase(torch, np, work, backend)
+        _add_counts(layout_counts, counts)
         seconds["cp"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         mh_counts = mh_phase(torch, np, work)
@@ -4233,6 +4704,16 @@ def main(argv=None) -> int:
             check(all(v > 0 for v in entry["step_graph_launches"].values()),
                   f"{entry['name']} launched, captured and replayed by the "
                   "step programs")
+        if entry["name"] in layout_counts:
+            # the layouts' programs at a world of one (dp, zero1, fsdp, tp,
+            # cp) under the kernel paths: the wrappers' launches in the
+            # programs' warm-up steps, their calls captured, and the
+            # replays' launches from torch.profiler traces of the calls
+            entry["layout_graph_launches"] = layout_counts[entry["name"]]
+            check(all(v > 0 for v in
+                      entry["layout_graph_launches"].values()),
+                  f"{entry['name']} launched, captured and replayed by the "
+                  "layouts' programs")
         if entry["name"] in scan_counts:
             entry.update(scan_counts[entry["name"]])
             check(entry["scan_launches"] > 0 and entry["scan_captured"] > 0

@@ -214,6 +214,12 @@ class ProgramCache:
         with self._lock:
             self._programs.clear()
 
+    def programs_of(self, model: nn.Module) -> list:
+        """The cached programs of ``model``, least recently used first."""
+        with self._lock:
+            return [p for p in self._programs.values()
+                    if p.model() is model]
+
     def program(self, model: nn.Module, signature: Hashable,
                 x: torch.Tensor, body: Body) -> Program:
         """The program of ``signature`` on ``x``'s shape and dtype for

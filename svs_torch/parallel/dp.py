@@ -19,6 +19,13 @@ the same sums).  Adam then runs on the same gradient on every rank, so
 every rank holds the same bits after a step.  ``grad_norm`` is the
 all-reduced gradient's.
 
+Both steps run on a CUDA device as cached captured programs, one a key
+(``train/graphs.py``: ``graphs.train_step`` / ``graphs.eval_step`` keyed on
+the layout and the mesh), their NCCL collectives captured with the step;
+gloo ranks on a CUDA device and the CPU run the eager bodies
+(``graphs.mesh_programmed``).  :func:`dp_body` is the step's one body, which
+the mesh ``epoch_scan`` (``train/scan.py``) captures as well.
+
 Infer: the segments of a song are independent (reference inference.py:
 79-116), so each rank masks its own windows with no communication until
 they are put back together (``infer.separate.separate_magnitude_mesh``).
@@ -33,6 +40,7 @@ import torch.distributed as dist
 
 from svs_torch.losses.mrstft import combined_loss
 from svs_torch.parallel.mesh import Mesh, crosses
+from svs_torch.train import graphs
 from svs_torch.train.step import TrainState, _apply, global_norm
 from svs_torch.utils.config import SVSConfig
 
@@ -138,35 +146,42 @@ def dp_loss_and_grads(cfg: SVSConfig, state: TrainState,
     return grads, metrics
 
 
+def dp_body(cfg: SVSConfig, mesh: Mesh):
+    """The DP step without its count: ``body(state, local_batch,
+    generator) -> metrics`` (:func:`dp_loss_and_grads`, then the optimiser
+    call).  What the DP step's program and the mesh ``epoch_scan``'s graph
+    capture."""
+
+    def body(state: TrainState, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
+        grads, metrics = dp_loss_and_grads(cfg, state, batch, generator,
+                                           mesh)
+        _apply(state, grads)
+        return metrics
+
+    return body
+
+
 def make_dp_train_step(mesh: Mesh, cfg: Optional[SVSConfig] = None):
     """``step(state, local_batch, generator) -> (state, metrics)``: one
     optimisation step of the global batch whose rows ``local_batch``
     holds here (``mesh.shard_batch``).  ``metrics`` (``l1``, ``mr``,
     ``total``, ``grad_norm``) are the global values, the same on every
-    rank; the state is updated in place, the same on every rank."""
+    rank; the state is updated in place, the same on every rank.  On a
+    CUDA device over NCCL (or a world of one) the cached program of its
+    key; ``step.eager`` is the eager body."""
     cfg = cfg or SVSConfig()
-
-    def step(state: TrainState, batch: Dict[str, torch.Tensor],
-             generator: Optional[torch.Generator] = None):
-        grads, metrics = dp_loss_and_grads(cfg, state, batch, generator,
-                                           mesh)
-        _apply(state, grads)
-        state.step += 1
-        return state, metrics
-
-    return step
+    return graphs.train_step(cfg, dp_body(cfg, mesh), "dp", mesh)
 
 
-def make_dp_eval_step(mesh: Mesh, cfg: Optional[SVSConfig] = None):
-    """The validation step over sharded batches: eval-mode BatchNorm, the
-    combined loss as the global weighted mean (svs_tpu's eval step on a
-    batch-sharded batch)."""
-    cfg = cfg or SVSConfig()
+def dp_eval_body(cfg: SVSConfig, mesh: Mesh):
+    """The DP validation body ``body(model, local_batch) -> metrics``:
+    eval-mode BatchNorm, the combined loss as the global weighted mean;
+    leaves the model's mode as it found it."""
 
-    @torch.no_grad()
-    def step(state: TrainState, batch: Dict[str, torch.Tensor]
+    def body(model: torch.nn.Module, batch: Dict[str, torch.Tensor]
              ) -> Dict[str, torch.Tensor]:
-        model = state.model
         was_training = model.training
         model.eval()
         try:
@@ -178,7 +193,16 @@ def make_dp_eval_step(mesh: Mesh, cfg: Optional[SVSConfig] = None):
             model.train(was_training)
         return aux
 
-    return step
+    return body
+
+
+def make_dp_eval_step(mesh: Mesh, cfg: Optional[SVSConfig] = None):
+    """The validation step over sharded batches (svs_tpu's eval step on a
+    batch-sharded batch): :func:`dp_eval_body` in ``no_grad``, as the
+    cached eval program of its key where :func:`make_dp_train_step` is a
+    program."""
+    cfg = cfg or SVSConfig()
+    return graphs.eval_step(cfg, dp_eval_body(cfg, mesh), "dp", mesh)
 
 
 def make_sp_separate(mesh: Mesh, cfg: Optional[SVSConfig] = None,

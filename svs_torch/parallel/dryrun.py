@@ -51,6 +51,13 @@ process and not in the pool: the ``n_micro = 1`` PP step
 against the unsharded step of the same batch, state and generator, under
 the same envelope (:func:`pp_parity`).
 
+Each layout's step is the one ``fit`` runs: the cached program of its key
+where ``graphs.mesh_programmed`` (a CUDA device over NCCL, or a world of
+one), and then held against its eager body bit for bit and timed beside
+it (:func:`layout_parity`'s timing runs, :func:`program_parity` on a
+caller's batches); gloo ranks (the CPU's, or ranks sharing one card) run
+the eager bodies, and ``detail`` says so.
+
 It returns svs_tpu's JSON line (``metric``, ``ok``, ``devices``,
 ``wall_s``, ``detail``); ``detail`` names the layouts checked and those not
 ported yet.
@@ -73,6 +80,7 @@ from svs_torch.losses.mrstft import combined_loss
 from svs_torch.parallel import dp
 from svs_torch.parallel import mesh as mesh_lib
 from svs_torch.parallel import halo, multihost, pp, tp, zero
+from svs_torch.train import graphs
 from svs_torch.train import step as tstep
 from svs_torch.utils.config import SVSConfig
 
@@ -185,14 +193,16 @@ def collective_probe(mesh: mesh_lib.Mesh) -> float:
     return float(t)
 
 
-def _event_ms(step, dev, reps: int, seed: int) -> float:
-    """The mean of ``reps`` calls of ``step(generator)`` by CUDA events."""
-    gen = torch.Generator(dev).manual_seed(seed + 2)
+def _event_ms(fn, dev, reps: int, warmup: int = 0) -> float:
+    """The mean of ``reps`` calls of ``fn()`` by CUDA events, after
+    ``warmup`` calls (a program's eager first call and its capture)."""
+    for _ in range(warmup):
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        step(gen)
+        fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -201,18 +211,98 @@ def _event_ms(step, dev, reps: int, seed: int) -> float:
 def layout_state(kind: str, cfg: SVSConfig, mesh: mesh_lib.Mesh,
                  seed: int = 0, state: Optional[tstep.TrainState] = None):
     """The state of ``seed`` (or ``state``, rank 0's) on every rank in
-    layout ``kind`` (``dp``, ``zero1``, ``fsdp``, or ``tp`` on a
-    ``Mesh2D``) and its train step."""
+    layout ``kind`` (``dp``, ``zero1``, ``fsdp``, ``cp``, or ``tp`` on a
+    ``Mesh2D``) and its train step (a program where
+    ``graphs.mesh_programmed``; ``step.eager`` its eager body)."""
     state = dp.replicate_state(
         state or tstep.create_train_state(seed, cfg, device=mesh.device),
         mesh)
     if kind == "dp":
         return state, dp.make_dp_train_step(mesh, cfg)
+    if kind == "cp":
+        return state, halo.make_cp_train_step(mesh, cfg)
     if kind == "tp":
         return tp.shard_state(state, mesh), tp.make_tp_train_step(mesh, cfg)
     fsdp = kind == "fsdp"
     return (zero.shard_state(state, mesh, fsdp=fsdp),
             zero.make_zero1_train_step(mesh, cfg, fsdp=fsdp))
+
+
+def layout_eval_step(kind: str, cfg: SVSConfig, mesh: mesh_lib.Mesh):
+    """The validation step ``fit`` runs under layout ``kind`` (CP's is the
+    plain eval step on the whole batch)."""
+    if kind == "tp":
+        return tp.make_tp_eval_step(mesh, cfg)
+    if kind == "cp":
+        return tstep.make_eval_step(cfg)
+    return zero.make_zero1_eval_step(mesh, cfg, fsdp=kind == "fsdp")
+
+
+def layout_batch(kind: str, mesh: mesh_lib.Mesh, batch,
+                 pad_rows_to: Optional[int] = None) -> Dict[str,
+                                                            torch.Tensor]:
+    """This rank's train step input of the global host ``batch`` under
+    ``kind``, as ``fit`` cuts it: its rows (``mesh.shard_batch``, over the
+    data sub-mesh under TP; with ``pad_rows_to`` padded to that many rows
+    with zero ``weight``, ``global_batch_from_global``) or under CP its
+    time block (``halo.shard_batch_time``)."""
+    if kind == "cp":
+        return halo.shard_batch_time(mesh, batch)
+    rows = mesh.data if kind == "tp" else mesh
+    if pad_rows_to is None:
+        return mesh_lib.shard_batch(rows, batch)
+    return mesh_lib.global_batch_from_global(rows, batch, pad_rows_to)
+
+
+def layout_val_batch(kind: str, mesh: mesh_lib.Mesh, batch,
+                     rows: int) -> Dict[str, torch.Tensor]:
+    """The eval step's input of the host validation ``batch`` as ``fit``
+    makes it: padded to ``rows`` and cut, or under CP whole."""
+    if kind == "cp":
+        return tstep.batch_to_device(batch, mesh.device)
+    return mesh_lib.global_batch_from_global(
+        mesh.data if kind == "tp" else mesh, batch, rows)
+
+
+def _full(state) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The full state on the host (gathered: a collective): the state
+    dict and Adam's moments."""
+    snap = zero.unshard_state(state)
+    return {"sd": snap.state_dict, "mu": snap.exp_avg, "nu": snap.exp_avg_sq}
+
+
+def programs(model) -> List[Tuple[int, int]]:
+    """(captures, replays) of the cached train programs of ``model``."""
+    return [(p.captures, p.replays) for p in graphs.CACHE.programs_of(model)
+            if hasattr(p, "captures")]
+
+
+def program_parity(kind: str, cfg: SVSConfig, mesh: mesh_lib.Mesh,
+                   batches: List[Dict[str, torch.Tensor]], seed: int = 0
+                   ) -> Dict[str, object]:
+    """Layout ``kind``'s train step (the program of its key where
+    ``graphs.mesh_programmed``) against its eager body (``step.eager``),
+    each from the state of ``seed`` with its own dropout generator of one
+    seed, over this rank's step inputs ``batches``: ``vs_eager``, the
+    largest |difference| of any call's metrics and of the full state after
+    the last (parameters, BN, Adam's moments; 0.0: the same bits; a
+    collective), ``programmed`` and ``programs`` (:func:`programs`: none
+    where the step ran eagerly)."""
+    dev = mesh.device
+    got = []
+    for form in ("program", "eager"):
+        state, step = layout_state(kind, cfg, mesh, seed)
+        run = step if form == "program" else step.eager
+        gen = torch.Generator(dev).manual_seed(seed + 1)
+        metrics = [{k: v.cpu() for k, v in run(state, b, gen)[1].items()}
+                   for b in batches]
+        got.append((metrics, _full(state),
+                    programs(state.model) if form == "program" else None))
+    (pm, pfull, progs), (em, efull, _) = got
+    diff = max([_max_diff(a, b) for a, b in zip(pm, em)]
+               + [_max_diff(pfull[k], efull[k]) for k in ("sd", "mu", "nu")])
+    return {"vs_eager": diff, "programmed": graphs.mesh_programmed(mesh),
+            "programs": progs, "calls": len(batches)}
 
 
 def _max_diff(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]
@@ -268,30 +358,40 @@ def layout_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig,
                   time_reps: int = 0) -> Optional[Dict[str, object]]:
     """One train step of the global host ``batch`` under each of
     ``layouts`` (``tp`` on a ``Mesh2D``, which the others take as its
-    world) from the state of seed 0 and one dropout seed.  Returns on
-    rank 0, by layout: the envelope's deltas against the unsharded step
-    (rank 0, all-ones ``weight``), ``vs_dp`` (the largest |difference| of
-    the metrics, the gathered state and Adam's moments from the DP step's;
-    0.0: the same bits), ``spread`` (of the gathered state over the
-    ranks), ``shards_ok`` (:func:`_shards_ok`), ``bytes`` (each rank's
-    ``zero.state_bytes`` after the step, Adam's moments made), ``peak``
-    (each rank's ``torch.cuda.max_memory_allocated`` over the step, on a
-    CUDA mesh), ``kernels`` (the loss kernels' launches in the step on
-    rank 0: spectral_mag fwd / bwd, loss_partials fwd / bwd) and the
-    shapes of enc4's weight and moment on rank 0; with ``time_reps`` on a
-    CUDA mesh ``ms``, each rank's means of that many more steps by CUDA
-    events, and ``ref_ms``, rank 0's of the unsharded step, in turns
-    (unsharded, each layout, each layout back, unsharded).  None
-    elsewhere."""
+    world) from the state of seed 0 and one dropout seed, through the
+    step ``fit`` runs (the program of its key where
+    ``graphs.mesh_programmed``, whose first call is the eager body).
+    Returns on rank 0, by layout: the envelope's deltas against the
+    unsharded step (rank 0, all-ones ``weight``), ``vs_dp`` (the largest
+    |difference| of the metrics, the gathered state and Adam's moments
+    from the DP step's; 0.0: the same bits), ``spread`` (of the gathered
+    state over the ranks), ``shards_ok`` (:func:`_shards_ok`), ``bytes``
+    (each rank's ``zero.state_bytes`` after the step, Adam's moments
+    made), ``peak`` (each rank's ``torch.cuda.max_memory_allocated`` over
+    the step, on a CUDA mesh), ``kernels`` (the loss kernels' launches in
+    the step on rank 0: spectral_mag fwd / bwd, loss_partials fwd / bwd),
+    the shapes of enc4's weight and moment on rank 0, ``programmed`` and
+    ``programs`` (:func:`programs` of the step's state: none where the
+    step ran eagerly); with ``time_reps`` on a CUDA mesh ``ms``, each
+    rank's means of that many more steps by CUDA events (after two warm
+    ones: a program's eager first call and its capture), and ``ref_ms``,
+    rank 0's of the unsharded step, in turns (unsharded, each layout, each
+    layout back, unsharded); where the steps are programs also
+    ``eager_ms`` and ``ref_eager_ms``, the eager bodies' (``step.eager``)
+    from their own states, timed beside them (the program first on the
+    way there, the eager body first on the way back), and ``vs_eager``,
+    the largest |difference| of each program's final state (parameters,
+    BN, Adam's moments) from its eager body's after the same calls with
+    the same dropout draws (0.0: the same bits; else None)."""
     from svs_torch.ops.cuda import diff_mag as cdm
     from svs_torch.ops.cuda import fused_loss as cfl
 
     dev, seed = mesh.device, 0
     cuda = dev.type == "cuda"
+    on = graphs.mesh_programmed(mesh)
 
     def local(kind):
-        return mesh_lib.shard_batch(mesh.data if kind == "tp" else mesh,
-                                    batch)
+        return layout_batch(kind, mesh, batch)
 
     out, full = {}, {}
     for kind in layouts:
@@ -319,38 +419,62 @@ def layout_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig,
             "peak": multihost.per_rank([peak], mesh).ravel().tolist(),
             "kernels": list(kernels),
             "enc4": [list(state.model.state_dict()[w].shape),
-                     list(state.optimizer.state[mu]["exp_avg"].shape)]}
+                     list(state.optimizer.state[mu]["exp_avg"].shape)],
+            "programmed": on, "programs": programs(state.model),
+            "vs_eager": None}
         del state, step
     ref_batch = tstep.batch_to_device(batch, dev)
     ref_batch["weight"] = torch.ones(len(batch["mix"]), device=dev)
-    # the eager body, whose bits make_train_step's program gives: the
-    # layouts' steps are eager, so they are timed against the same form
-    ref_step = tstep.make_step_fn(cfg)
+    ref_step = tstep.make_train_step(cfg)
     if time_reps and cuda:
         runs = {k: (*layout_state(k, cfg, mesh, seed), local(k))
                 for k in layouts}
         runs["ref"] = (tstep.create_train_state(seed, cfg, device=dev),
                        ref_step, ref_batch)
-        ref_ms = []
-        for kind in ("ref", *layouts, *reversed(layouts), "ref"):
+        forms = {"program": runs}
+        if on:
+            forms["eager"] = {
+                k: (*layout_state(k, cfg, mesh, seed), local(k))
+                for k in layouts}
+            forms["eager"]["ref"] = (
+                tstep.create_train_state(seed, cfg, device=dev), ref_step,
+                ref_batch)
+        gens = {(form, k): torch.Generator(dev).manual_seed(seed + 2)
+                for form in forms for k in ("ref", *layouts)}
+        order = ("ref", *layouts, *reversed(layouts), "ref")
+        for i, kind in enumerate(order):
             if kind == "ref" and not mesh.is_primary:
                 continue  # the others wait in the next layout's collectives
-            state, step, inp = runs[kind]
-            ms = _event_ms(lambda g: step(state, inp, g), dev, time_reps,
-                           seed)
-            if kind == "ref":
-                ref_ms.append(ms)
-            else:
-                out[kind].setdefault("ms", []).append(
-                    multihost.per_rank([ms], mesh).ravel().tolist())
-        del runs
+            back = i >= len(order) // 2
+            for form in (sorted(forms) if back else sorted(forms)[::-1]):
+                state, step, inp = forms[form][kind]
+                run = step if form == "program" else step.eager
+                gen = gens[(form, kind)]
+                ms = _event_ms(lambda: run(state, inp, gen), dev, time_reps,
+                               warmup=2 if on else 0)
+                key = "ms" if form == "program" else "eager_ms"
+                if kind == "ref":
+                    out.setdefault("ref", {}).setdefault(key, []).append(ms)
+                else:
+                    out[kind].setdefault(key, []).append(
+                        multihost.per_rank([ms], mesh).ravel().tolist())
+        if on:
+            for kind in layouts:
+                got, want = (_full(forms[f][kind][0])
+                             for f in ("program", "eager"))
+                out[kind]["vs_eager"] = max(_max_diff(got[k], want[k])
+                                            for k in ("sd", "mu", "nu"))
+        del runs, forms
+        ref = out.pop("ref", {})
         for kind in layouts:
-            out[kind]["ref_ms"] = ref_ms
+            out[kind]["ref_ms"] = ref.get("ms", [])
+            if on:
+                out[kind]["ref_eager_ms"] = ref.get("eager_ms", [])
     if not mesh.is_primary:
         return None
-    ref_state, ref = ref_step(tstep.create_train_state(seed, cfg, device=dev),
-                              ref_batch,
-                              torch.Generator(dev).manual_seed(seed + 1))
+    ref_state, ref = ref_step.eager(
+        tstep.create_train_state(seed, cfg, device=dev), ref_batch,
+        torch.Generator(dev).manual_seed(seed + 1))
     for kind in layouts:
         metrics, snap = full[kind]
         out[kind].update(envelope(metrics, snap.state_dict, ref, ref_state,
@@ -500,17 +624,16 @@ def cp_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig,
     Returns on rank 0 the :func:`envelope` of the two, ``bits`` (the
     largest |difference| of the metrics and the state dicts; 0.0: the same
     bits), ``spread`` (of the state over the ranks), ``kernels`` (the loss
-    kernels' launches in the CP step on rank 0) and ``peak`` (each rank's
-    ``torch.cuda.max_memory_allocated`` over the step, on a CUDA mesh);
-    None elsewhere."""
+    kernels' launches in the CP step on rank 0), ``peak`` (each rank's
+    ``torch.cuda.max_memory_allocated`` over the step, on a CUDA mesh),
+    ``programmed`` and ``programs`` (:func:`layout_parity`'s); None
+    elsewhere."""
     mesh = first_ranks(mesh, first)
     if mesh is None:
         return None
     dev = mesh.device
     cuda = dev.type == "cuda"
-    state = dp.replicate_state(tstep.create_train_state(0, cfg, device=dev),
-                               mesh)
-    step = halo.make_cp_train_step(mesh, cfg)
+    state, step = layout_state("cp", cfg, mesh)
     local = halo.shard_batch_time(mesh, batch)
     if cuda:
         torch.cuda.synchronize(dev)
@@ -526,6 +649,8 @@ def cp_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig,
         mesh).ravel().tolist()
     sd = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
     spread = _spread(sd, mesh)
+    on = graphs.mesh_programmed(mesh)
+    progs = programs(state.model)
     if not mesh.is_primary:
         return None
     ref_batch = tstep.batch_to_device(batch, dev)
@@ -539,7 +664,8 @@ def cp_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig,
                                           ref.items()}),
                       _max_diff(sd, {k: v.cpu() for k, v in
                                      ref_state.model.state_dict().items()}))
-    out.update(spread=spread, kernels=kernels, peak=peak)
+    out.update(spread=spread, kernels=kernels, peak=peak, programmed=on,
+               programs=progs)
     return out
 
 
@@ -592,7 +718,7 @@ def cp_decode_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig, mag: np.ndarray,
         torch.cuda.reset_peak_memory_stats(dev)
         fn()
         peak = torch.cuda.max_memory_allocated(dev)
-        return _event_ms(lambda g: fn(), dev, reps, 0), peak
+        return _event_ms(fn, dev, reps), peak
 
     got = cp()
     out = {}
@@ -945,6 +1071,15 @@ def dp_smoke(devices: int = 8, timeout: float = 1200.0) -> Dict[str, object]:
                 + (f"; mesh {tp_mesh(devices)}" if kind == "tp" else "")
                 + ")")
         skipped = [k for k in ("zero1", "fsdp") if k not in res]
+        # the steps fit runs: programs where graphs.mesh_programmed, each
+        # then held against its eager body
+        for kind, step in res.items():
+            if "programmed" in step:
+                ok = ok and step.get("vs_eager") in (None, 0.0)
+        parts.append("programs: " + ", ".join(
+            f"{k} " + (f"vs eager {step.get('vs_eager')}"
+                       if step["programmed"] else "none (eager bodies)")
+            for k, step in res.items() if "programmed" in step))
         detail = (f"checked {list(CHECKED)}: " + "; ".join(parts)
                   + "; sp == unsharded decode (max "
                   + ", ".join(f"{k} {v:.2e}" for k, v in sp.items()) + ")"

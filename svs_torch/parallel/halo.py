@@ -41,7 +41,11 @@ true gradient of its mask block; BatchNorm's sums and the halo's
 transpose carry the rest across the ranks, and one flat all-reduce sums
 the parameter gradients (``dp._sum_over_ranks``).  Adam then runs on the
 same gradient on every rank, which so holds the same state.  The conv
-tower is time-sharded; the loss is computed whole on every rank.
+tower is time-sharded; the loss is computed whole on every rank.  On a
+CUDA device over NCCL (or a world of one) the step runs as a cached
+captured program, one a key (``train/graphs.py``), its halo exchanges (24
+all-reduces a forward) captured with it; gloo ranks on a CUDA device run
+the eager body.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ from svs_torch.models.unet import UNet
 from svs_torch.parallel import dp
 from svs_torch.parallel import mesh as mesh_lib
 from svs_torch.parallel.mesh import Mesh
+from svs_torch.train import graphs
 from svs_torch.train.step import TrainState, _apply, global_norm
 from svs_torch.utils.config import SVSConfig
 from svs_torch.utils.device import torch_dtype
@@ -206,19 +211,20 @@ def make_cp_train_step(mesh: Mesh, cfg: Optional[SVSConfig] = None):
     here (``shard_batch_time``), from the state every rank holds
     (``dp.replicate_state``).  ``make_train_step``'s semantics; the
     metrics the whole batch's, the state updated in place, the same on
-    every rank.  svs_tpu has no CP eval step: validation runs the plain
+    every rank; a program where the DP step is one (``step.eager`` the
+    eager body).  svs_tpu has no CP eval step: validation runs the plain
     eval step on the whole batch (``fit``)."""
     cfg = cfg or SVSConfig()
 
-    def step(state: TrainState, batch: Dict[str, torch.Tensor],
-             generator: Optional[torch.Generator] = None):
+    def body(state: TrainState, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
         grads, metrics = cp_loss_and_grads(cfg, state, batch, generator,
                                            mesh)
         _apply(state, grads)
-        state.step += 1
-        return state, metrics
+        return metrics
 
-    return step
+    return graphs.train_step(cfg, body, "cp", mesh)
 
 
 def make_time_sharded_apply(mesh: Mesh):

@@ -268,6 +268,14 @@ def crosses(group: Optional[Mesh]) -> bool:
     return group is not None and group.size > 1
 
 
+def host_collectives(mesh: Optional[Mesh]) -> bool:
+    """Whether ``mesh``'s collectives run on the host while its tensors lie
+    on a CUDA device: gloo across ranks (ranks that share one card, which
+    NCCL refuses).  No CUDA graph can hold such a collective."""
+    return (crosses(mesh) and mesh.device.type == "cuda"
+            and mesh.backend == "gloo")
+
+
 class _AllSum(torch.autograd.Function):
     """All-reduce SUM whose adjoint is the all-reduce SUM of the upstream
     gradient: every rank's output depends on every rank's input."""

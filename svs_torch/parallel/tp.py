@@ -50,6 +50,11 @@ sub-mesh, and every leaf over the data sub-mesh; ``grad_norm`` is the full
 gradient's (the squared slices summed over the model sub-mesh, each whole
 leaf counted once).  A world of one runs ``make_train_step``'s arithmetic
 in its order, so its step is that step's bits.
+
+The train and eval steps run on a CUDA device over NCCL (or a world of
+one) as cached captured programs, one a key (``train/graphs.py``, keyed on
+the layout and the ``Mesh2D``), the row and column groups' collectives
+captured with the step; gloo ranks on a CUDA device run the eager bodies.
 """
 
 from __future__ import annotations
@@ -68,6 +73,7 @@ from svs_torch.models.unet import (UNet, batch_norm, decoder_io, dropout2d,
 from svs_torch.parallel import dp, zero
 from svs_torch.parallel import mesh as mesh_lib
 from svs_torch.parallel.mesh import Mesh2D
+from svs_torch.train import graphs
 from svs_torch.train.step import TrainState, _apply, global_norm
 from svs_torch.utils.config import SVSConfig
 from svs_torch.utils.device import torch_dtype
@@ -247,40 +253,46 @@ def make_tp_train_step(mesh: Mesh2D, cfg: Optional[SVSConfig] = None):
     batch whose rows ``local_batch`` holds here (``mesh.shard_batch`` over
     ``mesh.data``: every model rank of a data row gets the same rows).
     ``make_train_step``'s semantics; ``metrics`` the global values, the
-    same on every rank; the state updated in place and still cut."""
+    same on every rank; the state updated in place and still cut.  A
+    program where the DP step is one; ``step.eager`` is the eager body."""
     cfg = cfg or SVSConfig()
 
-    def step(state: zero.ZeroState, batch: Dict[str, torch.Tensor],
-             generator: Optional[torch.Generator] = None):
-        _check(state, mesh)
+    def body(state: zero.ZeroState, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
         grads, metrics = tp_loss_and_grads(cfg, state, batch, generator,
                                            mesh)
         _apply(state, grads)
-        state.step += 1
-        return state, metrics
+        return metrics
 
-    return step
+    return graphs.train_step(cfg, body, "tp", mesh,
+                             lambda state: _check(state, mesh))
 
 
 def make_tp_eval_step(mesh: Mesh2D, cfg: Optional[SVSConfig] = None):
     """The validation step over this data row's block of a batch (with its
     ``weight``, ``mesh.global_batch_from_global`` over ``mesh.data``):
     the eval-mode channel-partitioned forward, the combined loss as the
-    global weighted mean."""
+    global weighted mean; a program where the train step is one.  The
+    channel rule's dims come from ``cfg``'s model."""
     cfg = cfg or SVSConfig()
+    dims = zero.state_shardings(mesh.model, cfg, fsdp=True)["model"]
 
-    @torch.no_grad()
-    def step(state: zero.ZeroState, batch: Dict[str, torch.Tensor]
+    def body(model: UNet, batch: Dict[str, torch.Tensor]
              ) -> Dict[str, torch.Tensor]:
-        _check(state, mesh)
-        mask = forward(state.model, state.dims, batch["mix"], mesh, cfg,
-                       train=False)
+        mask = forward(model, dims, batch["mix"], mesh, cfg, train=False)
         _, aux = combined_loss(mask, batch["mix"], batch["voc"],
                                batch["mix_angle"], batch["voc_angle"], cfg,
                                weight=batch["weight"], group=mesh.data)
         return aux
 
-    return step
+    def check(state: TrainState) -> None:
+        _check(state, mesh)
+        if state.dims != dims:
+            raise ValueError("the TP eval step's config cuts the model "
+                             "otherwise than the state's")
+
+    return graphs.eval_step(cfg, body, "tp", mesh, check)
 
 
 def make_tp_apply(mesh: Mesh2D, cfg: Optional[SVSConfig] = None):

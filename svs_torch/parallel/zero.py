@@ -50,10 +50,21 @@ are part of ``opt_state``).  At world size 1 nothing shards, and both
 steps are ``make_train_step``'s bits; at world size 2 they are the DP
 step's bits.
 
+On a CUDA device over NCCL (or a world of one) both steps run as cached
+captured programs, one a key (``train/graphs.py``, keyed on the layout and
+the mesh).  ZeRO-1's update cuts fresh slices of the parameters for Adam
+on every step and gathers the updated ones back: inside a program the cut,
+Adam and the gather are all captured, so each replay writes the slices at
+the addresses Adam's captured kernels read, and the binding (the model's
+tensors, Adam's moments and counts) never moves.  FSDP's gather of the
+parameters before the forward is captured with the step.
+
 A checkpoint is written from :func:`unshard_state`, the full state
 gathered leaf by leaf to the host (``mesh.gather_state``), as the
 canonical ``.ckpt``: a run resumes into any layout.  Validation under FSDP
-runs inside :func:`gathered`.
+(:func:`make_zero1_eval_step`) gathers the parameters and the running
+statistics inside the eval step, and so inside its program;
+:func:`gathered` lends the model the full tensors for a block of code.
 """
 
 from __future__ import annotations
@@ -69,6 +80,7 @@ import torch.nn as nn
 from svs_torch.parallel import dp
 from svs_torch.parallel import mesh as mesh_lib
 from svs_torch.parallel.mesh import Mesh
+from svs_torch.train import graphs
 from svs_torch.train.checkpoint import Snapshot
 from svs_torch.train.step import TrainState, _apply, global_norm
 from svs_torch.utils.config import SVSConfig
@@ -316,31 +328,73 @@ def _zero1_update(state: ZeroState, cut: List[torch.Tensor]) -> None:
                 work[i].data = work[i].data.new_empty(0)
 
 
+def zero_body(cfg: SVSConfig, fsdp: bool = False):
+    """The sharded step without its count: ``body(state, local_batch,
+    generator) -> metrics`` (:func:`zero_loss_and_grads`, then Adam on the
+    slices; ZeRO-1's gathers the updated slices back).  What the step's
+    program captures."""
+
+    def body(state: ZeroState, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
+        grads, metrics = zero_loss_and_grads(cfg, state, batch, generator)
+        if fsdp:
+            _apply(state, grads)
+        else:
+            _zero1_update(state, grads)
+        return metrics
+
+    return body
+
+
 def make_zero1_train_step(mesh: Mesh, cfg: Optional[SVSConfig] = None,
                           fsdp: bool = False):
     """``step(state, local_batch, generator) -> (state, metrics)`` on a
     :class:`ZeroState` of the same layout (:func:`shard_state`): the DP
     step's contract (``dp.make_dp_train_step``): ``metrics`` the global
     values, the same on every rank; the state updated in place and still
-    sharded."""
+    sharded.  A program where the DP step is one; ``step.eager`` is the
+    eager body."""
     cfg = cfg or SVSConfig()
 
-    def step(state: ZeroState, batch: Dict[str, torch.Tensor],
-             generator: Optional[torch.Generator] = None):
+    def check(state: TrainState) -> None:
         if (not isinstance(state, ZeroState) or state.fsdp != fsdp
                 or state.mesh is not mesh):
             raise ValueError(f"the {'FSDP' if fsdp else 'ZeRO-1'} step "
                              "needs a state from shard_state(state, mesh, "
                              f"fsdp={fsdp}) on its mesh")
-        grads, metrics = zero_loss_and_grads(cfg, state, batch, generator)
-        if fsdp:
-            _apply(state, grads)
-        else:
-            _zero1_update(state, grads)
-        state.step += 1
-        return state, metrics
 
-    return step
+    return graphs.train_step(cfg, zero_body(cfg, fsdp),
+                             "fsdp" if fsdp else "zero1", mesh, check)
+
+
+def make_zero1_eval_step(mesh: Mesh, cfg: Optional[SVSConfig] = None,
+                         fsdp: bool = False):
+    """The validation step of a state sharded by :func:`shard_state`: the
+    DP eval step (``dp.make_dp_eval_step``) on the full model.  ZeRO-1's
+    model is whole; FSDP's step gathers its parameters and running
+    statistics (one flat gather, a collective) and puts the slices back
+    before it returns, so its program holds the gather.  The channel rule's
+    dims come from ``cfg``'s model."""
+    cfg = cfg or SVSConfig()
+    if not fsdp:
+        return dp.make_dp_eval_step(mesh, cfg)
+    dims = state_shardings(mesh, cfg, fsdp=True)["model"]
+    dp_eval = dp.dp_eval_body(cfg, mesh)
+
+    def body(model: nn.Module, batch: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+        with _gathered(model, dims, mesh):
+            return dp_eval(model, batch)
+
+    def check(state: TrainState) -> None:
+        if not (isinstance(state, ZeroState) and state.fsdp
+                and state.mesh is mesh and state.dims == dims):
+            raise ValueError("the FSDP eval step needs a state from "
+                             "shard_state(state, mesh, fsdp=True) of its "
+                             "config on its mesh")
+
+    return graphs.eval_step(cfg, body, "fsdp", mesh, check)
 
 
 # ---------------------------------------------------- the full state back
@@ -391,16 +445,26 @@ def gathered(state: TrainState) -> Iterator[nn.Module]:
     the duration (a collective under FSDP: every rank enters; the slices
     come back on exit); ZeRO-1's and an unsharded state's model as it
     is."""
-    if not (isinstance(state, ZeroState) and state.fsdp
-            and mesh_lib.crosses(state.mesh)):
+    if not (isinstance(state, ZeroState) and state.fsdp):
         yield state.model
         return
-    model = state.model
+    with _gathered(state.model, state.dims, state.mesh) as model:
+        yield model
+
+
+@contextlib.contextmanager
+def _gathered(model: nn.Module, dims: Dims, mesh: Mesh
+              ) -> Iterator[nn.Module]:
+    """:func:`gathered` of a model that holds its slices of the leaves the
+    rule cuts (``dims``) over ``mesh``."""
     leaves = model.state_dict(keep_vars=True)
-    sharded = [n for n in leaves if state.dims[n] is not None]
+    sharded = [n for n in leaves if dims[n] is not None]
+    if not (sharded and mesh_lib.crosses(mesh)):
+        yield model
+        return
     with torch.no_grad():
         _, fulls = _gather_flat([leaves[n] for n in sharded],
-                                [state.dims[n] for n in sharded], state.mesh)
+                                [dims[n] for n in sharded], mesh)
     held = {n: leaves[n].data if isinstance(leaves[n], nn.Parameter)
             else leaves[n] for n in sharded}
     try:

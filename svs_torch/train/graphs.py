@@ -13,8 +13,13 @@ buffers, replayed for every later call of its key.  The eval step's
 program is the decode's :class:`infer.graphs.Program` over a batch
 (:func:`eval_program`).
 
-- **Key.** One program per (kind, model, step config, batch signature,
-  ``accum_steps``, device): the signature is the batch's keys (with or
+- **Key.** One program per (kind, layout, mesh, model, step config,
+  batch signature, ``accum_steps``, device): the layout is the step's
+  name (``single``, ``dp``, ``zero1``, ``fsdp``, ``tp``, ``cp``) and the
+  mesh its ``parallel.mesh.Mesh`` (a ``Mesh2D`` for TP; the program's body
+  holds it, so its ``id`` is not reused while the program is cached), so
+  a layout's step never replays the single step's body, nor the same
+  layout's on another mesh; the signature is the batch's keys (with or
   without ``weight``), shapes and dtypes, so a ragged tail batch or a
   padded one has a program of its own.  Beside the key a program holds its
   *binding* (:func:`binding`): the address of every ``state_dict()``
@@ -55,6 +60,20 @@ copies.
 ``step.make_train_step`` and ``step.make_eval_step`` take programs on the
 card only (:func:`programmed`; the CPU tests patch it).
 
+**Layouts.**  The steps ``fit`` builds for a mesh (``parallel/dp.py``,
+``zero.py``, ``tp.py``, ``halo.py``) are made by :func:`train_step` and
+:func:`eval_step` too, from the layout's eager body, so each runs as the
+cached program of its key where :func:`mesh_programmed` says so, decided
+before any step: on a CUDA device (the single steps' rule), except gloo
+across ranks there (ranks that share one card, which NCCL refuses), whose
+collectives run on the host where no graph can hold them; those ranks run
+the eager bodies by that rule, not as a fallback (``scan.refuse_mesh``
+refuses them under ``epoch_scan`` by the same test,
+``mesh.host_collectives``).  NCCL's collectives are captured with the
+step, as the mesh ``epoch_scan``'s graphs capture them; a capture that
+fails there raises.  Every step these makers return carries its eager form as
+``step.eager``: the oracle the programs are held against.
+
 The capture rules (:func:`binding`, :func:`warm_up`, :func:`capture`,
 :func:`replay`) are shared with ``train/scan.py``'s epoch graphs.
 """
@@ -68,6 +87,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from svs_torch.infer import graphs as infer_graphs
+from svs_torch.parallel import mesh as mesh_lib
 from svs_torch.train.step import TrainState, _accumulator
 
 # The bound on the bytes all cached step programs hold.  A train program of
@@ -94,6 +114,15 @@ def programmed(dev: torch.device) -> bool:
     run eagerly (the CPU tests patch this to route the host through the
     programs)."""
     return dev.type == "cuda"
+
+
+def mesh_programmed(mesh: mesh_lib.Mesh) -> bool:
+    """Whether a layout's steps over ``mesh`` run as cached programs: as
+    the single steps on its device (:func:`programmed`), except where its
+    collectives run on the host (``mesh.host_collectives``: gloo across
+    ranks on a CUDA device), which no graph can hold; those ranks run the
+    eager bodies."""
+    return programmed(mesh.device) and not mesh_lib.host_collectives(mesh)
 
 
 # ------------------------------------------------- the shared capture rules
@@ -281,35 +310,99 @@ class TrainProgram:
         return out
 
 
-def _key(kind: str, model, cfg, batch: Batch, accum_steps: int = 1):
+def _key(kind: str, model, cfg, batch: Batch, accum_steps: int = 1,
+         layout: str = "single", mesh=None):
     device = next(model.parameters()).device
-    return (kind, id(model), cfg, signature(batch), accum_steps,
-            device), device
+    return (kind, layout, None if mesh is None else id(mesh), id(model), cfg,
+            signature(batch), accum_steps, device), device
 
 
-def train_program(state: TrainState, cfg, batch: Batch,
-                  body: TrainBody) -> TrainProgram:
-    """The cached train program of ``body`` for the state's model, ``cfg``,
-    ``accum_steps`` and the batch's signature, built now if there is none
-    (its binding is checked at each call)."""
+def train_program(state: TrainState, cfg, batch: Batch, body: TrainBody,
+                  layout: str = "single", mesh=None) -> TrainProgram:
+    """The cached train program of ``body`` for ``layout`` over ``mesh``,
+    the state's model, ``cfg``, ``accum_steps`` and the batch's signature,
+    built now if there is none (its binding is checked at each call)."""
     model = state.model
-    key, device = _key("train", model, cfg, batch, state.accum_steps)
+    key, device = _key("train", model, cfg, batch, state.accum_steps,
+                       layout, mesh)
     return CACHE.lookup(key, model, lambda prog: True,
                         lambda: TrainProgram(model, body, batch, device))
 
 
-def eval_program(model, cfg, batch: Batch,
-                 body: EvalBody) -> infer_graphs.Program:
-    """The cached eval program of ``body`` for ``model``, ``cfg`` and the
-    batch's signature: the decode's :class:`infer.graphs.Program` over the
-    batch (warmed up and captured when it is built, again when the model's
-    binding moved), in ``no_grad``."""
-    key, device = _key("eval", model, cfg, batch)
+def eval_program(model, cfg, batch: Batch, body: EvalBody,
+                 layout: str = "single", mesh=None) -> infer_graphs.Program:
+    """The cached eval program of ``body`` for ``layout`` over ``mesh``,
+    ``model``, ``cfg`` and the batch's signature: the decode's
+    :class:`infer.graphs.Program` over the batch (warmed up and captured
+    when it is built, again when the model's binding moved), in
+    ``no_grad``."""
+    key, device = _key("eval", model, cfg, batch, 1, layout, mesh)
     return CACHE.lookup(
         key, model,
         lambda prog: prog.binding == infer_graphs.binding(model),
         lambda: infer_graphs.Program(model, body, batch, device,
                                      grad_mode=torch.no_grad))
+
+
+def _on(state: TrainState, mesh) -> bool:
+    if mesh is None:
+        return programmed(next(state.model.parameters()).device)
+    return mesh_programmed(mesh)
+
+
+def train_step(cfg, body: TrainBody, layout: str = "single", mesh=None,
+               check: Optional[Callable[[TrainState], None]] = None):
+    """``step(state, batch, generator) -> (state, metrics)``: one step of
+    ``body`` (the step without its count) and the count, run as the cached
+    program of its key where the steps are programs (:func:`programmed`,
+    or :func:`mesh_programmed` over ``mesh``), else eagerly.  ``check``
+    refuses a state the step cannot take, before either form runs.  The
+    eager form is ``step.eager``."""
+
+    def eager(state: TrainState, batch: Batch,
+              generator: Optional[torch.Generator] = None):
+        if check is not None:
+            check(state)
+        metrics = body(state, batch, generator)
+        state.step += 1
+        return state, metrics
+
+    def step(state: TrainState, batch: Batch,
+             generator: Optional[torch.Generator] = None):
+        if not _on(state, mesh):
+            return eager(state, batch, generator)
+        if check is not None:
+            check(state)
+        return train_program(state, cfg, batch, body, layout, mesh)(
+            state, batch, generator)
+
+    step.eager = eager
+    return step
+
+
+def eval_step(cfg, body: EvalBody, layout: str = "single", mesh=None,
+              check: Optional[Callable[[TrainState], None]] = None):
+    """``step(state, batch) -> metrics``: ``body(model, batch)`` in
+    ``no_grad``, as the cached eval program of its key where the steps are
+    programs, else eagerly; :func:`train_step`'s ``check`` and
+    ``step.eager``."""
+
+    @torch.no_grad()
+    def eager(state: TrainState, batch: Batch) -> Metrics:
+        if check is not None:
+            check(state)
+        return body(state.model, batch)
+
+    def step(state: TrainState, batch: Batch) -> Metrics:
+        if not _on(state, mesh):
+            return eager(state, batch)
+        if check is not None:
+            check(state)
+        return eval_program(state.model, cfg, batch, body, layout, mesh)(
+            batch)
+
+    step.eager = eager
+    return step
 
 
 # one a process, as jax.jit's cache is, so that its bound holds for it

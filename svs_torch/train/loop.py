@@ -20,7 +20,10 @@ The step is svs_torch's (:mod:`svs_torch.train.step`), which updates the
 state in place: on one CUDA device the train and eval steps run as cached
 captured programs (:mod:`svs_torch.train.graphs`, svs_tpu's jitted steps:
 one per batch shape, so the ragged tail and validation's last batch have
-their own), eagerly on the CPU; the layouts' steps below stay eager.  Adam
+their own), eagerly on the CPU.  So do the DP, ZeRO-1, FSDP, TP and CP
+steps below on a CUDA device over NCCL (or a world of one), their
+collectives captured with them; gloo ranks on a CUDA device run their
+eager bodies (``graphs.mesh_programmed``), as does PP.  Adam
 is its capturable form on a CUDA device, whatever the path.  The epoch's
 losses stay on the device until the epoch ends and are fetched once, so no
 step waits on the card.
@@ -59,7 +62,8 @@ is broadcast first and sharded after; the step is
 learning-rate drop, preemption, the ``.pth`` export) gathers the full
 state on every rank (``zero.unshard_state``, svs_tpu loop.py:463-465)
 before rank 0 writes the canonical ``.ckpt``, so a checkpoint resumes
-into any layout; validation under FSDP runs on the gathered parameters.
+into any layout; validation under FSDP gathers the parameters inside its
+eval step (``zero.make_zero1_eval_step``).
 ``epoch_scan`` is refused with either, as svs_tpu refuses it.
 
 With ``parallel="tp"`` and a 2-D mesh (``parallel.mesh.make_2d_mesh``) the
@@ -138,7 +142,6 @@ the host.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import os
@@ -414,8 +417,8 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
         epoch_fn = make_epoch_scan(cfg, augment=opts.augment, mesh=mesh)
 
     # capturable on a CUDA device (the form a CUDA graph replays), so the
-    # step programs, epoch_scan's graphs and the eager layouts' steps all
-    # update as one Adam
+    # step programs (the single device's and every layout's), their eager
+    # bodies and epoch_scan's graphs all update as one Adam
     optimizer = make_optimizer(cfg, accum_steps=opts.accum_steps)
     state = create_train_state(opts.seed, cfg, optimizer, device=dev)
     sharded = opts.zero1 or opts.fsdp  # on a mesh (_refuse_unported)
@@ -439,7 +442,7 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
         eval_step = make_eval_step(cfg)
     elif sharded:
         train_step = zero.make_zero1_train_step(mesh, cfg, fsdp=opts.fsdp)
-        eval_step = dp.make_dp_eval_step(mesh, cfg)
+        eval_step = zero.make_zero1_eval_step(mesh, cfg, fsdp=opts.fsdp)
     else:
         train_step = dp.make_dp_train_step(mesh, cfg)
         eval_step = dp.make_dp_eval_step(mesh, cfg)
@@ -645,14 +648,13 @@ def fit(opts: TrainOptions, cfg: Optional[SVSConfig] = None) -> TrainState:
 
             if valid_ds is not None and (ep + 1) % opts.val_interval == 0:
                 # fixed crop seed: the same validation patches every pass
-                # (svs_tpu's choice; the reference re-rolls them); TP's
-                # eval step runs on the channel slices
-                with (contextlib.nullcontext() if is_tp
-                      else zero.gathered(state)):
-                    val_losses = [
-                        eval_step(state, _val_local(batch))["total"]
-                        for batch in valid_ds.batches(
-                            opts.batch_size, shuffle=False, seed=opts.seed)]
+                # (svs_tpu's choice; the reference re-rolls them); each
+                # layout's eval step takes its own state (FSDP's gathers
+                # inside it, TP's runs on the channel slices)
+                val_losses = [
+                    eval_step(state, _val_local(batch))["total"]
+                    for batch in valid_ds.batches(
+                        opts.batch_size, shuffle=False, seed=opts.seed)]
                 avg_val_loss = float(np.mean(
                     torch.stack(val_losses).cpu().tolist()))
                 if multi:

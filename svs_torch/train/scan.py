@@ -49,15 +49,16 @@ shape on the card, as svs_tpu's loop runs its jitted step).
 Over a plain data-parallel mesh (``mesh=``, svs_tpu scan.py:102-148) every
 rank runs the same epoch on its own card: the body gathers the global
 batch, remixes it whole (with ``augment``), keeps this rank's block of
-rows and runs the DP step (``parallel.dp``: sync-BN, the global loss, the
-gradient summed over the ranks), so the graph holds the step's
-collectives.  The block is ``mesh.shard_batch``'s: the batch padded with
-zero rows to a multiple of the ranks, with the 0/1 ``weight``; both are
-static device buffers made when the epoch's indices are loaded, so no
-replay touches the host.  NCCL makes its communicator at the first
-collective, which the eager warm-up step runs before any capture; every
-rank captures and replays the same graphs in the same order (a capture
-again after the learning-rate drop happens on every rank alike).  Gloo's
+rows and runs the DP step's body (``dp.dp_body``, the one the DP step's
+program captures: sync-BN, the global loss, the gradient summed over the
+ranks), so the graph holds the step's collectives.  The block is
+``mesh.shard_batch``'s: the batch padded with zero rows to a multiple of
+the ranks, with the 0/1 ``weight``; both are static device buffers made
+when the epoch's indices are loaded, so no replay touches the host.  NCCL
+makes its communicator at the first collective, which the eager warm-up
+step runs before any capture; every rank captures and replays the same
+graphs in the same order (a capture again after the learning-rate drop
+happens on every rank alike).  Gloo's
 collectives run on the host, where no graph can hold them: a mesh of more
 than one rank over gloo on a CUDA device (two ranks sharing one card) is
 refused before any step.  On the CPU the gloo ranks run the body eagerly.
@@ -74,7 +75,7 @@ from svs_torch.data.device_data import epoch_index_arrays, gather_crops
 from svs_torch.parallel import dp
 from svs_torch.parallel import mesh as mesh_lib
 from svs_torch.train import graphs as step_graphs
-from svs_torch.train.step import TrainState, _apply, loss_and_grads
+from svs_torch.train.step import TrainState, _step_body
 from svs_torch.utils.config import SVSConfig
 
 # svs_tpu's refusal of epoch_scan off a single process or plain-DP mesh
@@ -94,8 +95,7 @@ def refuse_mesh(mesh) -> None:
                         f"(make_mesh), not {type(mesh).__name__}")
     if isinstance(mesh, mesh_lib.Mesh2D) or mesh.hosts > 1:
         raise ValueError(SCAN_REFUSAL)
-    if mesh.device.type == "cuda" and mesh.backend == "gloo" and \
-            mesh.size > 1:
+    if mesh_lib.host_collectives(mesh):
         raise ValueError(
             f"epoch_scan over {mesh.size} gloo ranks on {mesh.device.type}: "
             "a CUDA graph cannot capture gloo's collectives, which run on "
@@ -164,6 +164,9 @@ class _EpochScan:
         self.cfg = cfg
         self.augment = augment
         self.mesh = mesh
+        # the step without its count: the single step's, or the DP step's
+        self.step_body = (_step_body(cfg) if mesh is None
+                          else dp.dp_body(cfg, mesh))
         # per accumulation position: the graph and its static metrics
         self.graphs: Dict[int, Tuple[torch.cuda.CUDAGraph, dict]] = {}
         self.key = None
@@ -192,13 +195,9 @@ class _EpochScan:
             gains = self.gains.index_select(0, self.ctr)[0]
             from svs_torch.data.augment import apply_remix
             batch = apply_remix(batch, row[2], gains[0], gains[1])
-        if self.mesh is None:
-            grads, metrics = loss_and_grads(self.cfg, state, batch,
-                                            generator)
-        else:
-            grads, metrics = dp.dp_loss_and_grads(
-                self.cfg, state, self._block(batch), generator, self.mesh)
-        _apply(state, grads)
+        if self.mesh is not None:
+            batch = self._block(batch)
+        metrics = self.step_body(state, batch, generator)
         self.losses.index_copy_(0, self.ctr, metrics["total"].reshape(1))
         self.ctr.add_(1)
         return metrics

@@ -238,19 +238,9 @@ def make_train_step(cfg: Optional[SVSConfig] = None):
     captured program of its key (:mod:`svs_torch.train.graphs`: the first
     call of a key runs the eager step, later ones replay; the metrics are
     fresh tensors), eagerly on the CPU."""
+    from svs_torch.train import graphs  # it imports this module
     cfg = cfg or SVSConfig()
-    eager, body = make_step_fn(cfg), _step_body(cfg)
-
-    def step(state: TrainState, batch: Dict[str, torch.Tensor],
-             generator: Optional[torch.Generator] = None
-             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        from svs_torch.train import graphs  # it imports this module
-        if not graphs.programmed(next(state.model.parameters()).device):
-            return eager(state, batch, generator)
-        return graphs.train_program(state, cfg, batch, body)(
-            state, batch, generator)
-
-    return step
+    return graphs.train_step(cfg, _step_body(cfg))
 
 
 def make_eval_fn(cfg: Optional[SVSConfig] = None):
@@ -291,17 +281,9 @@ def make_eval_step(cfg: Optional[SVSConfig] = None):
     """svs_tpu's jitted eval step: :func:`make_eval_fn`'s, run on a CUDA
     device as the cached captured program of its key, eagerly on the
     CPU."""
+    from svs_torch.train import graphs  # it imports this module
     cfg = cfg or SVSConfig()
-    eager, body = make_eval_fn(cfg), _eval_body(cfg)
-
-    def step(state: TrainState, batch: Dict[str, torch.Tensor]
-             ) -> Dict[str, torch.Tensor]:
-        from svs_torch.train import graphs  # it imports this module
-        if not graphs.programmed(next(state.model.parameters()).device):
-            return eager(state, batch)
-        return graphs.eval_program(state.model, cfg, batch, body)(batch)
-
-    return step
+    return graphs.eval_step(cfg, _eval_body(cfg))
 
 
 def batch_to_device(batch: Dict, device: DeviceLike = None

@@ -1183,3 +1183,40 @@ def test_step_program_captures_again_after_a_rate_change_and_a_restore(
     assert program.captures == 3 and sorted(program.graphs) == [0, 1]
     for a, b in zip(dp._state_tensors(eager), dp._state_tensors(prog)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["pallas_bf16", "pallas_fused"])
+def test_world_of_one_layout_programs_are_their_eager_bodies(
+        card, step_cache, impl):
+    """A world of one over NCCL (and the (1, 1) mesh for TP): the DP,
+    ZeRO-1, FSDP, CP and TP steps run as programs (warm-up, capture,
+    replay), each the bits of its eager body (``step.eager``: metrics,
+    parameters, BN and Adam's moments), bf16 convs, cuDNN deterministic,
+    dropout on."""
+    import torch.distributed as dist
+
+    from svs_torch.parallel import dryrun
+    from svs_torch.parallel import mesh as mesh_lib
+    from svs_torch.train import graphs
+    from svs_torch.utils.config import SVSConfig
+
+    cfg = SVSConfig(enc_channels=(4, 8, 8, 16, 16, 16), input_len=128,
+                    mr_mag_impl=impl, compute_dtype="bfloat16")
+    batch = dryrun.dry_batch(4, 128)
+    out = {}
+    for kinds, make in ((("dp", "zero1", "fsdp", "cp"), mesh_lib.make_mesh),
+                        (("tp",), lambda: mesh_lib.make_2d_mesh(1, 1))):
+        mesh = make()
+        try:
+            assert mesh.backend == "nccl" and graphs.mesh_programmed(mesh)
+            for kind in kinds:
+                out[kind] = dryrun.program_parity(
+                    kind, cfg, mesh,
+                    [dryrun.layout_batch(kind, mesh, batch)] * 3)
+        finally:
+            step_cache.clear()
+            dist.destroy_process_group()
+    for kind, r in out.items():
+        assert r["programmed"] and r["vs_eager"] == 0.0, (kind, r)
+        assert r["programs"] == [(1, 2)], (kind, r)
