@@ -172,14 +172,18 @@ Phases, each printing what it found on its own line:
              single step program's, unweighted and with the all-ones
              ``weight``, in turns (``program_turns``);
              ``separate_magnitude_mesh`` of a 4-minute song's
-             magnitude (float32) against ``separate_magnitude``; then
+             magnitude (float32) against ``separate_magnitude``, each
+             rank's SP mask as its decode program against its eager body
+             bit for bit (cuDNN deterministic) and both timed in turns;
+             then
              whether NCCL runs two ranks on one card (a pool of two worker
              processes: its all-reduce must then be right, and the one
              refusal taken is NCCL's duplicate GPU), and two ranks on the card (gloo with CUDA tensors where NCCL
              refuses) stepping B = 2 x 16 of the float32 ``default`` model
              against the single-process B = 32 step, the ranks' states the
-             same bits, no program built over gloo; any failure fails the
-             run;
+             same bits, no program built over gloo, and the SP decode
+             on the two ranks, each rank's mask program its eager body's
+             bits; any failure fails the run;
 13. dpscan — ``epoch_scan`` over a data-parallel mesh, cuDNN deterministic:
              the scan phase's fit (``default`` preset, B = 32, 3 full steps
              and a ragged tail an epoch, 2 epochs across the learning-rate
@@ -214,7 +218,8 @@ Phases, each printing what it found on its own line:
              and the steps' ms (CUDA events, in turns) printed beside, no
              program built over gloo; at the world of one each sharded
              layout's train and eval programs against their eager bodies
-             and a programmed ``fit`` of each, as the dp phase's;
+             under the three loss paths and a programmed ``fit`` of
+             each, as the dp phase's;
 15. tp     — tensor parallelism (``svs_torch.parallel.tp``) beside DP, cuDNN
              deterministic: a (1, 1) mesh over NCCL, the full-width
              ``default`` step at B = 32 under ``pallas_fused`` and
@@ -228,8 +233,8 @@ Phases, each printing what it found on its own line:
              58,946,172 bytes (FSDP's over two ranks), its peak memory and
              the steps' ms (CUDA events, in turns) printed beside DP's,
              no program built over gloo; at (1, 1) the TP train and eval
-             programs against their eager bodies and a programmed ``fit``,
-             as the dp phase's;
+             programs against their eager bodies under the three loss
+             paths and a programmed ``fit``, as the dp phase's;
 16. pp     — pipeline parallelism (``svs_torch.parallel.pp``) with both
              stages on ``cuda:0``, the ``default`` preset, B = 32, split 3,
              cuDNN deterministic: the one-microbatch PP step under
@@ -241,10 +246,22 @@ Phases, each printing what it found on its own line:
              against the port's microbatch-loop oracle
              (``dryrun.microbatch_oracle``: the loss and the BN running
              statistics its bits, the step within the dry run's envelope);
-             the steps' ms by CUDA events in turns beside the single step,
-             each stage's resting bytes and the card's peak memory over
-             each step; one epoch of ``fit(parallel="pp")`` whose
-             ``.ckpt`` the single-device ``fit`` resumes;
+             each step a program (``pp.programmed``: both stages one
+             card; the eager step over two distinct devices) whose three
+             calls give its eager body's bits (the generator's state
+             too) and, at one microbatch, ``make_train_step``'s program's;
+             the one-microbatch programs under the three loss paths
+             against their eager bodies over fit's batches padded to
+             B = 32 (``layout_programs``, eval programs too), the
+             four-microbatch program over full and ragged batches with
+             dropout on; the single program's, the PP programs' and the
+             PP eager steps' ms by CUDA events in turns, a traced
+             replay's loss-kernel launches (once a live microbatch), the
+             programs' bytes, each stage's resting bytes and the card's
+             peak memory over each step; one epoch of
+             ``fit(parallel="pp")`` whose ``.ckpt`` the single-device
+             ``fit`` resumes, and two programmed epochs against the eager
+             ones, bit for bit;
 17. cp     — context parallelism (``svs_torch.parallel.halo``): a world of
              one over NCCL, cuDNN deterministic, the ``fine_tune`` preset
              at full width (bf16, remat), B = 4 patches of 1536 frames: the
@@ -263,14 +280,16 @@ Phases, each printing what it found on its own line:
              240-s song (2560 frames, which the unsharded decode pads to
              3072) within 3e-5 of the unsharded forward at CP's padding,
              each decode's ms by CUDA events and the card's peak memory
-             beside the unsharded decode's; one
+             beside the unsharded decode's, the time-sharded mask a
+             program (its eager body's bits, both timed); one
              epoch of ``fit(parallel="cp")`` (the dataset on the card,
              time-sharded) whose ``.ckpt`` the single-device ``fit``
              resumes, and two programmed epochs against the eager ones;
              then one pool of 4 ranks on the card over dp's
              backend, float32: on its first 2 (``pallas_fused``) and on
              all 4 (``pallas_bf16``) the CP step within the envelope, the
-             ranks' states the same bits, and on 2 ranks both decodes;
+             ranks' states the same bits, and on 2 ranks both decodes
+             (their mask eager by the rule over gloo);
              ``train_cli --cp --dp`` exits 2;
 18. mh     — multi-host training (``svs_torch.parallel.multihost``) in one
              pool of two hosts of one rank each on the card, over gloo
@@ -2159,7 +2178,7 @@ def layout_programs(torch, np, label: str, kind: str, mesh, cfg, hosts,
     from svs_torch.parallel import dryrun
     from svs_torch.train import graphs
 
-    dev = mesh.device
+    dev = mesh[0] if isinstance(mesh, tuple) else mesh.device  # PP's pair
     graphs.CACHE.clear()
     eager_state, step = dryrun.layout_state(kind, cfg, mesh, 0)
     prog_state, _ = dryrun.layout_state(kind, cfg, mesh, 0)
@@ -2228,9 +2247,14 @@ def layout_programs(torch, np, label: str, kind: str, mesh, cfg, hosts,
     busy = device_breakdown(
         torch, lambda: step(prog_state, calls[0], gp), f"{label} replay",
         (("loss_kernels", ("spec::",)),) + FAMILIES, kernels=traced)
-    r.update(replay_busy_ms=busy, replay_idle_share=1.0 - busy / r[
-        "replay_ms"], replay_trace_launches=[traced.get(k, 0)
-                                             for k in LOSS_NAMES])
+    # a host-fed call (PP's numpy batches) holds pageable copies that the
+    # trace's busy time and the events' window do not cover alike (shares
+    # from -0.32 to 0.38 read on the H100): no idle share there
+    host_fed = not all(isinstance(v, torch.Tensor)
+                       for v in calls[0].values())
+    r.update(replay_busy_ms=busy, replay_idle_share=None if host_fed
+             else 1.0 - busy / r["replay_ms"],
+             replay_trace_launches=[traced.get(k, 0) for k in LOSS_NAMES])
     r["program_bytes"] = {
         f"{'train' if hasattr(p, 'captures') else 'eval'} B="
         f"{tuple(p.input.values())[0].shape[0]}": p.nbytes
@@ -2244,7 +2268,9 @@ def layout_programs(torch, np, label: str, kind: str, mesh, cfg, hosts,
           f"{list(rep_n)} (a traced replay's {r['replay_trace_launches']}); "
           f"step ms replay {r['replay_ms']:.3f}, eager body "
           f"{r['eager_ms']:.3f} (CUDA events); a traced replay busy "
-          f"{busy:.3f} ms, idle share {r['replay_idle_share']:.3f}; first "
+          f"{busy:.3f} ms, idle share "
+          + ("not measured (host-fed)" if host_fed
+             else f"{r['replay_idle_share']:.3f}") + "; first "
           f"call {secs[0]:.3f} s, second (capture) {secs[1]:.3f} s; "
           f"program bytes {r['program_bytes']}")
     per = LOSS_PER_STEP[cfg.mr_mag_impl]
@@ -2293,6 +2319,7 @@ def layout_fit_programs(torch, np, label: str, work: str, mesh, cfg,
     spec = os.path.join(work, "spec")
     root = os.path.join(work, f"layout_fit_{label.replace(' ', '_')}")
     cfg = dataclasses.replace(cfg, samples_per_song=SCAN_SAMPLES)
+    dev = mesh[0] if isinstance(mesh, tuple) else mesh.device  # PP's pair
 
     def opts(run_name):
         return loop.TrainOptions(
@@ -2300,7 +2327,7 @@ def layout_fit_programs(torch, np, label: str, work: str, mesh, cfg,
             batch_size=TRAIN_B, load_path="none",
             ckpt_dir=os.path.join(root, run_name, "CKPT"),
             log_dir=os.path.join(root, run_name, "LOG"), progress=False,
-            val_interval=1, device=str(mesh.device), mesh=mesh, **layout)
+            val_interval=1, device=str(dev), mesh=mesh, **layout)
 
     t0 = time.perf_counter()
     out, builds = {}, {}
@@ -2428,9 +2455,10 @@ def dp_phase(torch, np, spec: str) -> dict:
     import torch.distributed as dist
 
     from svs_torch.data.dataset import PatchDataset
+    from svs_torch.infer import graphs as infer_graphs
     from svs_torch.infer import separate
     from svs_torch.models.unet import UNet
-    from svs_torch.parallel import dryrun, mesh as mesh_lib
+    from svs_torch.parallel import dp, dryrun, mesh as mesh_lib
     from svs_torch.parallel.launch import Ranks
     from svs_torch.train import graphs
     from svs_torch.utils.config import get_config
@@ -2523,6 +2551,44 @@ def dp_phase(torch, np, spec: str) -> dict:
         check(err <= SP_ATOL, f"sp {mode}: the mesh decode equals the "
               "unsharded one")
         line[f"sp_{mode}"] = dict(ms, max_abs_err=err)
+    # the rank's SP mask as its program (dp.make_sp_separate) against its
+    # eager body: the bits (float32, cuDNN deterministic) on the song's
+    # block of windows and on sp_parity's, and ms in turns
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        r = dryrun.sp_parity(mesh, model, mag)
+        n_seg = -(-frames // cfg32.input_len)
+        x = np.pad(mag[1:], ((0, 0), (0, n_seg * cfg32.input_len - frames)))
+        segs = np.zeros((-(-n_seg // 8) * 8, 512, cfg32.input_len),
+                        np.float32)
+        segs[:n_seg] = x.reshape(512, n_seg, -1).transpose(1, 0, 2)
+        segs = torch.from_numpy(segs).cuda()
+        fn = dp.make_sp_separate(mesh, cfg32)
+        block = float((fn(model, segs) - fn.eager(model, segs)).abs().max())
+        sp_ms = {}
+        for name in ("program", "eager", "eager", "program"):
+            run = fn if name == "program" else fn.eager
+            sp_ms.setdefault(name, []).append(dryrun._event_ms(
+                lambda: run(model, segs), segs.device, 10, warmup=2))
+        sp_bytes = [p.nbytes for p in infer_graphs.CACHE.programs_of(model)]
+    finally:
+        torch.backends.cudnn.deterministic = was
+    print(f"dp world 1 sp program: each rank's mask of its windows as the "
+          f"cached decode program, against its eager body: max |d| "
+          f"{r['vs_eager']:g} on 8 random windows, {block:g} on the "
+          f"{SP_SECONDS}-s song's {tuple(segs.shape)} block (float32, cudnn "
+          f"deterministic); mask ms program {_ms(sp_ms['program'])}, eager "
+          f"{_ms(sp_ms['eager'])} (CUDA events, means of 10 in turns program, "
+          f"eager, eager, program); the model's decode programs MB "
+          f"{_mb(sp_bytes)}; {nvidia_smi_line()}")
+    check(r["programmed"] and r["vs_eager"] == 0.0 and block == 0.0,
+          "sp: the SP mask program gives its eager body's bits")
+    line["sp_program"] = dict(vs_eager=r["vs_eager"], block_vs_eager=block,
+                              ms=sp_ms, program_bytes=sp_bytes,
+                              block=list(segs.shape))
+    del segs
+    infer_graphs.CACHE.clear()
     graphs.CACHE.clear()  # its programs hold the group's collectives
     dist.destroy_process_group()
 
@@ -2552,7 +2618,7 @@ def dp_phase(torch, np, spec: str) -> dict:
         for impl in DP_PER_STEP:
             cfg = dataclasses.replace(cfg32, mr_mag_impl=impl)
             r = ranks.run(dryrun.layout_parity, cfg, host, ("dp",),
-                          time_reps=3)[0]["dp"]
+                          time_reps=2)[0]["dp"]
             r["dp_ms"] = [t[0] for t in r["ms"]]
             print(f"dp world 2 ({backend}, one card) {impl}: float32 default "
                   f"preset, B = 2 x {TRAIN_B // 2} against the single-process "
@@ -2564,7 +2630,7 @@ def dp_phase(torch, np, spec: str) -> dict:
                   f"{r['programmed']} (programs {r['programs']}); DP step "
                   f"{_ms(r['dp_ms'])} ms vs the single step's program "
                   f"{_ms(r['ref_ms'])} ms (CUDA events on rank 0, "
-                  f"means of 3 steps in turns); rank 0 launches "
+                  f"means of 2 steps in turns); rank 0 launches "
                   f"{r['kernels']}")
             check(tuple(r["kernels"]) == DP_PER_STEP[impl],
                   f"dp world 2 {impl}: the loss kernels launched on rank 0")
@@ -2576,6 +2642,20 @@ def dp_phase(torch, np, spec: str) -> dict:
                   f"dp world 2 {impl}: gloo ranks on the card built no "
                   f"program and ran the eager body ({r['programs']})")
             line[f"w2_{impl}"] = dict(r, backend=backend)
+        # the SP decode on the two ranks: each rank's mask a program (its
+        # body holds no collective), the all-reduce outside it
+        ranks.run(dryrun.deterministic)
+        r = ranks.run(dryrun.sp_decode_parity, cfg32, mag)[0]
+        print(f"dp world 2 ({backend}, one card) sp: the {SP_SECONDS}-s "
+              f"song, float32, against separate_magnitude: max |d| "
+              f"segments {r['segments']:.3e}, overlap {r['overlap']:.3e}; "
+              f"each rank's mask program against its eager body "
+              f"{r['vs_eager']:g} (programmed {r['programmed']})")
+        check(r["programmed"] and r["vs_eager"] == 0.0
+              and max(r["segments"], r["overlap"]) <= SP_ATOL,
+              f"dp world 2 sp: the mask programs give their eager bodies' "
+              f"bits on {backend} ranks, the decode the unsharded one")
+        line["w2_sp"] = r
     print("dp: " + json.dumps(line))
     return dict(zip(LOSS_NAMES, total)), backend, graph_counts
 
@@ -3027,7 +3107,7 @@ def zero_phase(torch, np, spec: str, backend: str) -> dict:
         ranks.run(dryrun.deterministic)
         for impl in DP_PER_STEP:
             cfg = dataclasses.replace(cfg32, mr_mag_impl=impl)
-            r = ranks.run(dryrun.layout_parity, cfg, host, time_reps=3)[0]
+            r = ranks.run(dryrun.layout_parity, cfg, host, time_reps=2)[0]
             print(f"zero world 2 ({backend}, one card) {impl}: float32 "
                   f"default preset, B = 2 x {TRAIN_B // 2}: vs DP "
                   + ", ".join(f"{k} {r[k]['vs_dp']:g}"
@@ -3038,7 +3118,7 @@ def zero_phase(torch, np, spec: str, backend: str) -> dict:
                       f"{k} {_mb(r[k]['bytes'])}" for k in dryrun.LAYOUTS)
                   + "; peak MB a rank " + ", ".join(
                       f"{k} {_mb(r[k]['peak'])}" for k in dryrun.LAYOUTS)
-                  + f"; ms a step, ranks 0 / 1 (CUDA events, means of 3 "
+                  + f"; ms a step, ranks 0 / 1 (CUDA events, means of 2 "
                   f"steps in turns; {backend}'s and the host's time, not "
                   f"checked): single B={TRAIN_B} {_ms(r['dp']['ref_ms'])}; "
                   + "; ".join(
@@ -3169,7 +3249,7 @@ def tp_phase(torch, np, spec: str, backend: str) -> dict:
             for impl in DP_PER_STEP:
                 cfg = dataclasses.replace(cfg32, mr_mag_impl=impl)
                 r = ranks.run(dryrun.tp_parity, shape, cfg, host,
-                              time_reps=2)[0]
+                              time_reps=1)[0]
                 x = r["tp"]
                 print(f"tp {shape} ({backend}, one card) {impl}: float32 "
                       f"default preset, B = {shape[0]} x "
@@ -3183,7 +3263,7 @@ def tp_phase(torch, np, spec: str, backend: str) -> dict:
                       f"resting MB a rank tp {_mb(x['bytes'])}, dp "
                       f"{_mb(r['dp']['bytes'])}; peak MB a rank tp "
                       f"{_mb(x['peak'])}, dp {_mb(r['dp']['peak'])}; ms a "
-                      f"step by rank (CUDA events, means of 2 steps in "
+                      f"step by rank (CUDA events, one step each in "
                       f"turns; {backend}'s and the host's time, not "
                       f"checked): single B={TRAIN_B} "
                       f"{_ms(r['dp']['ref_ms'])}; "
@@ -3213,14 +3293,16 @@ def tp_phase(torch, np, spec: str, backend: str) -> dict:
     return dict(zip(LOSS_NAMES, total)), graph_counts
 
 
-def pp_phase(torch, np, work: str) -> dict:
+def pp_phase(torch, np, work: str):
     """Pipeline parallelism on the card with both stages on ``cuda:0`` (see
-    the module's docstring); returns the loss kernels' launches inside the
-    PP steps, each step's count zeroed just before it and read just
-    after."""
+    the module's docstring), its steps as programs (``pp.programmed``);
+    returns the loss kernels' launches inside the PP steps, each step's
+    count zeroed just before it and read just after, and in the PP
+    programs' calls (``eager``, ``captured``, ``replayed``,
+    ``layout_programs``')."""
     from svs_torch.data.dataset import PatchDataset
     from svs_torch.parallel import dryrun, pp
-    from svs_torch.train import loop
+    from svs_torch.train import graphs, loop
     from svs_torch.train import step as tstep
     from svs_torch.utils.config import get_config
 
@@ -3232,16 +3314,33 @@ def pp_phase(torch, np, work: str) -> dict:
     cfg32 = dataclasses.replace(default, compute_dtype="float32")
     devs = pp.make_pp_mesh(("cuda:0", "cuda:0"))
     dev = devs[0]
+    check(pp.programmed(devs) and not pp.programmed(("cuda:0", "cpu")),
+          "pp: programs where both stages are one card, the eager step "
+          "over two distinct devices")
     line = {"smi": nvidia_smi_line(), "split": PP_SPLIT,
             "boundary": pp.boundary_shape(default, PP_SPLIT,
                                           TRAIN_B // PP_MICRO, 128)}
     total = [0, 0, 0, 0]
+    graph_counts = {}
 
     def counted(r, what):
         nonlocal total
         total = [a + c for a, c in zip(total, r["kernels"])]
         line[what] = r
         return r
+
+    def programs_ok(r, what, want):
+        print(f"pp {what}: program against its eager body over "
+              f"{r['calls']} calls: max |d| {r['vs_eager']:g} (metrics, "
+              f"parameters, BN, Adam's moments, the generator's state)"
+              + (f", against make_train_step's program {r['vs_single']:g}"
+                 if "vs_single" in r else "")
+              + f"; programs (captures, replays) {r['programs']}")
+        check(r["programmed"] and r["vs_eager"] == 0.0
+              and r.get("vs_single", 0.0) == 0.0
+              and sorted(r["programs"]) == want,
+              f"pp {what}: the program gives its eager body's bits"
+              + (" and make_train_step's" if "vs_single" in r else ""))
 
     was = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
@@ -3260,6 +3359,7 @@ def pp_phase(torch, np, work: str) -> dict:
                   f"{DP_PER_STEP[impl]} inside the PP step")
             check(r["ok"] and r["bits"] == 0.0, f"pp {impl}: the "
                   "one-microbatch PP step gives make_train_step's bits")
+            programs_ok(r, f"n_micro 1 {impl}", [(1, 2)])
         ragged = pp.pad_batch({k: v[:PP_REAL_ROWS] for k, v in host.items()},
                               TRAIN_B)
         for what, impl, batch in (("n4", "pallas_fused", host),
@@ -3285,42 +3385,96 @@ def pp_phase(torch, np, work: str) -> dict:
                 c * live for c in DP_PER_STEP[impl]),
                 f"pp {what}: the loss kernels launched once a live "
                 "microbatch")
+            programs_ok(r, f"{what} {impl}", [(1, 2)])
 
-        # ms and memory: the single step, then the PP steps, in turns
+        # the programs under the three loss paths at one microbatch (a
+        # step's loss-kernel launches are the single step's), the batches
+        # as fit hands them (each padded to B rows), against the eager
+        # bodies; then the four-microbatch program, full and ragged,
+        # dropout on
+        t_graph = time.perf_counter()
+        hosts, evals = layout_hosts(np, spec)
+        hosts = [(h, TRAIN_B) for h, _ in hosts]
+        for impl in STEP_IMPLS:
+            cfg = dataclasses.replace(default, mr_mag_impl=impl)
+            line[f"program_{impl}"] = layout_programs(
+                torch, np, f"pp program n_micro 1 {impl}", "pp", devs, cfg,
+                hosts, evals, graph_counts)
         cfg = dataclasses.replace(default, mr_mag_impl="pallas_fused")
+        r = dryrun.pp_program_parity(
+            devs, cfg, [dryrun.layout_batch("pp", devs, h, pad)
+                        for h, pad in hosts], n_micro=PP_MICRO,
+            split=PP_SPLIT)
+        programs_ok(r, f"n_micro {PP_MICRO} pallas_fused, dropout "
+                    f"{cfg.dropout_rate}, full and ragged batches",
+                    [(1, 1), (1, 2)])
+        line["program_n4"] = r
+        line["program_s"] = time.perf_counter() - t_graph
+
+        # ms and memory in turns: the single step's program, the PP
+        # programs and the PP eager steps (both stages on one card, so no
+        # overlap)
         batch = tstep.batch_to_device(host, dev)
-        # the single step as its eager body: the PP steps are eager
         runs = {"single": (tstep.create_train_state(0, cfg, device=dev),
-                           tstep.make_step_fn(cfg))}
+                           tstep.make_train_step(cfg))}
         for n in (1, PP_MICRO):
-            runs[f"pp{n}"] = (
-                pp.shard_state(tstep.create_train_state(0, cfg, device=dev),
-                               devs, split=PP_SPLIT),
-                pp.make_pp_train_step(devs, cfg, n_micro=n, split=PP_SPLIT))
+            step = pp.make_pp_train_step(devs, cfg, n_micro=n,
+                                         split=PP_SPLIT)
+            for name, run in ((f"pp{n}", step), (f"pp{n}_eager", step.eager)):
+                runs[name] = (pp.shard_state(tstep.create_train_state(
+                    0, cfg, device=dev), devs, split=PP_SPLIT), run)
+        order = ("single", "pp1", "pp1_eager", f"pp{PP_MICRO}",
+                 f"pp{PP_MICRO}_eager")
         ms, peak = {}, {}
-        for name in ("single", "pp1", f"pp{PP_MICRO}", f"pp{PP_MICRO}",
-                     "pp1", "single"):
+        for name in order + order[::-1]:
             state, step = runs[name]
-            step(state, batch, torch.Generator(dev).manual_seed(5))  # warm
+            gen = torch.Generator(dev).manual_seed(2)
+            # a program's warm-up step and its capture; an eager step's
+            # first call
+            for _ in range(1 if name.endswith("eager") else 2):
+                step(state, batch, gen)
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
-            gen = torch.Generator(dev).manual_seed(2)
             ms.setdefault(name, []).append(dryrun._event_ms(
                 lambda: step(state, batch, gen), dev, PP_REPS))
             peak[name] = torch.cuda.max_memory_allocated(dev)
+        traced, busy = {}, {}
+        for name in ("pp1", f"pp{PP_MICRO}"):
+            state, step = runs[name]
+            gen = torch.Generator(dev).manual_seed(3)
+            kernels = {}
+            busy[name] = device_breakdown(
+                torch, lambda: step(state, batch, gen), f"{name} replay",
+                (("loss_kernels", ("spec::",)),) + FAMILIES, kernels=kernels)
+            traced[name] = [kernels.get(k, 0) for k in LOSS_NAMES]
         resting = pp.stage_bytes(runs["pp1"][0])
+        nbytes = {name: sum(p.nbytes for p in graphs.CACHE.programs_of(
+            runs[name][0].model)) for name in ("single", "pp1",
+                                               f"pp{PP_MICRO}")}
         del runs
+        graphs.CACHE.clear()
         print(f"pp ms a step, default preset B={TRAIN_B} pallas_fused, cudnn "
               f"deterministic (CUDA events, means of {PP_REPS} steps in "
-              "turns single, pp1, pp4, pp4, pp1, single; both stages on one "
-              "card, so no overlap): " + "; ".join(
+              f"turns {', '.join(order + order[::-1])}; the programs' "
+              "replays after a warm-up step and a capture; both stages on "
+              "one card, so no overlap): " + "; ".join(
                   f"{k} {_ms(v)}" for k, v in ms.items())
               + "; peak MB on the card over the steps " + ", ".join(
                   f"{k} {v / 1e6:.1f}" for k, v in peak.items())
-              + f"; resting MB a stage {_mb(resting)}; {nvidia_smi_line()}")
-        line.update(ms=ms, peak=peak, stage_bytes=resting)
+              + f"; program MB {_mb(nbytes.values())} ({list(nbytes)}); "
+              f"a traced replay's busy ms {busy}, loss-kernel launches "
+              f"{traced}; resting MB a stage {_mb(resting)}; "
+              f"{nvidia_smi_line()}")
+        line.update(ms=ms, peak=peak, stage_bytes=resting,
+                    program_bytes=nbytes, replay_busy_ms=busy,
+                    replay_trace_launches=traced)
         check(all(math.isfinite(t) and t > 0 for v in ms.values() for t in v),
               "pp: finite step times")
+        check(traced["pp1"] == list(LOSS_PER_STEP["pallas_fused"])
+              and traced[f"pp{PP_MICRO}"] == [
+                  PP_MICRO * c for c in LOSS_PER_STEP["pallas_fused"]],
+              f"pp: a traced replay launches the loss kernels once a live "
+              f"microbatch ({traced})")
     finally:
         torch.backends.cudnn.deterministic = was
 
@@ -3344,6 +3498,8 @@ def pp_phase(torch, np, work: str) -> dict:
     fit_s = time.perf_counter() - t0
     check(isinstance(state, pp.PPState) and state.step == steps,
           f"pp fit: {steps} PP steps in the epoch")
+    del state
+    graphs.CACHE.clear()
     ckpt = os.path.join(out, "CKPT", "svs_pp.ckpt")
     resumed = loop.fit(opts("pp", epoch=2, load_path=ckpt), cfg)
     log = _read_lines(os.path.join(out, "LOG", "log_pp.txt"))
@@ -3355,8 +3511,20 @@ def pp_phase(torch, np, work: str) -> dict:
                                     for x in log),
           "pp fit: a .ckpt that the single-device fit resumes")
     line["fit_s"] = fit_s
+    del resumed
+    graphs.CACHE.clear()
+    # the programmed PP fit against the eager one, bit for bit
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        line["program_fit"] = layout_fit_programs(
+            torch, np, "pp program", work, devs,
+            dataclasses.replace(default, mr_mag_impl="pallas_fused"),
+            parallel="pp", pp_micro=PP_MICRO, pp_split=PP_SPLIT)
+    finally:
+        torch.backends.cudnn.deterministic = was
     print("pp: " + json.dumps(line))
-    return dict(zip(LOSS_NAMES, total))
+    return dict(zip(LOSS_NAMES, total)), graph_counts
 
 
 def cp_phase(torch, np, work: str, backend: str) -> dict:
@@ -3408,7 +3576,10 @@ def cp_phase(torch, np, work: str, backend: str) -> dict:
                 f"by rank (CUDA events, mean of {CP_REPS}, host copies "
                 f"included) {_ms(r['ms'])} vs unsharded {r['ref_ms']:.3f}; "
                 f"peak MB a rank {_mb(r['peak'])} vs unsharded "
-                f"{r['ref_peak'] / 1e6:.3f}")
+                f"{r['ref_peak'] / 1e6:.3f}; the time-sharded mask "
+                f"{'a program' if r['programmed'] else 'eager (the rule)'}, "
+                f"against its eager body {r['vs_eager']:g}, ms by rank "
+                f"{_ms(r['mask_ms'])} vs eager {_ms(r['mask_eager_ms'])}")
 
     mesh = mesh_lib.make_mesh()
     check(mesh.size == 1 and mesh.backend == "nccl",
@@ -3485,6 +3656,10 @@ def cp_phase(torch, np, work: str, backend: str) -> dict:
         check(max(r["max_abs_err"], r["padded_err"]) <= CP_ATOL,
               f"cp world {n} decode: the whole-song CP decode equals the "
               "unsharded one")
+        check(r["programmed"] == (n == 1 or backend == "nccl")
+              and (r["vs_eager"] == 0.0 or not r["programmed"]),
+              f"cp world {n} decode: a program where the rule takes one "
+              "(NCCL or a world of one), its eager body's bits")
         line[f"w{n}_decode"] = r
         r = run(mag[:, :four])
         print(decode_line(f"cp world {n}{where} decode, {four}-frame (240-s) "
@@ -3496,8 +3671,13 @@ def cp_phase(torch, np, work: str, backend: str) -> dict:
         line[f"w{n}_decode_240s"] = r
 
     four = SP_SECONDS * SR // 768
-    decodes(1, lambda m: dryrun.cp_decode_parity(mesh, cfg32, m,
-                                                 reps=CP_REPS))
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        decodes(1, lambda m: dryrun.cp_decode_parity(mesh, cfg32, m,
+                                                     reps=CP_REPS))
+    finally:
+        torch.backends.cudnn.deterministic = was
     lap("w1_decode")
 
     # one epoch of fit under CP (the dataset on the card, time-sharded),
@@ -4666,7 +4846,8 @@ def main(argv=None) -> int:
         _add_counts(layout_counts, counts)
         seconds["tp"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        pp_counts = pp_phase(torch, np, work)
+        pp_counts, counts = pp_phase(torch, np, work)
+        _add_counts(layout_counts, counts)
         seconds["pp"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         cp_counts, counts = cp_phase(torch, np, work, backend)

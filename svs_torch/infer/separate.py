@@ -30,7 +30,12 @@ On the card :func:`separate_magnitude`, :func:`separate_wav` and
 program (``infer/graphs.py``), one per signature and bucketed shape, as
 svs_tpu runs its jitted ones; the program computes the padded length and
 the caller takes the song's slice.  On the CPU, which the caller asks for
-explicitly, they run the body eagerly.  The mesh decodes stay eager.
+explicitly, they run the body eagerly.  The mesh decodes' masks run as
+programs too: each rank's windows (``dp.make_sp_separate``, on any CUDA
+rank) and the time-sharded whole song (``halo.make_time_sharded_apply``,
+over NCCL or a world of one: :func:`_routed`); the windows' cutting and the all-reduce
+that brings them to rank 0 stay outside, as svs_tpu's jit covers the mask
+alone.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ import torch.nn.functional as F
 
 from svs_torch.infer import graphs
 from svs_torch.ops import stft as dsp
-from svs_torch.parallel.mesh import Mesh, crosses
+from svs_torch.parallel.mesh import Mesh, crosses, host_collectives
 from svs_torch.utils.config import SVSConfig
 from svs_torch.utils.device import DeviceLike, resolve_device
 
@@ -187,12 +192,21 @@ def _programmed(dev: torch.device) -> bool:
     return dev.type == "cuda"
 
 
+def _routed(dev: torch.device, mesh: Optional[Mesh] = None) -> bool:
+    """Whether :func:`_run` takes the program: where :func:`_programmed`,
+    but not for a body that holds ``mesh``'s collectives where they run on
+    the host (``host_collectives``: gloo across ranks on a CUDA device),
+    which no graph can hold."""
+    return _programmed(dev) and (mesh is None or not host_collectives(mesh))
+
+
 def _run(model, dev: torch.device, x: torch.Tensor, signature: tuple,
-         body: graphs.Body) -> graphs.Outputs:
+         body: graphs.Body, mesh: Optional[Mesh] = None) -> graphs.Outputs:
     """``body`` on ``x`` (padded, on any device) on ``dev``: the cached
-    program of ``signature`` where :func:`_programmed`, else eagerly.
-    Returns fresh tensors of the padded length."""
-    if _programmed(dev):
+    program of ``signature`` where :func:`_routed` (``mesh``: the mesh
+    whose collectives the body holds, if any), else eagerly.  Returns
+    fresh tensors of the padded length."""
+    if _routed(dev, mesh):
         return graphs.CACHE.program(model, signature, x, body)(x)
     return body(model, x.to(dev))
 

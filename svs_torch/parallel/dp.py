@@ -28,7 +28,9 @@ the mesh ``epoch_scan`` (``train/scan.py``) captures as well.
 
 Infer: the segments of a song are independent (reference inference.py:
 79-116), so each rank masks its own windows with no communication until
-they are put back together (``infer.separate.separate_magnitude_mesh``).
+they are put back together (``infer.separate.separate_magnitude_mesh``);
+on a CUDA device each rank's mask is a cached decode program
+(:func:`make_sp_separate`).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from svs_torch.infer import separate
 from svs_torch.losses.mrstft import combined_loss
 from svs_torch.parallel.mesh import Mesh, crosses
 from svs_torch.train import graphs
@@ -208,19 +211,33 @@ def make_dp_eval_step(mesh: Mesh, cfg: Optional[SVSConfig] = None):
 def make_sp_separate(mesh: Mesh, cfg: Optional[SVSConfig] = None,
                      vocal_solo: bool = True):
     """Segment-parallel masking: ``fn(model, segs)`` with ``segs`` this
-    rank's ``(S_local, F, input_len)`` windows on the mesh's device; the
-    eval-mode masked windows, with no communication.  ``mesh`` and ``cfg``
-    keep svs_tpu's signature: each rank masks its own windows, and the
-    model carries its configuration."""
+    rank's ``(S_local, F, input_len)`` windows (on any device); the
+    eval-mode masked windows on the model's device, with no communication.
+    On a CUDA device the mask is the cached decode program of its key
+    (``infer/graphs.py``: the model, ``("sp", vocal_solo)`` and the
+    window block's shape), as svs_tpu jits ``_mask`` alone
+    (svs_tpu dp.py:107-115); the body holds no collective, so gloo ranks
+    on a card run it as a program too.  The CPU runs the body eagerly
+    (``separate._programmed``); ``fn.eager`` is the eager body.  ``mesh``
+    and ``cfg`` keep svs_tpu's signature: each rank masks its own windows,
+    and the model carries its configuration."""
+    def body(model: torch.nn.Module, segs: torch.Tensor):
+        mask = model(segs)
+        if not vocal_solo:
+            mask = 1.0 - mask
+        return (mask * segs,)
 
     @torch.inference_mode()
     def fn(model: torch.nn.Module, segs: torch.Tensor) -> torch.Tensor:
         if model.training:
             raise ValueError("separation needs the model in eval mode "
                              "(call model.eval())")
-        mask = model(segs)
-        if not vocal_solo:
-            mask = 1.0 - mask
-        return mask * segs
+        dev = next(model.parameters()).device
+        return separate._run(model, dev, segs, ("sp", vocal_solo), body)[0]
 
+    @torch.inference_mode()
+    def eager(model: torch.nn.Module, segs: torch.Tensor) -> torch.Tensor:
+        return body(model, segs.to(next(model.parameters()).device))[0]
+
+    fn.eager = eager
     return fn

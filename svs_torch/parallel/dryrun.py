@@ -56,7 +56,11 @@ where ``graphs.mesh_programmed`` (a CUDA device over NCCL, or a world of
 one), and then held against its eager body bit for bit and timed beside
 it (:func:`layout_parity`'s timing runs, :func:`program_parity` on a
 caller's batches); gloo ranks (the CPU's, or ranks sharing one card) run
-the eager bodies, and ``detail`` says so.
+the eager bodies, and ``detail`` says so.  So do PP's step where both
+stages are one CUDA device (``pp.programmed``; :func:`pp_program_parity`),
+the SP mask on any CUDA rank (:func:`sp_program_parity`) and the
+whole-song CP decode where ``separate._routed`` says so over the mesh
+(:func:`cp_decode_parity`'s ``vs_eager``).
 
 It returns svs_tpu's JSON line (``metric``, ``ok``, ``devices``,
 ``wall_s``, ``detail``); ``detail`` names the layouts checked and those not
@@ -209,11 +213,19 @@ def _event_ms(fn, dev, reps: int, warmup: int = 0) -> float:
 
 
 def layout_state(kind: str, cfg: SVSConfig, mesh: mesh_lib.Mesh,
-                 seed: int = 0, state: Optional[tstep.TrainState] = None):
+                 seed: int = 0, state: Optional[tstep.TrainState] = None,
+                 n_micro: int = 1):
     """The state of ``seed`` (or ``state``, rank 0's) on every rank in
-    layout ``kind`` (``dp``, ``zero1``, ``fsdp``, ``cp``, or ``tp`` on a
-    ``Mesh2D``) and its train step (a program where
-    ``graphs.mesh_programmed``; ``step.eager`` its eager body)."""
+    layout ``kind`` (``dp``, ``zero1``, ``fsdp``, ``cp``, ``tp`` on a
+    ``Mesh2D``, or ``pp`` on a pair of stage devices: PP at ``n_micro``
+    microbatches, at ``pp``'s split) and its train step (a program where
+    ``graphs.mesh_programmed``, or ``pp.programmed``; ``step.eager`` its
+    eager body)."""
+    if kind == "pp":
+        state = state or tstep.create_train_state(
+            seed, cfg, device=pp.stage_devices(mesh)[0])
+        return (pp.shard_state(state, mesh),
+                pp.make_pp_train_step(mesh, cfg, n_micro=n_micro))
     state = dp.replicate_state(
         state or tstep.create_train_state(seed, cfg, device=mesh.device),
         mesh)
@@ -235,6 +247,8 @@ def layout_eval_step(kind: str, cfg: SVSConfig, mesh: mesh_lib.Mesh):
         return tp.make_tp_eval_step(mesh, cfg)
     if kind == "cp":
         return tstep.make_eval_step(cfg)
+    if kind == "pp":
+        return pp.make_pp_eval_step(mesh, cfg)
     return zero.make_zero1_eval_step(mesh, cfg, fsdp=kind == "fsdp")
 
 
@@ -245,9 +259,12 @@ def layout_batch(kind: str, mesh: mesh_lib.Mesh, batch,
     ``kind``, as ``fit`` cuts it: its rows (``mesh.shard_batch``, over the
     data sub-mesh under TP; with ``pad_rows_to`` padded to that many rows
     with zero ``weight``, ``global_batch_from_global``) or under CP its
-    time block (``halo.shard_batch_time``)."""
+    time block (``halo.shard_batch_time``); under PP the whole batch,
+    padded to ``pad_rows_to`` rows (``pp.pad_batch``) where given."""
     if kind == "cp":
         return halo.shard_batch_time(mesh, batch)
+    if kind == "pp":
+        return pp.pad_batch(batch, pad_rows_to or len(batch["mix"]))
     rows = mesh.data if kind == "tp" else mesh
     if pad_rows_to is None:
         return mesh_lib.shard_batch(rows, batch)
@@ -257,9 +274,12 @@ def layout_batch(kind: str, mesh: mesh_lib.Mesh, batch,
 def layout_val_batch(kind: str, mesh: mesh_lib.Mesh, batch,
                      rows: int) -> Dict[str, torch.Tensor]:
     """The eval step's input of the host validation ``batch`` as ``fit``
-    makes it: padded to ``rows`` and cut, or under CP whole."""
+    makes it: padded to ``rows`` and cut, under CP whole, under PP padded
+    to ``rows`` on the host."""
     if kind == "cp":
         return tstep.batch_to_device(batch, mesh.device)
+    if kind == "pp":
+        return pp.pad_batch(batch, rows)
     return mesh_lib.global_batch_from_global(
         mesh.data if kind == "tp" else mesh, batch, rows)
 
@@ -547,7 +567,10 @@ def pp_parity(devices, cfg: SVSConfig, batch: Dict[str, np.ndarray], *,
     :func:`envelope` of the two, ``bits`` (the largest |difference| of
     the metrics and the state dicts; 0.0: the same bits), ``kernels`` (the
     loss kernels' launches in the PP step) and ``stage_bytes`` (each
-    stage's resting state after it)."""
+    stage's resting state after it); where the step is a program
+    (``pp.programmed``), :func:`pp_program_parity` over three calls of the
+    batch (``vs_eager``, ``programmed``, ``programs``, at ``n_micro = 1``
+    ``vs_single``), else ``programmed`` False."""
     from svs_torch.ops.cuda import diff_mag as cdm
     from svs_torch.ops.cuda import fused_loss as cfl
 
@@ -579,13 +602,75 @@ def pp_parity(devices, cfg: SVSConfig, batch: Dict[str, np.ndarray], *,
                                 ref_state.model.state_dict()))
     out["kernels"] = kernels
     out["stage_bytes"] = pp.stage_bytes(state)
+    if pp.programmed(devs):
+        out.update(pp_program_parity(devs, cfg, [batch] * 3,
+                                     n_micro=n_micro, split=split,
+                                     single=n_micro == 1))
+    else:
+        out.update(vs_eager=None, programmed=False, programs=[])
+    return out
+
+
+def pp_program_parity(devices, cfg: SVSConfig, batches: List[Dict], *,
+                      n_micro: int = 1, split: int = 3, seed: int = 0,
+                      single: bool = False) -> Dict[str, object]:
+    """PP's train step over the stage ``devices`` (the program of its key
+    where ``pp.programmed``) against its eager form (``step.eager``), each
+    from the state of ``seed`` with a dropout generator of ``seed + 1``,
+    over ``batches``: ``vs_eager``, the largest |difference| of any call's
+    metrics, of the full state after the last (parameters, BN, Adam's
+    moments) and of the generators' states (0.0: the same bits),
+    ``programmed`` and ``programs`` (:func:`programs`; none where the step
+    ran eagerly).  ``single`` (``n_micro = 1``): also ``vs_single``, the
+    same against ``make_train_step`` (a program where the single step is
+    one) on stage 0's device over the same batches."""
+    devs = pp.make_pp_mesh(devices)
+    forms = ("program", "eager") + (("single",) if single else ())
+    got = []
+    for form in forms:
+        state = tstep.create_train_state(seed, cfg, device=devs[0])
+        if form == "single":
+            step = tstep.make_train_step(cfg)
+            calls = [tstep.batch_to_device(b, devs[0]) for b in batches]
+        else:
+            state = pp.shard_state(state, devs, split=split)
+            step = pp.make_pp_train_step(devs, cfg, n_micro=n_micro,
+                                         split=split)
+            calls = batches
+        run = step.eager if form == "eager" else step
+        gen = torch.Generator(devs[0]).manual_seed(seed + 1)
+        metrics = [{k: v.cpu() for k, v in run(state, b, gen)[1].items()}
+                   for b in calls]
+        progs = programs(state.model) if form == "program" else None
+        if isinstance(state, pp.PPState):
+            state = pp.gather_state(state)
+        got.append((metrics, _full(state), gen.get_state(), progs))
+        del state, step
+    graphs.CACHE.clear()
+
+    def diff(a, b):
+        (am, afull, agen, _), (bm, bfull, bgen, _) = a, b
+        return max([_max_diff(x, y) for x, y in zip(am, bm)]
+                   + [_max_diff(afull[k], bfull[k])
+                      for k in ("sd", "mu", "nu")]
+                   + [float((agen != bgen).any())])
+
+    out = {"vs_eager": diff(got[0], got[1]), "programmed": pp.programmed(devs),
+           "programs": got[0][3], "calls": len(batches)}
+    if single:
+        out["vs_single"] = diff(got[0], got[2])
     return out
 
 
 def sp_parity(mesh: mesh_lib.Mesh, model: torch.nn.Module, mag: np.ndarray
               ) -> Optional[Dict[str, float]]:
     """``separate_magnitude_mesh`` against ``separate_magnitude`` in both
-    SP modes: the max |difference| of each, on rank 0 (None elsewhere)."""
+    SP modes: the max |difference| of each, on rank 0 (None elsewhere);
+    and ``vs_eager``, the largest |difference| on any rank between each
+    rank's mask (``dp.make_sp_separate``, the program of its key where
+    ``separate._programmed``) and its eager body, both ways of
+    ``vocal_solo``, on a block of 8 windows (0.0: the same bits), with
+    ``programmed``."""
     from svs_torch.infer import separate
 
     out = {}
@@ -595,7 +680,38 @@ def sp_parity(mesh: mesh_lib.Mesh, model: torch.nn.Module, mag: np.ndarray
             want = separate.separate_magnitude(model, mag, mode=mode,
                                                device=mesh.device)
             out[mode] = float(np.abs(got - want).max())
-    return out if mesh.is_primary else None
+    vs_eager = _host_max(sp_program_parity(mesh, model), mesh)
+    if not mesh.is_primary:
+        return None
+    return dict(out, vs_eager=vs_eager,
+                programmed=separate._programmed(mesh.device))
+
+
+def sp_decode_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig, mag: np.ndarray
+                     ) -> Optional[Dict[str, float]]:
+    """:func:`sp_parity` of the eval-mode U-Net of seed 0 on the mesh's
+    device (a pool's ranks make their own model)."""
+    from svs_torch.models.unet import UNet
+
+    model = UNet(cfg, generator=torch.Generator().manual_seed(0))
+    return sp_parity(mesh, model.to(mesh.device).eval(), mag)
+
+
+def sp_program_parity(mesh: mesh_lib.Mesh, model: torch.nn.Module,
+                      windows: int = 8, seed: int = 7) -> float:
+    """This rank's SP mask (``dp.make_sp_separate``) of ``windows`` random
+    windows of the model's ``input_len`` frames, both ways of
+    ``vocal_solo``, against its eager body: the largest |difference|
+    (0.0: the same bits)."""
+    segs = torch.rand((windows, model.cfg.freq_bins, model.cfg.input_len),
+                      generator=torch.Generator().manual_seed(
+                          seed + mesh.rank))
+    diff = 0.0
+    for solo in (True, False):
+        fn = dp.make_sp_separate(mesh, model.cfg, vocal_solo=solo)
+        diff = max(diff, float((fn(model, segs) - fn.eager(model, segs))
+                               .abs().max()))
+    return diff
 
 
 def first_ranks(mesh: mesh_lib.Mesh, n: Optional[int]
@@ -684,7 +800,12 @@ def cp_decode_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig, mag: np.ndarray,
     CP decodes by CUDA events, host copies included) and ``peak`` (each
     rank's ``torch.cuda.max_memory_allocated`` over one CP decode), and
     ``ref_ms`` and ``ref_peak``, rank 0's of the unsharded decode, taken
-    after.  None elsewhere."""
+    after; ``vs_eager``, the largest |difference| on any rank between the
+    time-sharded mask (``halo.make_time_sharded_apply``, the program of its
+    key where ``separate._routed`` over the mesh) and its eager body (0.0: the
+    same bits), with ``programmed``, and with ``reps`` on a CUDA mesh
+    ``mask_ms`` / ``mask_eager_ms``, each rank's mean of ``reps`` calls of
+    each by CUDA events.  None elsewhere."""
     from svs_torch.infer import separate
     from svs_torch.models.unet import UNet
 
@@ -726,6 +847,19 @@ def cp_decode_parity(mesh: mesh_lib.Mesh, cfg: SVSConfig, mag: np.ndarray,
         ms, peak = timed(cp)
         out.update(ms=multihost.per_rank([ms], mesh).ravel().tolist(),
                    peak=multihost.per_rank([peak], mesh).ravel().tolist())
+    t = mag.shape[1]
+    g = halo.granule(mesh)
+    mix = np.pad(mag.astype(np.float32),
+                 ((0, 0), (0, -(-max(t, g) // g) * g - t)))[None, 1:]
+    apply = halo.make_time_sharded_apply(mesh)
+    out["vs_eager"] = _host_max(float(
+        (apply(model, mix) - apply.eager(model, mix)).abs().max()), mesh)
+    out["programmed"] = separate._routed(mesh.device, mesh)
+    if reps and dev.type == "cuda":
+        for key, fn in (("mask_ms", apply), ("mask_eager_ms", apply.eager)):
+            out[key] = multihost.per_rank(
+                [_event_ms(lambda: fn(model, mix), dev, reps, 1)],
+                mesh).ravel().tolist()
     if not mesh.is_primary:
         return None
     if reps and dev.type == "cuda":
@@ -1015,8 +1149,9 @@ def dp_smoke(devices: int = 8, timeout: float = 1200.0) -> Dict[str, object]:
             res["pp"] = pp_parity(("cpu", "cpu"),
                                   SVSConfig(input_len=64, dropout_rate=0.5),
                                   dry_batch(devices))
-        ok = all(v <= SP_ATOL for v in sp.values()) \
-            and cp_decode["max_abs_err"] <= CP_ATOL
+        ok = all(sp[m] <= SP_ATOL for m in ("segments", "overlap")) \
+            and cp_decode["max_abs_err"] <= CP_ATOL \
+            and sp["vs_eager"] == 0.0 and cp_decode["vs_eager"] == 0.0
         parts = []
         for kind, step in res.items():
             if kind == "cp":
@@ -1082,7 +1217,13 @@ def dp_smoke(devices: int = 8, timeout: float = 1200.0) -> Dict[str, object]:
             for k, step in res.items() if "programmed" in step))
         detail = (f"checked {list(CHECKED)}: " + "; ".join(parts)
                   + "; sp == unsharded decode (max "
-                  + ", ".join(f"{k} {v:.2e}" for k, v in sp.items()) + ")"
+                  + ", ".join(f"{k} {sp[k]:.2e}"
+                              for k in ("segments", "overlap")) + ")"
+                  + "; decode programs: sp " + (
+                      f"vs eager {sp['vs_eager']}" if sp["programmed"]
+                      else "none (eager bodies)") + ", cp " + (
+                      f"vs eager {cp_decode['vs_eager']}"
+                      if cp_decode["programmed"] else "none (eager bodies)")
                   + (f"; {skipped} skipped (needs devices > 1 dividing "
                      "128)" if skipped else "")
                   + ("" if "tp" in res else "; ['tp'] skipped (needs an "

@@ -45,7 +45,8 @@ tower is time-sharded; the loss is computed whole on every rank.  On a
 CUDA device over NCCL (or a world of one) the step runs as a cached
 captured program, one a key (``train/graphs.py``), its halo exchanges (24
 all-reduces a forward) captured with it; gloo ranks on a CUDA device run
-the eager body.
+the eager body.  The whole-song decode (:func:`make_time_sharded_apply`)
+runs as a cached decode program by the same rule.
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from svs_torch.data.dataset import PLANE_KEYS
+from svs_torch.infer import separate
 from svs_torch.losses.mrstft import combined_loss
 from svs_torch.models.unet import UNet
 from svs_torch.parallel import dp
@@ -232,7 +234,18 @@ def make_time_sharded_apply(mesh: Mesh):
     with ``mix`` the whole (B, F, T) batch (numpy or a tensor, the same on
     every rank, T a multiple of ``64 * size``); each rank masks its time
     block, and every rank gets the whole (B, F, T) float32 mask, equal to
-    the unsharded forward's (svs_tpu halo.py:335)."""
+    the unsharded forward's (svs_tpu halo.py:335).  Where
+    ``separate._routed`` (a CUDA device over NCCL, or a world of one)
+    the local block, the forward with its halo exchanges and the gather
+    are one cached decode program (``infer/graphs.py``, keyed on the model,
+    the mesh and the padded shape), as svs_tpu jits them (halo.py:354);
+    gloo ranks on a card and the CPU run the body eagerly.  ``fn.eager``
+    is the eager body."""
+
+    def body(model: UNet, mix: torch.Tensor):
+        block = mesh_lib.local_block(mix, 2, mesh).to(
+            device=mesh.device, dtype=torch.float32)
+        return (mesh_lib.all_gather(forward(model, block, mesh), 2, mesh),)
 
     @torch.inference_mode()
     def fn(model: UNet, mix) -> torch.Tensor:
@@ -241,10 +254,16 @@ def make_time_sharded_apply(mesh: Mesh):
                              "eval mode (call model.eval())")
         mix = mesh_lib._as_tensor(mix)
         check_time(mix.shape[2], mesh)
-        block = mesh_lib.local_block(mix, 2, mesh).to(
-            device=mesh.device, dtype=torch.float32)
-        return mesh_lib.all_gather(forward(model, block, mesh), 2, mesh)
+        return separate._run(model, mesh.device, mix, ("cp", id(mesh)),
+                             body, mesh)[0]
 
+    @torch.inference_mode()
+    def eager(model: UNet, mix) -> torch.Tensor:
+        mix = mesh_lib._as_tensor(mix)
+        check_time(mix.shape[2], mesh)
+        return body(model, mix)[0]
+
+    fn.eager = eager
     return fn
 
 

@@ -42,8 +42,10 @@ drives both devices (svs_tpu's PP is single-process too, loop.py:321-324):
   ``jax.grad`` through the scan; its order across the two cards is
   autograd's engine's (one thread per device), not the tick schedule;
 - ticks with no real microbatch, and microbatches whose ``weight`` is all
-  zero, are skipped in Python.  svs_tpu runs them on clamped data and
-  gates their contributions to nothing; skipping is the exact equivalent.
+  zero, are skipped in Python, from the live pattern read on the host
+  before the step (:func:`live_pattern`).  svs_tpu runs them on clamped
+  data and gates their contributions to nothing; skipping is the exact
+  equivalent.
   A microbatch's tensors are its own (no two-slot ring), so nothing aliases
   when both stages are one device and ``.to()`` is a no-op.
 
@@ -59,6 +61,16 @@ drives both devices (svs_tpu's PP is single-process too, loop.py:321-324):
   metrics and so the gradient are the mean over the live microbatches; and
   microbatch m draws its Dropout2d masks from a generator of its own
   (:func:`microbatch_generators`, svs_tpu's ``fold_in(rng, m)``).
+
+**Programs.**  svs_tpu jits the PP train and eval steps
+(svs_tpu pp.py:570-645).  Here, where both stages are one CUDA device
+(:func:`programmed`), each step is the cached captured program of its key
+(``train/graphs.py``, layout ``"pp"`` over the pair of stage devices, with
+``n_micro``, ``split`` and the live pattern in the key), over its eager
+body, which stays the oracle (``step.eager``).  Two distinct cards run
+the eager step by that rule, decided before any step: one process
+capturing over two devices' allocators and streams is a design of its own
+(ROADMAP A.10.8).
 
 ``grad_norm`` is the global norm of both stages' gradients, each square
 summed on its stage and the sum taken on stage 0's device.  PP does not
@@ -80,6 +92,7 @@ import torch
 
 from svs_torch.losses.mrstft import combined_loss
 from svs_torch.models.unet import UNet
+from svs_torch.train import graphs
 from svs_torch.train.step import TrainState, _apply
 from svs_torch.utils.config import SVSConfig
 from svs_torch.utils.device import DeviceLike, resolve_device
@@ -292,10 +305,11 @@ def pad_batch(batch: Dict, batch_size: int) -> Dict:
     return out
 
 
-def _microbatches(batch: Dict, n_micro: int, dev: torch.device):
-    """The batch on ``dev`` cut into ``n_micro`` contiguous microbatches,
-    and whether each holds a real row (read from the weight on the host,
-    before the copy)."""
+def live_pattern(batch: Dict, n_micro: int) -> Tuple[bool, ...]:
+    """Whether each of the batch's ``n_micro`` contiguous microbatches holds
+    a real row, read from its ``weight`` on the host (a device weight is
+    copied back: ``fit``'s batches are host arrays); raises where ``n_micro``
+    does not divide the rows or no row is live."""
     rows = len(batch["mix"])
     if n_micro < 1 or rows % n_micro:
         raise ValueError(f"n_micro={n_micro} must divide the batch's "
@@ -303,16 +317,50 @@ def _microbatches(batch: Dict, n_micro: int, dev: torch.device):
     mb = rows // n_micro
     w = batch.get("weight")
     if w is None:
-        live = [True] * n_micro
-    else:
-        host = (w.detach().cpu().numpy() if isinstance(w, torch.Tensor)
-                else np.asarray(w))
-        live = [bool(host[m * mb:(m + 1) * mb].sum() > 0)
-                for m in range(n_micro)]
+        return (True,) * n_micro
+    host = (w.detach().cpu().numpy() if isinstance(w, torch.Tensor)
+            else np.asarray(w))
+    live = tuple(bool(host[m * mb:(m + 1) * mb].sum() > 0)
+                 for m in range(n_micro))
+    if not any(live):
+        raise ValueError("a batch with no live row (all weight 0)")
+    return live
+
+
+def _microbatches(batch: Dict, n_micro: int, dev: torch.device):
+    """The batch on ``dev`` cut into ``n_micro`` contiguous microbatches."""
+    mb = len(batch["mix"]) // n_micro
     full = {k: torch.as_tensor(v, dtype=torch.float32).to(dev)
             for k, v in batch.items()}
-    return ([{k: v[m * mb:(m + 1) * mb] for k, v in full.items()}
-             for m in range(n_micro)], live)
+    return [{k: v[m * mb:(m + 1) * mb] for k, v in full.items()}
+            for m in range(n_micro)]
+
+
+def as_batch(batch: Dict) -> Dict[str, torch.Tensor]:
+    """A host or device batch as float32 tensors where they lie (a numpy
+    array shared, not copied): what a step program copies in."""
+    return {k: torch.as_tensor(v, dtype=torch.float32)
+            for k, v in batch.items()}
+
+
+def microbatch_seeds(generator: torch.Generator, n_micro: int) -> List[int]:
+    """The seeds of a step's microbatch generators (svs_tpu's ``fold_in(rng,
+    m)``): the top 63 bits of the 8-byte BLAKE2b digest of
+    ``generator.get_state()``'s bytes followed by m as 8 little-endian
+    bytes.  ``get_state`` reads the seed and offset on the host, so this
+    does not wait on the card."""
+    state = generator.get_state().numpy().tobytes()
+    return [int.from_bytes(hashlib.blake2b(
+        state + m.to_bytes(8, "little"), digest_size=8).digest(),
+        "little") >> 1 for m in range(n_micro)]
+
+
+def advance(generator: torch.Generator) -> None:
+    """Move ``generator`` on by one draw, on its device, so that the next
+    step derives other seeds (inside a step program's graph, which
+    registers it)."""
+    torch.empty(1, device=generator.device).bernoulli_(0.5,
+                                                       generator=generator)
 
 
 def microbatch_generators(generator: Optional[torch.Generator],
@@ -320,26 +368,27 @@ def microbatch_generators(generator: Optional[torch.Generator],
     """Dropout's random source for each microbatch of a step.
 
     ``n_micro = 1``: the step's ``generator`` itself, so that the masks are
-    ``make_train_step``'s.  ``n_micro > 1`` (svs_tpu's ``fold_in(rng,
-    m)``): microbatch m's generator is a new one on ``generator``'s device
-    seeded with the top 63 bits of the 8-byte BLAKE2b digest of
-    ``generator.get_state()``'s bytes followed by m as 8 little-endian
-    bytes; then ``generator`` advances by one draw, so that the next step
-    derives other seeds.  ``get_state`` reads the seed and offset on the
-    host, so the step does not wait on the card.  Without a generator each
-    microbatch draws from the device's default one."""
+    ``make_train_step``'s.  ``n_micro > 1``: microbatch m's generator is a
+    new one on ``generator``'s device seeded with
+    :func:`microbatch_seeds`' m-th seed; then ``generator`` advances by
+    one draw (:func:`advance`).  Without a generator each microbatch draws
+    from the device's default one.  The step programs keep persistent
+    generators instead, re-seeded alike before every call
+    (:func:`make_pp_train_step`)."""
     if n_micro == 1 or generator is None:
         return [generator] * n_micro
-    state = generator.get_state().numpy().tobytes()
-    out = []
-    for m in range(n_micro):
-        digest = hashlib.blake2b(state + m.to_bytes(8, "little"),
-                                 digest_size=8).digest()
-        out.append(torch.Generator(generator.device).manual_seed(
-            int.from_bytes(digest, "little") >> 1))
-    torch.empty(1, device=generator.device).bernoulli_(0.5,
-                                                       generator=generator)
+    out = [torch.Generator(generator.device).manual_seed(s)
+           for s in microbatch_seeds(generator, n_micro)]
+    advance(generator)
     return out
+
+
+def programmed(mesh) -> bool:
+    """Whether PP's steps over the stage devices of ``mesh`` run as cached
+    programs, decided before any step (``graphs.stages_programmed``): where
+    both stages are one CUDA device.  Two distinct cards run the eager
+    step by that rule; their capture is parked (ROADMAP A.10.8)."""
+    return graphs.stages_programmed(stage_devices(mesh))
 
 
 # ------------------------------------------------------- the pipeline
@@ -348,10 +397,16 @@ def microbatch_generators(generator: Optional[torch.Generator],
 def make_pp_pipeline(mesh, cfg: Optional[SVSConfig] = None, *,
                      n_micro: int = 4, split: int = 3):
     """The pipelined forward and loss:
-    ``fn(model, batch, generator) -> (loss, metrics)``.
+    ``fn(model, batch, generator, live=None, gens=None) -> (loss,
+    metrics)``.
 
     ``batch``: the whole batch (numpy arrays or tensors, an optional (B,)
-    0/1 ``weight``), B divisible by ``n_micro``.  In train mode the loss is
+    0/1 ``weight``), B divisible by ``n_micro``.  ``live``: the microbatches
+    that hold a real row (:func:`live_pattern`, read from the weight
+    unless given); ``gens``: each microbatch's dropout generator
+    (:func:`microbatch_generators` of ``generator`` unless given).  Given
+    both, the pipeline reads nothing on the host: what a step program
+    captures.  In train mode the loss is
     the differentiable mean over the live microbatches, on stage 0's
     device, and the BatchNorm running statistics are written microbatch by
     microbatch; ``metrics`` (``l1``, ``mr``, ``total``) are the detached
@@ -363,11 +418,14 @@ def make_pp_pipeline(mesh, cfg: Optional[SVSConfig] = None, *,
     d0, d1 = devs
 
     def pipeline(model: UNet, batch: Dict,
-                 generator: Optional[torch.Generator] = None):
-        mbs, live = _microbatches(batch, n_micro, d0)
-        if not any(live):
-            raise ValueError("a batch with no live row (all weight 0)")
-        gens = microbatch_generators(generator, n_micro)
+                 generator: Optional[torch.Generator] = None, *,
+                 live: Optional[Sequence[bool]] = None,
+                 gens: Optional[Sequence] = None):
+        if live is None:
+            live = live_pattern(batch, n_micro)
+        if gens is None:
+            gens = microbatch_generators(generator, n_micro)
+        mbs = _microbatches(batch, n_micro, d0)
         w1 = [None if mb.get("weight") is None
               else mb["weight"].to(d1, non_blocking=True) for mb in mbs]
         down: Dict[int, torch.Tensor] = {}   # boundary, stage 0 -> 1
@@ -431,51 +489,115 @@ def make_pp_pipeline(mesh, cfg: Optional[SVSConfig] = None, *,
     return pipeline
 
 
+def _pp_body(cfg: SVSConfig, devs: Stages, n_micro: int, split: int):
+    """The PP step without its count: ``body(state, batch, generator, part,
+    gens) -> metrics`` (the pipeline's loss, its gradient by autograd
+    through the ticks, ``grad_norm`` over both stages, the optimiser
+    call); with microbatch generators, ``generator``'s one-draw advance.
+    ``part``: :func:`make_pp_train_step`'s key part, whose third entry is
+    the live pattern; ``gens``: the microbatch generators, seeded by
+    :func:`microbatch_seeds`, or none where they are ``generator`` itself
+    or the default one (one microbatch, or no generator).  What a PP train
+    program captures."""
+    pipeline = make_pp_pipeline(devs, cfg, n_micro=n_micro, split=split)
+
+    def body(state: PPState, batch: Dict,
+             generator: Optional[torch.Generator], part: tuple,
+             gens: Sequence[torch.Generator]) -> Dict[str, torch.Tensor]:
+        model = state.model.train()
+        params = list(model.parameters())
+        loss, metrics = pipeline(model, batch, generator, live=part[2],
+                                 gens=gens or None)
+        if gens:
+            advance(generator)
+        grads = torch.autograd.grad(loss, params)
+        metrics["grad_norm"] = torch.sqrt(sum(
+            torch.sum(torch.square(g)).to(devs[0]) for g in grads))
+        _apply(state, list(grads))
+        return metrics
+
+    return body
+
+
 def make_pp_train_step(mesh, cfg: Optional[SVSConfig] = None, *,
                        n_micro: int = 4, split: int = 3):
     """The pipelined ``step(state, batch, generator) -> (state, metrics)``
     on a :class:`PPState` of the same ``mesh`` and ``split``
     (:func:`shard_state`): the pipeline's loss, its gradient by autograd
     through the ticks, ``grad_norm`` over both stages, one optimizer
-    update in place."""
+    update in place.
+
+    Where :func:`programmed` (both stages one CUDA device) the step is the
+    cached program of its key (``train/graphs.py``, layout ``"pp"`` over
+    the pair of stage devices), else eager; ``step.eager`` is the eager
+    form.  Before either form runs, the host reads the batch's live
+    microbatches (:func:`live_pattern`, which refuses a batch with none),
+    which join the program's key with ``n_micro`` and ``split``: a full
+    batch and a ragged tail have programs of their own.  At ``n_micro >
+    1`` with a generator the step's microbatch seeds
+    (:func:`microbatch_seeds`, read on the host) seed new generators in the
+    eager form and, in a program, the program's own ``n_micro`` generators
+    (registered with its graphs) before every call, so that a replay draws
+    the masks of :func:`microbatch_generators`' fresh ones.  The step holds
+    no state of its own: two steps over one model share their programs."""
     cfg = cfg or SVSConfig()
     devs = stage_devices(mesh)
-    pipeline = make_pp_pipeline(devs, cfg, n_micro=n_micro, split=split)
+    body = _pp_body(cfg, devs, n_micro, split)
 
-    def step(state: PPState, batch: Dict,
-             generator: Optional[torch.Generator] = None):
-        _check_state(state, devs, split)
-        model = state.model.train()
-        params = list(model.parameters())
-        loss, metrics = pipeline(model, batch, generator)
-        grads = torch.autograd.grad(loss, params)
-        metrics["grad_norm"] = torch.sqrt(sum(
-            torch.sum(torch.square(g)).to(devs[0]) for g in grads))
-        _apply(state, list(grads))
-        state.step += 1
-        return state, metrics
+    def prepare(state, batch, generator):
+        live = live_pattern(batch, n_micro)
+        seeds = (microbatch_seeds(generator, n_micro)
+                 if n_micro > 1 and generator is not None else [])
+        return (n_micro, split, live, bool(seeds)), seeds
 
-    return step
+    step = graphs.train_step(cfg, body, "pp", devs,
+                             lambda state: _check_state(state, devs, split),
+                             prepare)
+
+    def pp_step(state: PPState, batch: Dict,
+                generator: Optional[torch.Generator] = None):
+        return step(state, as_batch(batch), generator)
+
+    def eager(state: PPState, batch: Dict,
+              generator: Optional[torch.Generator] = None):
+        return step.eager(state, as_batch(batch), generator)
+
+    pp_step.eager = eager
+    return pp_step
 
 
 def make_pp_eval_step(mesh, cfg: Optional[SVSConfig] = None, *,
                       split: int = 3):
     """Validation on a :class:`PPState` (``make_eval_step``'s semantics):
     the whole batch through both stages in eval mode, no dropout; returns
-    the metrics."""
+    the metrics.  The cached eval program of its key where
+    :func:`make_pp_train_step` is a program (``step.eager`` the eager
+    form); a batch with no live row is refused before either runs."""
     cfg = cfg or SVSConfig()
     devs = stage_devices(mesh)
     pipeline = make_pp_pipeline(devs, cfg, n_micro=1, split=split)
 
-    @torch.no_grad()
-    def step(state: PPState, batch: Dict) -> Dict[str, torch.Tensor]:
-        _check_state(state, devs, split)
-        model = state.model
+    def body(model: UNet, batch: Dict) -> Dict[str, torch.Tensor]:
         was_training = model.training
         model.eval()
         try:
-            return pipeline(model, batch)[1]
+            return pipeline(model, batch, live=(True,), gens=(None,))[1]
         finally:
             model.train(was_training)
 
-    return step
+    def prepare(state, batch):
+        live_pattern(batch, 1)
+        return (split,)
+
+    step = graphs.eval_step(cfg, body, "pp", devs,
+                            lambda state: _check_state(state, devs, split),
+                            prepare)
+
+    def pp_step(state: PPState, batch: Dict) -> Dict[str, torch.Tensor]:
+        return step(state, as_batch(batch))
+
+    def eager(state: PPState, batch: Dict) -> Dict[str, torch.Tensor]:
+        return step.eager(state, as_batch(batch))
+
+    pp_step.eager = eager
+    return pp_step

@@ -14,14 +14,19 @@ program is the decode's :class:`infer.graphs.Program` over a batch
 (:func:`eval_program`).
 
 - **Key.** One program per (kind, layout, mesh, model, step config,
-  batch signature, ``accum_steps``, device): the layout is the step's
-  name (``single``, ``dp``, ``zero1``, ``fsdp``, ``tp``, ``cp``) and the
-  mesh its ``parallel.mesh.Mesh`` (a ``Mesh2D`` for TP; the program's body
-  holds it, so its ``id`` is not reused while the program is cached), so
-  a layout's step never replays the single step's body, nor the same
+  batch signature, ``accum_steps``, device, the caller's part): the layout
+  is the step's name (``single``, ``dp``, ``zero1``, ``fsdp``, ``tp``,
+  ``cp``, ``pp``) and the mesh its ``parallel.mesh.Mesh`` (a ``Mesh2D`` for
+  TP; the program's body holds it, so its ``id`` is not reused while the
+  program is cached) or PP's pair of stage devices (by value), so a
+  layout's step never replays the single step's body, nor the same
   layout's on another mesh; the signature is the batch's keys (with or
   without ``weight``), shapes and dtypes, so a ragged tail batch or a
-  padded one has a program of its own.  Beside the key a program holds its
+  padded one has a program of its own.  The caller's part is what its
+  step decides on the host before a call (``prepare``; the body is given
+  it): PP's microbatch count, split, live-microbatch pattern and whether
+  its microbatches draw from generators of their own.  Beside the key a
+  program holds its
   *binding* (:func:`binding`): the address of every ``state_dict()``
   tensor, of every Adam state tensor and of the accumulation buffers,
   Adam's constants (lr, betas, eps, weight decay; the graph bakes them in)
@@ -44,7 +49,10 @@ program is the decode's :class:`infer.graphs.Program` over a batch
   ``mini_step`` and ``acc_grads`` on as the replayed ``_apply`` did, and
   returns *copies* of the metrics: a result never aliases a buffer that the
   next replay writes.  Dropout's ``torch.Generator`` is registered with
-  every graph, so each replay draws the masks the eager step would.
+  every graph, so each replay draws the masks the eager step would; so are
+  the program's own generators beside it, one a seed that the caller's
+  ``prepare`` returns (PP's microbatch generators), re-seeded on the host
+  before every call.
 - **Adam.** A graph replays only torch's capturable Adam (its step counts
   on the card, the bias corrections there in float32, as optax keeps
   them): a host-form Adam reaching a program on the card raises.
@@ -60,7 +68,7 @@ copies.
 ``step.make_train_step`` and ``step.make_eval_step`` take programs on the
 card only (:func:`programmed`; the CPU tests patch it).
 
-**Layouts.**  The steps ``fit`` builds for a mesh (``parallel/dp.py``,
+**Layouts.** The steps ``fit`` builds for a mesh (``parallel/dp.py``,
 ``zero.py``, ``tp.py``, ``halo.py``) are made by :func:`train_step` and
 :func:`eval_step` too, from the layout's eager body, so each runs as the
 cached program of its key where :func:`mesh_programmed` says so, decided
@@ -69,10 +77,13 @@ across ranks there (ranks that share one card, which NCCL refuses), whose
 collectives run on the host where no graph can hold them; those ranks run
 the eager bodies by that rule, not as a fallback (``scan.refuse_mesh``
 refuses them under ``epoch_scan`` by the same test,
-``mesh.host_collectives``).  NCCL's collectives are captured with the
-step, as the mesh ``epoch_scan``'s graphs capture them; a capture that
-fails there raises.  Every step these makers return carries its eager form as
-``step.eager``: the oracle the programs are held against.
+``mesh.host_collectives``).  PP's steps (``parallel/pp.py``) take their own
+rule, :func:`stages_programmed`: programs where both stages are one device
+on which the steps are programs; two distinct cards (one process over two
+devices' allocators and streams) run the eager step.  NCCL's collectives are
+captured with the step, as the mesh ``epoch_scan``'s graphs capture them; a
+capture that fails there raises.  Every step these makers return carries its
+eager form as ``step.eager``: the oracle the programs are held against.
 
 The capture rules (:func:`binding`, :func:`warm_up`, :func:`capture`,
 :func:`replay`) are shared with ``train/scan.py``'s epoch graphs.
@@ -82,7 +93,7 @@ from __future__ import annotations
 
 import contextlib
 import weakref
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -116,6 +127,15 @@ def programmed(dev: torch.device) -> bool:
     return dev.type == "cuda"
 
 
+def stages_programmed(devs) -> bool:
+    """Whether PP's steps over the stage devices ``devs`` run as cached
+    programs: where both stages are one device on which the steps are
+    programs (:func:`programmed`).  Two distinct devices run the eager
+    step: a capture over two devices' allocators and streams from one
+    process is a design of its own (ROADMAP A.10.8)."""
+    return devs[0] == devs[1] and programmed(devs[0])
+
+
 def mesh_programmed(mesh: mesh_lib.Mesh) -> bool:
     """Whether a layout's steps over ``mesh`` run as cached programs: as
     the single steps on its device (:func:`programmed`), except where its
@@ -132,13 +152,16 @@ def binding(state: TrainState, static=()) -> tuple:
     (``infer.graphs.binding``: every ``state_dict()`` address, the dtype,
     the TF32 and cuDNN flags), every Adam state tensor's and the
     accumulation buffers' addresses, ``static`` tensors' (an epoch graph's
-    planes and buffers), and Adam's constants."""
+    planes and buffers), and the optimiser's constants (every entry of its
+    parameter groups but the parameters: Adam's lr, betas, eps, weight
+    decay and flags; another optimiser's own)."""
     opt = state.optimizer
     ptrs = [t.data_ptr() for st in opt.state.values() for t in st.values()
             if isinstance(t, torch.Tensor)]
     ptrs += [t.data_ptr() for t in state.acc_buffers or ()]
     ptrs += [t.data_ptr() for t in static if t is not None]
-    consts = tuple((g["lr"], tuple(g["betas"]), g["eps"], g["weight_decay"])
+    consts = tuple(tuple((k, tuple(v) if isinstance(v, list) else v)
+                         for k, v in sorted(g.items()) if k != "params")
                    for g in opt.param_groups)
     return infer_graphs.binding(state.model), tuple(ptrs), consts
 
@@ -186,14 +209,17 @@ def warm_up(state: TrainState, run: Callable[[], Metrics], n: int,
 
 
 def capture(state: TrainState, run: Callable[[], Metrics],
-            generator: Optional[torch.Generator], device: torch.device
+            generators, device: torch.device
             ) -> Tuple[Dict[int, Tuple[torch.cuda.CUDAGraph, Metrics]], int]:
     """One graph of ``run`` per accumulation position, in one memory pool,
-    each registering ``generator``; a capture runs nothing, so the host's
+    each registering ``generators`` (a generator, or a sequence of them;
+    None for none); a capture runs nothing, so the host's
     cycle position is put back after it.  Returns the graphs with their
     static outputs, and the bytes their pool took
     (``infer.graphs.pool_bytes``)."""
     graphs = {}
+    if generators is None or isinstance(generators, torch.Generator):
+        generators = (generators,)
 
     def record():
         position, acc = state.mini_step, state.acc_grads
@@ -201,8 +227,9 @@ def capture(state: TrainState, run: Callable[[], Metrics],
         try:
             for k in range(state.accum_steps):
                 graph = torch.cuda.CUDAGraph()
-                if generator is not None:
-                    graph.register_generator_state(generator)
+                for generator in generators:
+                    if generator is not None:
+                        graph.register_generator_state(generator)
                 state.mini_step = k
                 state.acc_grads = state.acc_buffers if k else None
                 with torch.cuda.graph(graph, pool=pool):
@@ -243,9 +270,10 @@ class TrainProgram:
     run there too)."""
 
     def __init__(self, model, body: TrainBody, batch: Batch,
-                 device: torch.device):
+                 device: torch.device, part=None):
         self.model = weakref.ref(model)
         self.body = body
+        self.part = part  # the key's caller part; None: a plain body
         self.device = device
         self.input = {k: torch.empty(v.shape, dtype=v.dtype, device=device)
                       for k, v in batch.items()}
@@ -253,7 +281,8 @@ class TrainProgram:
         self.pool_bytes = 0
         self.graphs: Optional[dict] = None
         self.binding = None
-        self.generator: Optional[torch.Generator] = None
+        self.generators: Tuple[Optional[torch.Generator], ...] = ()
+        self.own: Optional[list] = None  # the generators the seeds seed
         self.warm = False  # whether a call ran the eager warm-up step
         self.captures = 0  # times the graphs were captured
         self.replays = 0   # calls that ran as replays
@@ -264,8 +293,11 @@ class TrainProgram:
         return self.static_bytes + self.pool_bytes
 
     def __call__(self, state: TrainState, batch: Batch,
-                 generator: Optional[torch.Generator] = None
-                 ) -> Tuple[TrainState, Metrics]:
+                 generator: Optional[torch.Generator] = None,
+                 seeds: Sequence[int] = ()) -> Tuple[TrainState, Metrics]:
+        """One step; with a caller part, ``body(state, batch, generator,
+        part, gens)``, ``gens`` the program's own generators (one a seed,
+        registered with the graphs) seeded with ``seeds`` first."""
         cuda = self.device.type == "cuda"
         if cuda:
             require_capturable(state, "a train step program")
@@ -275,8 +307,18 @@ class TrainProgram:
             for k, v in batch.items():
                 self.input[k].copy_(v)
 
-        def run():
-            return self.body(state, self.input, generator)
+        if self.part is None:
+            def run():
+                return self.body(state, self.input, generator)
+        else:
+            if self.own is None:
+                self.own = [torch.Generator(self.device) for _ in seeds]
+            for g, seed in zip(self.own, seeds):
+                g.manual_seed(seed)
+
+            def run():
+                return self.body(state, self.input, generator, self.part,
+                                 self.own)
 
         if not (self.warm and adam_ready(state)):
             _, metrics = warm_up(state, run, 1, self.device)
@@ -284,15 +326,18 @@ class TrainProgram:
             return state, self._copy_out(metrics)
         adopt_cycle(state)
         now = binding(state)
+        generators = (generator,) + tuple(self.own or ())
         if (self.binding is None or now != self.binding
-                or generator is not self.generator):
+                or len(generators) != len(self.generators)
+                or any(a is not b for a, b in zip(generators,
+                                                  self.generators))):
             # the stale graphs' pool goes back first; a capture that raises
             # leaves no binding, so the next call captures again
             self.graphs = self.binding = None
             if cuda:
                 self.graphs, self.pool_bytes = capture(
-                    state, run, generator, self.device)
-            self.binding, self.generator = now, generator
+                    state, run, generators, self.device)
+            self.binding, self.generators = now, generators
             self.captures += 1
         if cuda:
             metrics = replay(state, self.graphs)
@@ -310,33 +355,45 @@ class TrainProgram:
         return out
 
 
+def _mesh_key(mesh):
+    """A mesh in a key: a ``Mesh`` by identity (the program's body holds
+    it), PP's pair of stage devices by value."""
+    if mesh is None or isinstance(mesh, tuple):
+        return mesh
+    return id(mesh)
+
+
 def _key(kind: str, model, cfg, batch: Batch, accum_steps: int = 1,
-         layout: str = "single", mesh=None):
+         layout: str = "single", mesh=None, part: Optional[tuple] = None):
     device = next(model.parameters()).device
-    return (kind, layout, None if mesh is None else id(mesh), id(model), cfg,
-            signature(batch), accum_steps, device), device
+    return (kind, layout, _mesh_key(mesh), id(model), cfg, signature(batch),
+            accum_steps, device, part), device
 
 
 def train_program(state: TrainState, cfg, batch: Batch, body: TrainBody,
-                  layout: str = "single", mesh=None) -> TrainProgram:
+                  layout: str = "single", mesh=None,
+                  part: Optional[tuple] = None) -> TrainProgram:
     """The cached train program of ``body`` for ``layout`` over ``mesh``,
-    the state's model, ``cfg``, ``accum_steps`` and the batch's signature,
-    built now if there is none (its binding is checked at each call)."""
+    the state's model, ``cfg``, ``accum_steps``, the batch's signature and
+    the caller's ``part`` (given to the body; None: none), built now if
+    there is none (its binding is checked at each call)."""
     model = state.model
     key, device = _key("train", model, cfg, batch, state.accum_steps,
-                       layout, mesh)
+                       layout, mesh, part)
     return CACHE.lookup(key, model, lambda prog: True,
-                        lambda: TrainProgram(model, body, batch, device))
+                        lambda: TrainProgram(model, body, batch, device,
+                                             part))
 
 
 def eval_program(model, cfg, batch: Batch, body: EvalBody,
-                 layout: str = "single", mesh=None) -> infer_graphs.Program:
+                 layout: str = "single", mesh=None,
+                 part: Optional[tuple] = None) -> infer_graphs.Program:
     """The cached eval program of ``body`` for ``layout`` over ``mesh``,
-    ``model``, ``cfg`` and the batch's signature: the decode's
-    :class:`infer.graphs.Program` over the batch (warmed up and captured
-    when it is built, again when the model's binding moved), in
-    ``no_grad``."""
-    key, device = _key("eval", model, cfg, batch, 1, layout, mesh)
+    ``model``, ``cfg``, the batch's signature and the caller's ``part``:
+    the decode's :class:`infer.graphs.Program` over the batch (warmed up
+    and captured when it is built, again when the model's binding moved),
+    in ``no_grad``."""
+    key, device = _key("eval", model, cfg, batch, 1, layout, mesh, part)
     return CACHE.lookup(
         key, model,
         lambda prog: prog.binding == infer_graphs.binding(model),
@@ -347,23 +404,38 @@ def eval_program(model, cfg, batch: Batch, body: EvalBody,
 def _on(state: TrainState, mesh) -> bool:
     if mesh is None:
         return programmed(next(state.model.parameters()).device)
+    if isinstance(mesh, tuple):  # PP's pair of stage devices
+        return stages_programmed(mesh)
     return mesh_programmed(mesh)
 
 
 def train_step(cfg, body: TrainBody, layout: str = "single", mesh=None,
-               check: Optional[Callable[[TrainState], None]] = None):
+               check: Optional[Callable[[TrainState], None]] = None,
+               prepare: Optional[Callable] = None):
     """``step(state, batch, generator) -> (state, metrics)``: one step of
     ``body`` (the step without its count) and the count, run as the cached
     program of its key where the steps are programs (:func:`programmed`,
-    or :func:`mesh_programmed` over ``mesh``), else eagerly.  ``check``
-    refuses a state the step cannot take, before either form runs.  The
-    eager form is ``step.eager``."""
+    :func:`mesh_programmed` over ``mesh``, or :func:`stages_programmed`
+    over PP's pair of stage devices), else eagerly.  ``check`` refuses a
+    state the step cannot take, before either form runs.  ``prepare(state,
+    batch, generator) -> (part, seeds)`` runs on the host before every call
+    of either form: ``part`` joins the program's key, and the body is
+    ``body(state, batch, generator, part, gens)``, ``gens`` one generator
+    a seed, on ``generator``'s device: new ones in the eager form, the
+    program's own in a program (registered with its graphs, re-seeded
+    before every call).  The eager form is ``step.eager``."""
 
     def eager(state: TrainState, batch: Batch,
               generator: Optional[torch.Generator] = None):
         if check is not None:
             check(state)
-        metrics = body(state, batch, generator)
+        if prepare is None:
+            metrics = body(state, batch, generator)
+        else:
+            part, seeds = prepare(state, batch, generator)
+            metrics = body(state, batch, generator, part, [
+                torch.Generator(generator.device).manual_seed(s)
+                for s in seeds])
         state.step += 1
         return state, metrics
 
@@ -373,24 +445,30 @@ def train_step(cfg, body: TrainBody, layout: str = "single", mesh=None,
             return eager(state, batch, generator)
         if check is not None:
             check(state)
-        return train_program(state, cfg, batch, body, layout, mesh)(
-            state, batch, generator)
+        part, seeds = (prepare(state, batch, generator) if prepare
+                       else (None, ()))
+        return train_program(state, cfg, batch, body, layout, mesh, part)(
+            state, batch, generator, seeds)
 
     step.eager = eager
     return step
 
 
 def eval_step(cfg, body: EvalBody, layout: str = "single", mesh=None,
-              check: Optional[Callable[[TrainState], None]] = None):
+              check: Optional[Callable[[TrainState], None]] = None,
+              prepare: Optional[Callable] = None):
     """``step(state, batch) -> metrics``: ``body(model, batch)`` in
     ``no_grad``, as the cached eval program of its key where the steps are
     programs, else eagerly; :func:`train_step`'s ``check`` and
-    ``step.eager``."""
+    ``step.eager``; ``prepare(state, batch) -> part`` runs on the host
+    before either form, ``part`` joining the program's key."""
 
     @torch.no_grad()
     def eager(state: TrainState, batch: Batch) -> Metrics:
         if check is not None:
             check(state)
+        if prepare is not None:
+            prepare(state, batch)
         return body(state.model, batch)
 
     def step(state: TrainState, batch: Batch) -> Metrics:
@@ -398,8 +476,9 @@ def eval_step(cfg, body: EvalBody, layout: str = "single", mesh=None,
             return eager(state, batch)
         if check is not None:
             check(state)
-        return eval_program(state.model, cfg, batch, body, layout, mesh)(
-            batch)
+        part = prepare(state, batch) if prepare else None
+        return eval_program(state.model, cfg, batch, body, layout, mesh,
+                            part)(batch)
 
     step.eager = eager
     return step

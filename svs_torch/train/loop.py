@@ -86,12 +86,15 @@ then cut into its stages (``pp.shard_state``); the step is
 ``pp.make_pp_train_step`` with ``pp_micro`` microbatches split at
 ``pp_split``, fed by the host pipeline (no device dataset, as svs_tpu's),
 each batch padded to ``batch_size`` rows by ``pp.pad_batch`` (a padded
-microbatch is skipped); batches and the dropout generator live on stage
-0's device, which runs the loss; validation is ``pp.make_pp_eval_step``;
-every save site writes ``pp.gather_state``'s copy of the whole state on
-one device, the canonical ``.ckpt``.  A multi-process run, a mesh that is
-not two stages, a ``pp_micro`` that does not divide ``batch_size``,
-``accum_steps > 1``, ``epoch_scan``, ``zero1`` and ``fsdp`` are refused.
+microbatch is skipped); batches and the dropout generator live on stage 0's
+device, which runs the loss; validation is ``pp.make_pp_eval_step``; both
+steps run as cached programs where both stages are one CUDA device
+(``pp.programmed``: a full batch and a ragged tail a program each), and
+eagerly over two distinct cards; every save site writes
+``pp.gather_state``'s copy of the whole state on one device, the canonical
+``.ckpt``.  A multi-process run, a mesh that is not two stages, a
+``pp_micro`` that does not divide ``batch_size``, ``accum_steps > 1``,
+``epoch_scan``, ``zero1`` and ``fsdp`` are refused.
 
 With ``parallel="cp"`` and a data mesh the loop is context-parallel
 (:mod:`svs_torch.parallel.halo`, svs_tpu loop.py:219-249,283-297): every

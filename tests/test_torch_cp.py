@@ -28,7 +28,9 @@ tests/test_halo.py's bounds:
 - the whole-song decode against svs_tpu's
   ``separate_magnitude_time_sharded``: atol 3e-5; the vocal and
   accompaniment outputs sum to the mix within 1e-5; at a length the two
-  whole-song decodes pad apart, each of the port's against svs_tpu's;
+  whole-song decodes pad apart, each of the port's against svs_tpu's; the
+  decode as its cached program (routed through the program objects on
+  the CPU) at a world of one and on 4 ranks: the eager decode's bits;
 - ``fit(parallel="cp")``: the device and host pipelines give the same
   bits, and its epoch is the single-device fit's within
   tests/test_torch_dp.py's fit bounds (train 1e-4, validation 1e-3
@@ -248,6 +250,41 @@ def test_whole_song_decode(ranks):
     want = jhalo.separate_magnitude_time_sharded(
         st.params, st.bn_state, mag, jmesh.make_mesh(4), cfg=jcfg)
     np.testing.assert_allclose(out, want, atol=3e-5)
+
+
+@pytest.mark.parametrize("n", [1, 4])
+def test_whole_song_decode_programs_are_their_eager_bits(ranks, n):
+    """The time-sharded decode as the cached decode program of its key
+    (the model, the mesh and the padded shape: the local block, the
+    forward with its halo exchanges and the gather in one program),
+    routed through the program objects on the CPU, over a world of one
+    and over 4 ranks: both ways of ``vocal_solo``, twice each, the eager
+    decode's bits on rank 0; every rank's gathered mask the eager one's
+    and the same on every rank; one program for all of them (``vocal_solo``
+    is applied outside it); and svs_tpu's
+    ``separate_magnitude_time_sharded`` over 4 devices within 3e-5."""
+    jcfg = JConfig()
+    st = jstep.create_train_state(jax.random.key(0), jcfg)
+    sd = _sd(st.params, st.bn_state)
+    mag = np.random.default_rng(2).random((513, 700)).astype(np.float32)
+    got = ranks.run(C.decode_programs, n, {}, sd, mag)
+    assert got[n:] == [None] * (4 - n)
+    for r, out in enumerate(got[:n]):
+        assert out["program_builds"] == (1, 1)
+        assert out["eager_builds"] == (0, 0)
+        np.testing.assert_array_equal(out["program_mask"],
+                                      out["eager_mask"])
+        np.testing.assert_array_equal(out["program_mask"],
+                                      got[0]["program_mask"])
+        for a, b in zip(out["program"], out["eager"]):
+            if r:
+                assert a is None and b is None
+            else:
+                np.testing.assert_array_equal(a, b)
+    if n == 4:
+        want = jhalo.separate_magnitude_time_sharded(
+            st.params, st.bn_state, mag, jmesh.make_mesh(4), cfg=jcfg)
+        np.testing.assert_allclose(got[0]["program"][0], want, atol=3e-5)
 
 
 def test_whole_song_decodes_differ_as_svs_tpus_do(ranks):

@@ -1220,3 +1220,163 @@ def test_world_of_one_layout_programs_are_their_eager_bodies(
     for kind, r in out.items():
         assert r["programmed"] and r["vs_eager"] == 0.0, (kind, r)
         assert r["programs"] == [(1, 2)], (kind, r)
+
+
+# -- PP's steps and the SP and CP decodes as programs -----------------------
+
+@pytest.fixture
+def program_caches(step_cache, monkeypatch):
+    """Fresh caches of step and decode programs, cuDNN's deterministic
+    algorithms and TF32 off (the checks are bit for bit, float32 too)."""
+    from svs_torch.infer import graphs as infer_graphs
+    cache = infer_graphs.ProgramCache()
+    monkeypatch.setattr(infer_graphs, "CACHE", cache)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    yield step_cache, cache
+    cache.clear()
+
+
+def _pp_batches(n):
+    """A full batch of 8 and a tail of 5 padded to 8 (at 4 microbatches
+    its last one empty), alternating over ``n`` calls."""
+    from svs_torch.parallel import dryrun, pp
+    full = dryrun.dry_batch(8, 128)
+    tail = pp.pad_batch({k: v[:5] for k, v in dryrun.dry_batch(
+        8, 128).items()}, 8)
+    return [full if i % 2 == 0 else tail for i in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_micro,impl", [(1, "pallas_fused"),
+                                          (4, "pallas_bf16")])
+def test_one_card_pp_programs_are_their_eager_bodies(card, program_caches,
+                                                     n_micro, impl):
+    """Both stages on ``cuda:0``: PP's train step as programs (a full batch
+    and a ragged tail, each a warm-up, a capture and replays; dropout on,
+    at 4 microbatches from the re-seeded generators registered with the
+    graphs) is its eager body's bits, metrics, parameters, BN, Adam's
+    moments and the generator's state; the eval programs the eager
+    eval's bits."""
+    from svs_torch.parallel import dryrun, pp
+    from svs_torch.train import step as tstep
+    from svs_torch.utils.config import SVSConfig
+
+    cfg = SVSConfig(enc_channels=(4, 8, 8, 16, 16, 16), input_len=128,
+                    mr_mag_impl=impl, compute_dtype="bfloat16")
+    devs = ("cuda:0", "cuda:0")
+    assert pp.programmed(devs)
+    r = dryrun.pp_program_parity(devs, cfg, _pp_batches(5),
+                                 n_micro=n_micro)
+    assert r["programmed"] and r["vs_eager"] == 0.0, r
+    assert sorted(r["programs"]) == [(1, 1), (1, 2)], r
+    state = pp.shard_state(tstep.create_train_state(0, cfg, device=card),
+                           pp.make_pp_mesh(devs))
+    evaluate = pp.make_pp_eval_step(devs, cfg)
+    for batch in _pp_batches(2) * 2:
+        got, want = evaluate(state, batch), evaluate.eager(state, batch)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_two_one_card_pp_steps_share_their_programs(card, program_caches):
+    """Two four-microbatch PP steps over one model on ``cuda:0``, dropout
+    on, called in turns with one generator: their programs are shared
+    (each seeds its own generators from the call's generator before the
+    replay), and the state and the generator are the eager steps' bits."""
+    from svs_torch.parallel import dryrun, pp
+    from svs_torch.train import step as tstep
+    from svs_torch.utils.config import SVSConfig
+
+    steps_cache, _ = program_caches
+    cfg = SVSConfig(enc_channels=(4, 8, 8, 16, 16, 16), input_len=128,
+                    mr_mag_impl="pallas_fused", compute_dtype="bfloat16")
+    devs = pp.make_pp_mesh(("cuda:0", "cuda:0"))
+    got = {}
+    for form in ("program", "eager"):
+        state = pp.shard_state(tstep.create_train_state(0, cfg, device=card),
+                               devs)
+        steps = [pp.make_pp_train_step(devs, cfg, n_micro=4)
+                 for _ in range(2)]
+        if form == "eager":
+            steps = [s.eager for s in steps]
+        gen = torch.Generator(card).manual_seed(1)
+        metrics = [steps[i % 2](state, b, gen)[1]
+                   for i, b in enumerate(_pp_batches(6))]
+        got[form] = (metrics, dryrun._full(pp.gather_state(state)),
+                     gen.get_state())
+    (pm, pf, pg), (em, ef, eg) = got["program"], got["eager"]
+    for a, b in zip(pm, em):
+        assert all(torch.equal(a[k], b[k]) for k in b)
+    assert max(dryrun._max_diff(pf[k], ef[k]) for k in ("sd", "mu", "nu")) \
+        == 0.0
+    assert torch.equal(pg, eg) and steps_cache.builds == 2
+
+
+@pytest.mark.cuda
+def test_pp_over_two_distinct_devices_runs_the_eager_step(card,
+                                                          program_caches):
+    """``pp.programmed`` refuses two distinct devices, decided before any
+    step: the stages on ``cuda:0`` and the host run the eager step, and
+    no program is built."""
+    from svs_torch.parallel import pp
+    from svs_torch.train import graphs
+    from svs_torch.train import step as tstep
+    from svs_torch.utils.config import SVSConfig
+
+    steps, _ = program_caches
+    assert not graphs.stages_programmed((torch.device("cuda", 0),
+                                         torch.device("cuda", 1)))
+    devs = ("cuda:0", "cpu")
+    assert not pp.programmed(devs) and pp.programmed(("cuda:0", "cuda:0"))
+    cfg = SVSConfig(enc_channels=(4, 8, 8, 16, 16, 16), input_len=128,
+                    mr_mag_impl="fft")
+    state = pp.shard_state(tstep.create_train_state(0, cfg, device=card),
+                           pp.make_pp_mesh(devs), split=3)
+    # the capturable Adam keeps its state on a card; SGD takes both stages
+    state.optimizer = torch.optim.SGD(state.model.parameters(), lr=0.01)
+    step = pp.make_pp_train_step(devs, cfg, n_micro=2, split=3)
+    for batch in _pp_batches(2):
+        state, m = step(state, batch, torch.Generator(card).manual_seed(1))
+        assert all(torch.isfinite(v).all() for v in m.values())
+    assert steps.builds == 0 and state.step == 2
+
+
+@pytest.mark.cuda
+def test_world_of_one_sp_and_cp_decode_programs_are_their_eager_bodies(
+        card, program_caches):
+    """A world of one over NCCL, float32: each rank's SP mask (both ways
+    of ``vocal_solo``) and the whole-song CP decode as programs give their
+    eager bodies' bits, and the decodes the unsharded ones."""
+    import torch.distributed as dist
+
+    from svs_torch.parallel import dryrun
+    from svs_torch.parallel import mesh as mesh_lib
+    from svs_torch.train import graphs
+    from svs_torch.utils.config import SVSConfig
+
+    _, decodes = program_caches
+    cfg = SVSConfig(enc_channels=(4, 8, 8, 16, 16, 16))
+    mesh = mesh_lib.make_mesh()
+    try:
+        assert mesh.backend == "nccl" and graphs.mesh_programmed(mesh)
+        model = _eval_unet(cfg, card)
+        mag = np.abs(np.random.default_rng(3).standard_normal(
+            (513, 700))).astype(np.float32)
+        sp = dryrun.sp_parity(mesh, model, mag)
+        song = np.random.default_rng(1).random((513, 1024), np.float32)
+        cp = dryrun.cp_decode_parity(mesh, cfg, song)
+    finally:
+        dist.destroy_process_group()
+    assert sp["programmed"] and sp["vs_eager"] == 0.0, sp
+    assert max(sp["segments"], sp["overlap"]) <= dryrun.SP_ATOL, sp
+    assert cp["programmed"] and cp["vs_eager"] == 0.0, cp
+    assert cp["max_abs_err"] <= dryrun.CP_ATOL, cp
+    assert decodes.builds >= 3  # two SP masks and the CP decode
+
+
+def _eval_unet(cfg, card):
+    from svs_torch.models.unet import UNet
+    return UNet(cfg, generator=torch.Generator().manual_seed(0)).to(
+        card).eval()

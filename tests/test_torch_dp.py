@@ -20,7 +20,9 @@ rank) and runs every case through them; what they run is in
   single-device step bit for bit;
 - ``separate_magnitude_mesh`` on 2 ranks against svs_tpu's on 2 devices
   in both modes, both ways of ``vocal_solo``, at the edge lengths of
-  tests/test_infer_mesh.py: atol 2e-5;
+  tests/test_infer_mesh.py: atol 2e-5; each rank's mask as its decode
+  program (routed through the program objects on the CPU) the eager
+  decode's bits, and svs_tpu's within the same 2e-5;
 - a 2-rank ``fit`` (the dataset on the device and on the host) writes rank
   0's files only, and its per-epoch losses are the single-device fit's
   within tests/test_torch_fit.py's bounds for one f32 implementation
@@ -300,6 +302,40 @@ def test_sp_decode_matches_svs_tpus(ranks, mode, vocal_solo):
         assert g.shape == want.shape == mag.shape
         np.testing.assert_allclose(g, want, atol=2e-5,
                                    err_msg=f"t={mag.shape[1]}")
+
+
+def test_sp_decode_programs_are_their_eager_bits_and_svs_tpus(ranks):
+    """Each rank's mask as the cached decode program of its key (the
+    model, ``("sp", vocal_solo)`` and the window block's shape), routed
+    through the program objects on the CPU: in both modes and both ways
+    of ``vocal_solo``, twice each, the eager decode's bits on rank 0; one
+    program a ``vocal_solo`` and block shape on each rank, reused (blocks
+    of 4 windows a rank, and of 8 for 200 frames in the overlap mode:
+    four programs); and svs_tpu's SP decode within 2e-5."""
+    cfg = dict(NARROW, input_len=64)
+    jcfg = JConfig(**cfg)
+    state = jstep.create_train_state(jax.random.key(0), jcfg)
+    mags = [np.abs(np.random.default_rng(t).standard_normal(
+        (513, t))).astype(np.float32) for t in (63, 200)]
+    cases = [(m, mode, solo) for m in mags
+             for mode in ("segments", "overlap") for solo in (True, False)]
+    got = ranks.run(W.sp_programs, cfg, _sd(state.params, state.bn_state),
+                    cases)
+    for r, out in enumerate(got):
+        assert out["program_builds"] == (4, 4)
+        assert out["eager_builds"] == (0, 0)
+        if r:
+            assert out["program"] == out["eager"] == [None] * 2 * len(cases)
+    mesh = jmesh.make_mesh(2)
+    for i, (mag, mode, solo) in enumerate(cases):
+        for j in (2 * i, 2 * i + 1):
+            np.testing.assert_array_equal(got[0]["program"][j],
+                                          got[0]["eager"][j])
+        want = jsep.separate_magnitude_mesh(
+            state.params, state.bn_state, mag, mesh, cfg=jcfg, mode=mode,
+            vocal_solo=solo)
+        np.testing.assert_allclose(got[0]["program"][2 * i], want,
+                                   atol=2e-5)
 
 
 def test_sp_whole_mode_is_not_ported():

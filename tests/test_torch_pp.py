@@ -35,7 +35,15 @@ case.  Bounds:
 - a PP ``fit`` writes a ``.ckpt`` that svs_tpu's loader reads, and a PP run
   resumed from a DP run's ``.ckpt`` gives the DP run's next epoch within
   tests/test_torch_dp.py's fit bounds (train 1e-4, validation 1e-3
-  relative).
+  relative);
+- the PP train and eval steps as programs (``train/graphs.py``), routed
+  through the program objects on the CPU: at 1 and 4 microbatches, a full
+  batch and a ragged tail, dropout on, their eager bodies' bits; the
+  one-microbatch program against svs_tpu's jitted PP step with Adam at
+  learning rate 0 at the bounds above (Adam's first moment at the
+  parameters' bound read as a gradient bound), the eval program against
+  svs_tpu's jitted eval step; a programmed PP ``fit`` the eager one's
+  bits; two distinct stage devices run the eager step.
 """
 
 import os
@@ -55,6 +63,7 @@ from svs_torch.parallel import dryrun
 from svs_torch.parallel import mesh as tmesh
 from svs_torch.parallel import pp as tpp
 from svs_torch.train import checkpoint as tck
+from svs_torch.train import graphs
 from svs_torch.train import loop as tloop
 from svs_torch.train import step as tstep
 from svs_torch.utils.config import SVSConfig as TConfig
@@ -696,3 +705,262 @@ def test_train_cli_pp_refuses_what_svs_tpus_refuses(argv, says, capsys):
     assert err.value.code == 2
     said = capsys.readouterr().err
     assert says in said and "not ported" not in said
+
+
+# ------------------------------------------------------- the programs
+
+
+@pytest.fixture
+def routed(monkeypatch):
+    """PP's steps through the program objects of ``train/graphs.py`` on
+    the CPU (whose steps are eager otherwise), in a fresh cache: the
+    key, the binding, the warm-up step, the static buffers, the copies
+    in and out and the re-seeded generators run as on a card."""
+    cache = graphs.infer_graphs.ProgramCache(graphs.MAX_BYTES)
+    monkeypatch.setattr(graphs, "programmed", lambda dev: True)
+    monkeypatch.setattr(graphs, "CACHE", cache)
+    return cache
+
+
+def _snap(state):
+    """The state's parameters and buffers and Adam's moments by name, and
+    its counts."""
+    snap = tck.snapshot(state, clone=True)
+    return ({k: v.numpy() for k, v in snap.state_dict.items()},
+            {k: v.numpy() for k, v in snap.exp_avg.items()},
+            {k: v.numpy() for k, v in snap.exp_avg_sq.items()},
+            (snap.adam_count, snap.step))
+
+
+def _same_bits(got, want, what):
+    assert got.keys() == want.keys(), what
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=f"{what} {k}")
+
+
+def _program_calls(n_micro):
+    """Five calls alternating a full batch of 4 and a tail of 3 padded to
+    4 (``pad_batch``: at 4 microbatches its last one is empty), and the
+    eval batches: the full one and the padded tail."""
+    full = _batch(11, 4, 128)
+    tail = tpp.pad_batch({k: v[:3] for k, v in _batch(12, 4, 128).items()},
+                         4)
+    return [full, tail, full, tail, full], [full, tail]
+
+
+def _run_forms(cfg, n_micro, devs=CPU2, split=3, n_calls=5):
+    """The PP step and eval step over the first ``n_calls`` of
+    ``_program_calls`` (and a call with another generator) from the state
+    of seed 0 with a generator of seed 1, as programs (where the rule
+    takes them) and eagerly (``step.eager``): per form the metrics, the
+    evals, :func:`_snap` and the generator's state after; and the
+    programmed state's model."""
+    calls, evals = _program_calls(n_micro)
+    calls = calls[:n_calls]
+    out, models = {}, {}
+    for form in ("program", "eager"):
+        state = tpp.shard_state(tstep.create_train_state(0, cfg,
+                                                         device="cpu"),
+                                devs, split=split)
+        step = tpp.make_pp_train_step(devs, cfg, n_micro=n_micro,
+                                      split=split)
+        evaluate = tpp.make_pp_eval_step(devs, cfg, split=split)
+        if form == "eager":
+            step, evaluate = step.eager, evaluate.eager
+        gen = torch.Generator().manual_seed(1)
+        metrics = [{k: v.numpy().copy() for k, v in step(state, b, gen)[
+            1].items()} for b in calls]
+        # another generator: the full batch's program captures again
+        gen = torch.Generator().manual_seed(2)
+        metrics.append({k: v.numpy().copy() for k, v in step(
+            state, calls[0], gen)[1].items()})
+        ev = [{k: v.numpy().copy() for k, v in evaluate(state, b).items()}
+              for b in evals]
+        out[form] = (metrics, ev, _snap(state), gen.get_state())
+        models[form] = state.model
+    return out, models["program"]
+
+
+@pytest.mark.parametrize("n_micro", [1, 4])
+def test_pp_programs_are_their_eager_bodies_bits(routed, n_micro):
+    """Adam, dropout 0.5: the programs of a full batch and of a ragged
+    tail (a live pattern each) leave the eager body's metrics, parameters,
+    BN, Adam's moments and counts, bit for bit, and the generator where
+    the eager step leaves it; each train program is a warm-up step, a
+    capture and replays, reused on every call of its key, and captured
+    again for another generator; the eval programs give the eager eval's
+    bits."""
+    cfg = TConfig(**dict(NARROW, mr_mag_impl="fft", dropout_rate=0.5))
+    out, model = _run_forms(cfg, n_micro)
+    (pm, pe, ps, pg), (em, ee, es, eg) = out["program"], out["eager"]
+    for i, (a, b) in enumerate(zip(pm + pe, em + ee)):
+        _same_bits(a, b, f"call {i}")
+    for part, (a, b) in enumerate(zip(ps[:3], es[:3])):
+        _same_bits(a, b, f"state part {part}")
+    assert ps[3] == es[3] == (6, 6)
+    assert torch.equal(pg, eg)
+    progs = routed.programs_of(model)
+    train = [p for p in progs if hasattr(p, "captures")]
+    assert sorted((p.captures, p.replays) for p in train) == [(1, 1), (2, 3)]
+    assert len(progs) == 4 and routed.builds == 4  # two train, two eval
+    live = sorted(k[-1] for k in routed._programs if k[0] == "train")
+    assert live == sorted([(n_micro, 3, (True,) * n_micro, n_micro > 1),
+                           (n_micro, 3, (True,) * (n_micro - 1)
+                            + ((n_micro == 1),), n_micro > 1)])
+
+
+def test_two_pp_steps_over_one_model_share_their_programs(routed):
+    """Two ``make_pp_train_step`` over one model at 4 microbatches,
+    dropout 0.5, called in turns with one generator: they share the
+    programs of their keys (the step holds no generator of its own; a
+    program seeds its own from each call's generator), and every call
+    gives the eager steps' bits, the state and the generator too."""
+    cfg = TConfig(**dict(NARROW, mr_mag_impl="fft", dropout_rate=0.5))
+    calls, _ = _program_calls(4)
+    out = {}
+    for form in ("program", "eager"):
+        state = tpp.shard_state(tstep.create_train_state(0, cfg,
+                                                         device="cpu"),
+                                CPU2)
+        steps = [tpp.make_pp_train_step(CPU2, cfg, n_micro=4)
+                 for _ in range(2)]
+        if form == "eager":
+            steps = [s.eager for s in steps]
+        gen = torch.Generator().manual_seed(1)
+        metrics = [{k: v.numpy().copy() for k, v in steps[i % 2](
+            state, b, gen)[1].items()} for i, b in enumerate(calls)]
+        out[form] = (metrics, _snap(state), gen.get_state())
+    (pm, ps, pg), (em, es, eg) = out["program"], out["eager"]
+    for i, (a, b) in enumerate(zip(pm, em)):
+        _same_bits(a, b, f"call {i}")
+    for part, (a, b) in enumerate(zip(ps[:3], es[:3])):
+        _same_bits(a, b, f"state part {part}")
+    assert ps[3] == es[3] == (5, 5) and torch.equal(pg, eg)
+    assert routed.builds == 2  # a full batch's program and a tail's
+
+
+def test_pp_over_two_distinct_devices_runs_the_eager_step(routed):
+    """The rule (``pp.programmed``): programs where both stages are one
+    device; two distinct devices (here the host as ``cpu`` and ``cpu:0``)
+    run the eager step, decided before any step: no program is built, and
+    the step is the eager body's bits."""
+    two = ("cpu", "cpu:0")
+    assert tpp.programmed(CPU2) and not tpp.programmed(two)
+    assert not graphs.stages_programmed((torch.device("cuda", 0),
+                                         torch.device("cuda", 1)))
+    cfg = TConfig(**dict(NARROW, mr_mag_impl="fft", dropout_rate=0.5))
+    out, _ = _run_forms(cfg, 2, devs=two, n_calls=2)
+    assert routed.builds == 0
+    (pm, pe, ps, _), (em, ee, es, _) = out["program"], out["eager"]
+    for i, (a, b) in enumerate(zip(pm + pe, em + ee)):
+        _same_bits(a, b, f"call {i}")
+    for part, (a, b) in enumerate(zip(ps[:3], es[:3])):
+        _same_bits(a, b, f"state part {part}")
+
+
+def test_pp_program_refuses_a_batch_with_no_live_row_before_it_runs(
+        routed):
+    cfg = TConfig(**dict(NARROW, mr_mag_impl="fft"))
+    state = tpp.shard_state(tstep.create_train_state(0, cfg, device="cpu"),
+                            CPU2)
+    for run in (tpp.make_pp_train_step(CPU2, cfg, n_micro=2),
+                lambda s, b: tpp.make_pp_eval_step(CPU2, cfg)(s, b)):
+        with pytest.raises(ValueError, match="no live row"):
+            run(state, _batch(0, 4, 128, weight=[0, 0, 0, 0]))
+    assert routed.builds == 0 and state.step == 0
+
+
+@pytest.fixture(scope="module")
+def jax_adam_pp(jax_start):
+    """svs_tpu's n_micro = 1 PP step at split 3 with Adam at learning rate
+    0 (every call starts from the same parameters) over two calls: after
+    each the metrics, the BN running statistics and Adam's first moment
+    by the port's names."""
+    jcfg, _, state, start = jax_start
+    opt = optax.inject_hyperparams(optax.adam)(learning_rate=0.0)
+    mesh = jpp.make_pp_mesh()
+    step = jpp.make_pp_train_step(mesh, jcfg, opt, n_micro=1, split=3)
+    st = jpp.shard_state(jstep.create_train_state(jax.random.key(0), jcfg,
+                                                  opt), mesh, jcfg, split=3)
+    out = []
+    for batch in (_batch(), _batch(3)):
+        st, aux = step(st, batch, jax.random.key(7))
+        back = jpp.gather_state(st, jcfg, split=3)
+        sd = _sd(back.params, back.bn_state)
+        mu = _sd(back.opt_state.inner_state[0].mu, back.bn_state)
+        out.append(({k: float(v) for k, v in aux.items()},
+                    {k: v for k, v in sd.items() if "running" in k},
+                    {k: mu[k] for k in start if "running" not in k
+                     and "num_batches" not in k}))
+    return out
+
+
+def test_pp_program_matches_svs_tpus_jitted_pp_step(routed, jax_start,
+                                                    jax_adam_pp):
+    """The one-microbatch program (its first call the eager warm-up, its
+    second a replay) from svs_tpu's weights, Adam at learning rate 0, no
+    dropout: after each call the loss (rtol 2e-6), ``grad_norm`` (rtol
+    2e-4), the BN running statistics (atol 1e-5) and Adam's first moment
+    are svs_tpu's PP step's; then the eval program against svs_tpu's
+    jitted eval step (the loss's rtol 2e-6).  The first moment takes the
+    parameters' bound between the packages (atol 1e-4, rtol 1e-3 after an
+    SGD step of ``SGD_LR``) as a bound on the gradient, atol 1e-4 /
+    ``SGD_LR``: after the first call the moment is 0.1 of one gradient
+    (atol 1e-3), after the second 0.1 of one and 0.09 of the other (atol
+    1.9e-3)."""
+    _, _, _, start = jax_start
+    cfg = TConfig(**FULL)
+    state = _tstate(cfg, start, optimizer=None)
+    tstep.set_learning_rate(state, 0.0)
+    state = tpp.shard_state(state, CPU2, split=3)
+    step = tpp.make_pp_train_step(CPU2, cfg, n_micro=1, split=3)
+    grad_atol = 1e-4 / SGD_LR
+    for batch, (want_m, want_bn, want_mu), share in zip(
+            (_batch(), _batch(3)), jax_adam_pp, (0.1, 0.1 + 0.09)):
+        state, m = step(state, batch, torch.Generator().manual_seed(1))
+        np.testing.assert_allclose(float(m["total"]), want_m["total"],
+                                   rtol=2e-6)
+        np.testing.assert_allclose(float(m["grad_norm"]),
+                                   want_m["grad_norm"], rtol=2e-4)
+        sd, mu, _, _ = _snap(state)
+        for k, v in want_bn.items():
+            np.testing.assert_allclose(sd[k], v, atol=1e-5, rtol=0,
+                                       err_msg=k)
+        for k, v in want_mu.items():
+            np.testing.assert_allclose(mu[k], v, atol=share * grad_atol,
+                                       rtol=1e-3, err_msg=k)
+    train = [p for p in routed.programs_of(state.model)
+             if hasattr(p, "captures")]
+    assert [(p.captures, p.replays) for p in train] == [(1, 1)]
+
+    jcfg = JConfig(**FULL)
+    jst = jstep.create_train_state(jax.random.key(0), jcfg)
+    want = jstep.make_eval_step(jcfg)(jst, {k: jnp.asarray(v) for k, v in
+                                            _batch(9).items()})
+    fresh = tpp.shard_state(_tstate(cfg, start, optimizer=None), CPU2,
+                            split=3)
+    got = tpp.make_pp_eval_step(CPU2, cfg, split=3)(fresh, _batch(9))
+    for k in ("l1", "mr", "total"):
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=2e-6,
+                                   err_msg=k)
+
+
+def test_programmed_pp_fit_is_the_eager_fit(routed, songs, tmp_path,
+                                            monkeypatch):
+    """One epoch of ``fit(parallel='pp')`` with validation (batch 3 in 3
+    microbatches: a full batch and a tail padded to 3 rows, two of its
+    microbatches empty) through the programs: the eager fit's log and
+    final state, bit for bit."""
+    runs = {}
+    for form in ("programs", "eager"):
+        if form == "eager":
+            monkeypatch.setattr(graphs, "programmed", lambda dev: False)
+        out = str(tmp_path / form)
+        state = tloop.fit(_pp_opts(songs, out, epoch=1), TConfig(**FIT))
+        runs[form] = (_lines(out, "log_t.txt"), _snap(state))
+    (pl, ps), (el, es) = runs["programs"], runs["eager"]
+    assert pl == el and len(pl) == 2
+    for part, (a, b) in enumerate(zip(ps[:3], es[:3])):
+        _same_bits(a, b, f"state part {part}")
+    assert ps[3] == es[3]
+    assert routed.builds >= 3  # the full batch's, the tail's, an eval's

@@ -117,6 +117,32 @@ def decode(mesh, cfg_kw, state_dict, mag, vocal_solo):
                                             vocal_solo=vocal_solo)
 
 
+def decode_programs(mesh, n, cfg_kw, state_dict, mag):
+    """``separate_magnitude_mesh(mode="whole")`` of ``mag`` over the first
+    ``n`` ranks, both ways of ``vocal_solo`` twice each, through the
+    programs (``torch_dp_workers.decode_routed``), then eagerly: every
+    rank's outputs of each form and the programs its cache built and
+    holds (None beyond the first ``n`` ranks)."""
+    m = sub(mesh, n)
+    if m is None:
+        return None
+    model = W._state(SVSConfig(**cfg_kw), state_dict).model.eval()
+    out = {}
+    for form in ("program", "eager"):
+        with W.decode_routed(form == "program") as cache:
+            got = []
+            for solo in (True, False, True, False):
+                # every rank's mask, gathered in the program: rank 0's
+                # song and the others' None, as the decode returns them
+                got.append(separate.separate_magnitude_mesh(
+                    model, mag, m, mode="whole", vocal_solo=solo))
+            out[form] = got
+            out[f"{form}_builds"] = (cache.builds, len(cache))
+            out[f"{form}_mask"] = halo.make_time_sharded_apply(m)(
+                model, np.pad(mag, ((0, 0), (0, 68)))[None, 1:]).numpy()
+    return out
+
+
 def fit(mesh, n, opts_kw, cfg_kw):
     """``torch_dp_workers.fit`` over the first ``n`` ranks with
     ``parallel='cp'``."""

@@ -8,6 +8,7 @@ which the tests hold against svs_tpu in their own process.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import signal
 
@@ -114,6 +115,44 @@ def sp_decode(mesh, cfg_kw, state_dict, cases):
     return [separate.separate_magnitude_mesh(model, mag, mesh, mode=mode,
                                              vocal_solo=solo)
             for mag, mode, solo in cases]
+
+
+@contextlib.contextmanager
+def decode_routed(on: bool = True):
+    """The mesh decodes' masks through the decode's program objects on the
+    CPU (``on``, by the decode's switch ``separate._programmed``; the
+    CPU's decode is eager otherwise), in a fresh cache of programs: the
+    cache."""
+    from svs_torch.infer import graphs as infer_graphs
+    from svs_torch.infer import separate
+
+    cache = infer_graphs.ProgramCache()
+    was = separate._programmed, infer_graphs.CACHE
+    if on:
+        separate._programmed = lambda dev: True
+    infer_graphs.CACHE = cache
+    try:
+        yield cache
+    finally:
+        separate._programmed, infer_graphs.CACHE = was
+
+
+def sp_programs(mesh, cfg_kw, state_dict, cases):
+    """Each ``(mag, mode, vocal_solo)`` case of ``separate_magnitude_mesh``
+    twice through the programs (:func:`decode_routed`), then eagerly:
+    rank 0's outputs of each form (None elsewhere), and the programs each
+    rank's cache built and holds."""
+    from svs_torch.infer import separate
+
+    model = _state(SVSConfig(**cfg_kw), state_dict).model.eval()
+    out = {}
+    for form in ("program", "eager"):
+        with decode_routed(form == "program") as cache:
+            out[form] = [separate.separate_magnitude_mesh(
+                model, mag, mesh, mode=mode, vocal_solo=solo)
+                for mag, mode, solo in cases for _ in range(2)]
+            out[f"{form}_builds"] = (cache.builds, len(cache))
+    return out
 
 
 def fit(mesh, opts_kw, cfg_kw, stop=None):
