@@ -9,6 +9,18 @@ Phases, each printing what it found on its own line:
 1. device  — the card's name and its ``nvidia-smi`` name / power limit;
 2. build   — nvcc builds every hand-written kernel library from
              ``svs_torch/csrc`` (one nvcc per source, all started together);
+2b. clocks — the device phase clock (``profiling.mark``,
+             ``svs_torch/csrc/phase_clock.cu``): the kernel's arithmetic
+             against its plain version ``profiling._clock_plain`` fed the
+             stamps the kernel wrote (201 eager launches of seeded slots,
+             ``begin`` among them, the buffer the same int64s after each);
+             a graph of ``begin`` and two marks around chains of 4 and 8
+             float32 matmuls replayed 50 times with no synchronise: each
+             slot counts exactly 50, the phases' sum within 1 % of CUDA
+             events around the replays, each phase within 3 % of its work's
+             CUDA events outside any graph; the us a mark costs a replay
+             (1,000 marks in a graph) and the ns a span costs the host with
+             no profiler (plain and ``always``); one ``clocks:`` JSON line;
 3. kernels — each kernel against its plain PyTorch version on the card
              (TF32 off) at the main paths' shapes.  The front ends
              ``stft_magphase`` and ``stft_magnitude`` on both FFT routes:
@@ -433,6 +445,12 @@ CP_FRAMES, CP_ATOL = 3072, 3e-5
 # rows and real rows of its remix check, and the remix's bound against
 # the float64 numpy oracle (magnitudes relative to the largest, angles in
 # radians modulo 2 pi): svs_tpu's rtol against its oracle
+# the clocks phase: the seed and number of the eager launches held against
+# the plain version, the replays of the captured graph, its two pieces of
+# work (float32 matmuls of 2048 in a chain), the marks of the cost's graph
+# and the spans of the host's cost
+CLOCK_SEED, CLOCK_LAUNCHES, CLOCK_REPLAYS = 25, 200, 50
+CLOCK_WORK, CLOCK_MARKS, CLOCK_SPANS = (4, 8), 1000, 100_000
 MH_HOSTS, MH_LOCAL_BS, MH_SAMPLES = 2, 4, 3
 MH_AUG_ROWS, MH_AUG_REAL, MH_AUG_TOL = 8, 6, 1e-4
 
@@ -798,6 +816,110 @@ def frontend_phase(torch, np, cdsp, phase: bool):
                              "hop": 250}),
         "other_shapes": {k: v for k, v in timing.items() if k != main_label},
     }
+
+
+def phase_clock_phase(torch, np) -> dict:
+    """Phase 2b (the module's docstring): the phase clock kernel against
+    its plain version, then its phases against CUDA events, and its cost."""
+    from svs_torch.utils import profiling
+
+    dev = torch.device("cuda", 0)
+    launch = profiling._kernel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    size = 1 + 2 * profiling.PHASE_SLOTS
+
+    # the arithmetic: the kernel's buffer after each launch against the
+    # plain version's, given the stamp that launch wrote
+    buf = torch.zeros(size, dtype=torch.int64, device=dev)
+    plain = np.zeros(size, np.int64)
+    rng = np.random.default_rng(CLOCK_SEED)
+    slots = [-1] + [int(k) for k in rng.integers(
+        -1, profiling.PHASE_SLOTS, CLOCK_LAUNCHES)]
+    for slot in slots:
+        check(launch(buf.data_ptr(), slot, stream) == 0,
+              f"the phase clock kernel launched (slot {slot})")
+        got = buf.cpu().numpy()  # waits for the launch
+        check(got[0] >= plain[0], "the clock's stamps never go back")
+        profiling._clock_plain(plain, slot, int(got[0]))
+        check(np.array_equal(got, plain),
+              f"the clock kernel's buffer is _clock_plain's after slot "
+              f"{slot}")
+    check(plain[2::2].sum() == sum(k >= 0 for k in slots),
+          "every launch of a slot counted once")
+
+    # the phases of a captured graph against CUDA events
+    a = torch.randn(2048, 2048, device=dev) / math.sqrt(2048)
+    x = torch.randn(2048, 2048, device=dev)
+
+    def work(n):
+        y = x
+        for _ in range(n):
+            y = a @ y
+        return y
+
+    def body():
+        profiling.mark(profiling.BEGIN, dev)
+        work(CLOCK_WORK[0])
+        profiling.mark("smoke.short", dev)
+        work(CLOCK_WORK[1])
+        profiling.mark("smoke.long", dev)
+
+    body()  # the first marks: eager, so the buffer is made outside a capture
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    eager_ms = [cuda_ms(torch, lambda n=n: work(n), reps=CLOCK_REPLAYS)
+                for n in CLOCK_WORK]
+    profiling.reset()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(CLOCK_REPLAYS):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    timed_ms = start.elapsed_time(end) / CLOCK_REPLAYS
+    eager_ms = [(e + cuda_ms(torch, lambda n=n: work(n), reps=CLOCK_REPLAYS))
+                / 2 for e, n in zip(eager_ms, CLOCK_WORK)]
+    phases = profiling.snapshot()["phases"]["cuda"]
+    names = ("smoke.short", "smoke.long")
+    check({n: phases[n]["count"] for n in names}
+          == dict.fromkeys(names, CLOCK_REPLAYS),
+          f"each phase counted once a replay: {phases}")
+    clocked_ms = [1e3 * phases[n]["s"] / CLOCK_REPLAYS for n in names]
+    check(abs(sum(clocked_ms) - timed_ms) <= 0.01 * timed_ms,
+          f"the phases' sum {clocked_ms} ms against the replay's "
+          f"{timed_ms:.4f} ms by CUDA events")
+    for n, got, want in zip(names, clocked_ms, eager_ms):
+        check(abs(got - want) <= 0.03 * want,
+              f"phase {n}: {got:.4f} ms against its work's {want:.4f} ms "
+              "by CUDA events")
+
+    # the cost: a mark in a replay, a span on the host with no profiler
+    marks = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(marks):
+        for _ in range(CLOCK_MARKS):
+            profiling.mark("smoke.mark", dev)
+    mark_us = 1e3 * cuda_ms(torch, marks.replay, reps=10) / CLOCK_MARKS
+    span_ns = {}
+    for label, always in (("plain", False), ("always", True)):
+        t0 = time.perf_counter_ns()
+        for _ in range(CLOCK_SPANS):
+            with profiling.annotate("smoke.span", always=always):
+                pass
+        span_ns[label] = (time.perf_counter_ns() - t0) / CLOCK_SPANS
+    profiling.reset()
+    line = {"launches": len(slots), "replays": CLOCK_REPLAYS,
+            "phase_ms": dict(zip(names, clocked_ms)),
+            "events_ms": dict(zip(names, eager_ms)),
+            "replay_events_ms": timed_ms, "mark_us": mark_us,
+            "span_ns_no_profiler": span_ns}
+    print("clocks: " + json.dumps(line))
+    return line
 
 
 def build_phase(build, names, reported) -> None:
@@ -4788,9 +4910,12 @@ def main(argv=None) -> int:
 
     seconds = {}
     t0 = time.perf_counter()
-    build_phase(build, [*cdsp.KERNELS, cdm.KERNEL, cfl.KERNEL],
-                [cdm.KERNEL, cfl.KERNEL])
+    build_phase(build, [*cdsp.KERNELS, cdm.KERNEL, cfl.KERNEL,
+                        "phase_clock"], [cdm.KERNEL, cfl.KERNEL])
     seconds["build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_clock_phase(torch, np)
+    seconds["clocks"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     entries = [frontend_phase(torch, np, cdsp, phase=True),

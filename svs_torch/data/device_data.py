@@ -55,6 +55,7 @@ import torch
 
 from svs_torch.data.dataset import PLANE_KEYS, PatchDataset
 from svs_torch.parallel import halo
+from svs_torch.utils import profiling
 from svs_torch.utils.device import DeviceLike, resolve_device
 
 _KEYS = PLANE_KEYS
@@ -137,9 +138,13 @@ class DeviceDataset:
 
     def gather(self, songs: np.ndarray, starts: np.ndarray
                ) -> Dict[str, torch.Tensor]:
-        """One batch at explicit (song, start) indices."""
+        """One batch at explicit (song, start) indices.  The index copies
+        are from pageable memory, so the host waits there for the card
+        (the span ``svs.train.feed.wait``)."""
         def index(a):
-            return torch.as_tensor(np.asarray(a, np.int64)).to(self.device)
+            with profiling.annotate("svs.train.feed.wait", always=True):
+                return torch.as_tensor(np.asarray(a, np.int64)).to(
+                    self.device)
         if not self.time_sharded:
             return gather_crops(self.planes, index(songs), index(starts),
                                 self.input_len)
@@ -161,11 +166,21 @@ class DeviceDataset:
         prefetch: int = 2,  # unused: the gather is enqueued, not waited on
         n_steps: Optional[int] = None,
     ) -> Iterator[Dict[str, torch.Tensor]]:
+        """The epoch's batches; each draw of the host's indices, with its
+        gather, is the span ``svs.train.feed`` (the epoch's last draw,
+        which finds none, too), closed before the batch is yielded."""
         n_songs = self.host.n_songs
-        for idxs, starts in self.host.index_batches(
-                batch_size, shuffle=shuffle, seed=seed,
-                drop_last=drop_last, n_steps=n_steps):
-            yield self.gather(np.asarray(idxs) % n_songs, starts)
+        stream = self.host.index_batches(
+            batch_size, shuffle=shuffle, seed=seed, drop_last=drop_last,
+            n_steps=n_steps)
+        while True:
+            with profiling.annotate("svs.train.feed", always=True):
+                drawn = next(stream, None)
+                if drawn is None:
+                    return
+                batch = self.gather(np.asarray(drawn[0]) % n_songs,
+                                    drawn[1])
+            yield batch
 
 
 class MultiHostDeviceDataset(DeviceDataset):

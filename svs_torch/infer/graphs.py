@@ -55,12 +55,16 @@ for the process; :data:`CACHE` is it.
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
+import time
 import weakref
-from typing import Callable, Hashable, Optional
+from typing import Callable, Dict, Hashable, Optional
 
 import torch
 import torch.nn as nn
+
+from svs_torch.utils import profiling
 
 # The bound on the bytes all cached programs hold.  A program of the
 # ``default`` preset holds 51-103 MB for a 60-s song and 143-245 MB for a
@@ -193,15 +197,39 @@ class Program:
 
 class ProgramCache:
     """The programs by key, least recently used first, within
-    ``max_bytes``."""
+    ``max_bytes``.  Its counters are published to the profiling registry
+    (``profiling.snapshot()['counters']``, summed over the live caches)."""
 
     def __init__(self, max_bytes: int = MAX_BYTES):
         self.max_bytes = max_bytes
         self.builds = 0  # programs built (captured on the card)
         self.evictions = 0  # programs dropped past the bound
+        self.build_s = 0.0  # seconds in builds (:meth:`building`)
         self._programs: "collections.OrderedDict[Hashable, Program]" = (
             collections.OrderedDict())
-        self._lock = threading.Lock()
+        # re-entrant: a lookup builds under it, and the build adds its
+        # seconds under it
+        self._lock = threading.RLock()
+        profiling.publish(self)
+
+    def counters(self) -> Dict[str, float]:
+        return {"program.builds": self.builds,
+                "program.evictions": self.evictions,
+                "program.build_s": self.build_s}
+
+    @contextlib.contextmanager
+    def building(self):
+        """A build of one of this cache's programs (a lookup's, or a train
+        program's eager warm-up and capture at a later call): the span
+        ``svs.program.build`` (``always``), its seconds added to
+        ``build_s``."""
+        t0 = time.perf_counter()
+        try:
+            with profiling.annotate("svs.program.build", always=True):
+                yield
+        finally:
+            with self._lock:
+                self.build_s += time.perf_counter() - t0
 
     def __len__(self) -> int:
         return len(self._programs)
@@ -252,7 +280,8 @@ class ProgramCache:
                 for k in [k for k, p in self._programs.items()
                           if k == key or p.model() is None]:
                     del self._programs[k]
-                prog = build()
+                with self.building():
+                    prog = build()
                 self.builds += 1
                 self._programs[key] = prog
             while len(self._programs) > 1 and self.nbytes > self.max_bytes:

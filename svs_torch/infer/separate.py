@@ -53,6 +53,7 @@ import torch.nn.functional as F
 from svs_torch.infer import graphs
 from svs_torch.ops import stft as dsp
 from svs_torch.parallel.mesh import Mesh, crosses, host_collectives
+from svs_torch.utils import profiling
 from svs_torch.utils.config import SVSConfig
 from svs_torch.utils.device import DeviceLike, resolve_device
 
@@ -320,14 +321,20 @@ def separate_magnitude_mesh(
 
 
 def _separate_padded(model, y: torch.Tensor, cfg: SVSConfig,
-                     vocal_solo: bool, both: bool, mode: str):
+                     vocal_solo: bool, both: bool, mode: str,
+                     finish=None):
     """Padded waveform -> separated waveform(s) of the padded length
-    (separate.py:243-281).
+    (separate.py:243-281); ``finish``: applied to each output last (the
+    PCM16 re-quantisation).
 
     Uses the exact complex spectrogram and keeps the absolute scale (the
-    file-mediated path loses the norm factor and re-normalises to 0.9)."""
+    file-mediated path loses the norm factor and re-normalises to 0.9).
+    Marks its phases (``profiling.mark``): the STFT, the U-Net, then the
+    mask, the iSTFT and ``finish``."""
+    profiling.mark(profiling.BEGIN, y.device)
     spec = dsp.stft(y, n_fft=cfg.window_size, hop_length=cfg.hop_size)
     mag = torch.abs(spec)
+    profiling.mark("decode.stft", y.device)
     norm = torch.clamp(mag.max(), min=1e-12)  # mixture-max norm (data.py:84-85)
 
     f, t = mag.shape
@@ -336,19 +343,20 @@ def _separate_padded(model, y: torch.Tensor, cfg: SVSConfig,
     mag_in = F.pad(mag[1:] / norm, (0, t_padded - t))
 
     mask = _mask_frames(model, mag_in, cfg, vocal_solo, mode)[:, :t]
+    profiling.mark("decode.unet", y.device)
     mask = torch.cat([torch.zeros_like(mask[:1]), mask])  # DC row 0
 
     def decode(m):
-        return dsp.istft(spec * m, hop_length=cfg.hop_size,
-                         win_length=cfg.window_size, n_fft=cfg.window_size,
-                         length=y.shape[-1])
+        out = dsp.istft(spec * m, hop_length=cfg.hop_size,
+                        win_length=cfg.window_size, n_fft=cfg.window_size,
+                        length=y.shape[-1])
+        return out if finish is None else finish(out)
 
-    vocal = decode(mask)
-    if both:
-        # both=True complements the DC-zeroed mask (accomp DC weight 1), so
-        # vocal + accomp reconstruct the input exactly
-        return vocal, decode(1.0 - mask)
-    return vocal
+    # both=True complements the DC-zeroed mask (accomp DC weight 1), so
+    # vocal + accomp reconstruct the input exactly
+    outs = (decode(mask), decode(1.0 - mask)) if both else decode(mask)
+    profiling.mark("decode.istft", y.device)
+    return outs
 
 
 def _separate_padded_pcm16(model, y_i16: torch.Tensor, cfg: SVSConfig,
@@ -358,9 +366,10 @@ def _separate_padded_pcm16(model, y_i16: torch.Tensor, cfg: SVSConfig,
     bytes that cross the host link.  ``torch.round`` rounds half to even,
     as ``jnp.round`` does."""
     y = y_i16.to(torch.float32) / 32768.0
-    out = _separate_padded(model, y, cfg, vocal_solo, False, mode)
-    return torch.clamp(torch.round(out * 32768.0), -32768,
-                       32767).to(torch.int16)
+    return _separate_padded(
+        model, y, cfg, vocal_solo, False, mode,
+        finish=lambda out: torch.clamp(torch.round(out * 32768.0), -32768,
+                                       32767).to(torch.int16))
 
 
 def _padded_len(n: int, cfg: SVSConfig) -> int:
@@ -395,7 +404,19 @@ def separate_wav_stream(
     its replay and its static output into a fresh tensor just after.
     Every buffer of a song is held until its result is read, so no stream
     reads freed memory.
+
+    Spans: ``svs.decode.call`` the whole call; on the card, a song's
+    ``svs.decode.stage_in`` (its pinned buffer, zeroed and filled, and the
+    copy's enqueue), ``svs.decode.replay`` (the program's lookup and
+    replay) and ``svs.decode.collect`` (with ``.wait``, the wait for its
+    copy back).
     """
+    with profiling.annotate("svs.decode.call", always=True):
+        return _stream(model, songs, vocal_solo, pcm16, mode, device)
+
+
+def _stream(model, songs, vocal_solo: bool, pcm16: bool, mode: str,
+            device: DeviceLike) -> List[np.ndarray]:
     cfg = model.cfg
     _check(model, mode)
     dev = _model_device(model, device)
@@ -419,15 +440,17 @@ def separate_wav_stream(
     t_dtype = torch.int16 if pcm16 else torch.float32
     outs, pending = [], None
     for y in songs:
-        y = np.asarray(y, np_dtype)
-        n = len(y)
-        host_in = torch.zeros(_padded_len(n, cfg), dtype=t_dtype,
-                              pin_memory=True)
-        host_in.numpy()[:n] = y
-        with torch.cuda.stream(h2d):
-            y_dev = host_in.to(dev, non_blocking=True)
+        with profiling.annotate("svs.decode.stage_in"):
+            y = np.asarray(y, np_dtype)
+            n = len(y)
+            host_in = torch.zeros(_padded_len(n, cfg), dtype=t_dtype,
+                                  pin_memory=True)
+            host_in.numpy()[:n] = y
+            with torch.cuda.stream(h2d):
+                y_dev = host_in.to(dev, non_blocking=True)
         compute.wait_stream(h2d)
-        out = run(y_dev)[:n]
+        with profiling.annotate("svs.decode.replay"):
+            out = run(y_dev)[:n]
         d2h.wait_stream(compute)
         host_out = torch.empty(n, dtype=t_dtype, pin_memory=True)
         with torch.cuda.stream(d2h):
@@ -447,8 +470,10 @@ def separate_wav_stream(
 def _collect(done: torch.cuda.Event, host_out: torch.Tensor) -> np.ndarray:
     """Wait for one song's device-to-host copy; a copy out of the pinned
     buffer, which then goes back to the allocator."""
-    done.synchronize()
-    return host_out.numpy().copy()
+    with profiling.annotate("svs.decode.collect"):
+        with profiling.annotate("svs.decode.collect.wait", always=True):
+            done.synchronize()
+        return host_out.numpy().copy()
 
 
 @torch.inference_mode()

@@ -70,11 +70,12 @@ def _compile(names: Sequence[str]) -> None:
             out = _lib_path(name)
             if os.path.exists(out):
                 continue
+            nvcc = _nvcc()  # before the temporary file it would leave
             os.makedirs(BUILD_DIR, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
             proc = subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                [nvcc, *NVCC_FLAGS, "-o", tmp,
                  os.path.join(SRC_DIR, f"{name}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             jobs.append((name, out, tmp, proc))

@@ -100,6 +100,7 @@ import torch
 from svs_torch.infer import graphs as infer_graphs
 from svs_torch.parallel import mesh as mesh_lib
 from svs_torch.train.step import TrainState, _accumulator
+from svs_torch.utils import profiling
 
 # The bound on the bytes all cached step programs hold.  A train program of
 # the ``default`` preset at B = 32 holds its pool of the step's activations
@@ -248,7 +249,8 @@ def replay(state: TrainState, graphs) -> Metrics:
     ``_apply`` did.  Returns that graph's static outputs."""
     k = state.mini_step
     graph, out = graphs[k]
-    graph.replay()
+    with profiling.annotate("svs.train.replay"):
+        graph.replay()
     state.step += 1
     state.mini_step = (k + 1) % state.accum_steps
     state.acc_grads = state.acc_buffers if state.mini_step else None
@@ -321,7 +323,8 @@ class TrainProgram:
                                  self.own)
 
         if not (self.warm and adam_ready(state)):
-            _, metrics = warm_up(state, run, 1, self.device)
+            with CACHE.building():
+                _, metrics = warm_up(state, run, 1, self.device)
             self.warm = True
             return state, self._copy_out(metrics)
         adopt_cycle(state)
@@ -335,8 +338,9 @@ class TrainProgram:
             # leaves no binding, so the next call captures again
             self.graphs = self.binding = None
             if cuda:
-                self.graphs, self.pool_bytes = capture(
-                    state, run, generators, self.device)
+                with CACHE.building():
+                    self.graphs, self.pool_bytes = capture(
+                        state, run, generators, self.device)
             self.binding, self.generators = now, generators
             self.captures += 1
         if cuda:
@@ -423,7 +427,9 @@ def train_step(cfg, body: TrainBody, layout: str = "single", mesh=None,
     ``body(state, batch, generator, part, gens)``, ``gens`` one generator
     a seed, on ``generator``'s device: new ones in the eager form, the
     program's own in a program (registered with its graphs, re-seeded
-    before every call).  The eager form is ``step.eager``."""
+    before every call).  The eager form is ``step.eager``.  A call is the
+    span ``svs.train.step`` (the program's lookup, staging the batch, the
+    replay, the host's bookkeeping, the metrics' copy-out)."""
 
     def eager(state: TrainState, batch: Batch,
               generator: Optional[torch.Generator] = None):
@@ -441,14 +447,15 @@ def train_step(cfg, body: TrainBody, layout: str = "single", mesh=None,
 
     def step(state: TrainState, batch: Batch,
              generator: Optional[torch.Generator] = None):
-        if not _on(state, mesh):
-            return eager(state, batch, generator)
-        if check is not None:
-            check(state)
-        part, seeds = (prepare(state, batch, generator) if prepare
-                       else (None, ()))
-        return train_program(state, cfg, batch, body, layout, mesh, part)(
-            state, batch, generator, seeds)
+        with profiling.annotate("svs.train.step", always=True):
+            if not _on(state, mesh):
+                return eager(state, batch, generator)
+            if check is not None:
+                check(state)
+            part, seeds = (prepare(state, batch, generator) if prepare
+                           else (None, ()))
+            return train_program(state, cfg, batch, body, layout, mesh,
+                                 part)(state, batch, generator, seeds)
 
     step.eager = eager
     return step

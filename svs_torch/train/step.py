@@ -35,6 +35,7 @@ import torch
 
 from svs_torch.losses.mrstft import combined_loss
 from svs_torch.models.unet import UNet
+from svs_torch.utils import profiling
 from svs_torch.utils.config import SVSConfig
 from svs_torch.utils.device import DeviceLike, resolve_device
 
@@ -207,6 +208,7 @@ def _step_body(cfg: SVSConfig):
              ) -> Dict[str, torch.Tensor]:
         grads, metrics = loss_and_grads(cfg, state, batch, generator)
         _apply(state, grads)
+        profiling.mark("train.optimizer", batch["mix"].device)
         return metrics
 
     return body
@@ -218,18 +220,31 @@ def loss_and_grads(cfg: SVSConfig, state: TrainState,
                    ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
     """The step before its optimiser call: the train-mode forward (BN
     running statistics updated in place), the combined loss and the
-    parameters' gradients, with the step's metrics."""
+    parameters' gradients, with the step's metrics.  It marks its phases
+    (``profiling.mark``): the U-Net's forward, the loss's forward, the
+    loss's backward (a hook on the mask's gradient, which is whole once
+    the loss's backward is done) and the U-Net's backward."""
+    dev = batch["mix"].device
+    profiling.mark(profiling.BEGIN, dev)
     model = state.model.train()
     weight = batch.get("weight")
     params = list(model.parameters())
     mask = model(batch["mix"], weight=weight, generator=generator)
+    profiling.mark("train.unet_fwd", dev)
+    mask.register_hook(_mark_loss_bwd)
     total, aux = combined_loss(mask, batch["mix"], batch["voc"],
                                batch["mix_angle"], batch["voc_angle"],
                                cfg, weight=weight)
+    profiling.mark("train.loss_fwd", dev)
     grads = torch.autograd.grad(total, params)
+    profiling.mark("train.unet_bwd", dev)
     metrics = {k: v.detach() for k, v in aux.items()}
     metrics["grad_norm"] = global_norm(grads)
     return list(grads), metrics
+
+
+def _mark_loss_bwd(grad: torch.Tensor) -> None:
+    profiling.mark("train.loss_bwd", grad.device)
 
 
 def make_train_step(cfg: Optional[SVSConfig] = None):

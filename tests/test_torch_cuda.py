@@ -29,6 +29,7 @@ Tolerances:
 """
 
 import ctypes
+import time
 
 import numpy as np
 import pytest
@@ -1380,3 +1381,74 @@ def _eval_unet(cfg, card):
     from svs_torch.models.unet import UNet
     return UNet(cfg, generator=torch.Generator().manual_seed(0)).to(
         card).eval()
+
+
+# ----------------------------------------------------------- phase clocks
+# ``profiling.mark`` inside the captured train step: every replay adds its
+# five phases on the card (the eager warm-up adds none), read once by
+# ``profiling.snapshot``.  The phases cover each replay from its first
+# kernel to its last; CUDA events around the calls cover the replays, the
+# batch's copy in and the metrics' copy out (tens of microseconds a step of
+# milliseconds): the two agree within 5 %.  A replay that starts long after
+# the previous one ends adds no more than its own time: its ``begin`` mark
+# stamps the start, so the gap between the two is never counted.
+
+CLOCK_STEPS = 6
+
+
+@pytest.mark.cuda
+def test_phase_marks_of_a_captured_step_add_up_on_the_card(card, step_cache,
+                                                          monkeypatch):
+    from svs_torch.train import step as tstep
+    from svs_torch.utils import profiling
+    from svs_torch.utils.config import get_config
+
+    cfg = get_config("default")
+    state = tstep.create_train_state(0, cfg, device=card)
+    step = tstep.make_train_step(cfg)
+    gen = torch.Generator(card).manual_seed(1)
+    src = torch.Generator().manual_seed(5)
+    batch = {k: torch.rand((16, 512, 128), generator=src).to(card)
+             for k in ("mix", "voc", "mix_angle", "voc_angle")}
+    names = ("train.unet_fwd", "train.loss_fwd", "train.loss_bwd",
+             "train.unet_bwd", "train.optimizer")
+    profiling.reset()
+    for _ in range(2):  # the eager warm-up, then the capture and a replay
+        state, _ = step(state, batch, gen)
+    phases = profiling.snapshot()["phases"]["cuda"]
+    assert {n: phases[n]["count"] for n in names} == dict.fromkeys(names, 1)
+    profiling.reset()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a synchronise during the replays")
+
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "synchronize", refuse)
+        m.setattr(torch.cuda.Event, "synchronize", refuse)
+        m.setattr(torch.cuda.Stream, "synchronize", refuse)
+        start.record()
+        for _ in range(CLOCK_STEPS):
+            state, _ = step(state, batch, gen)
+        end.record()
+    phases = profiling.snapshot()["phases"]["cuda"]
+    assert {n: phases[n]["count"] for n in names} == dict.fromkeys(
+        names, CLOCK_STEPS)
+    assert all(phases[n]["s"] > 0 for n in names)
+    clocked = sum(phases[n]["s"] for n in names)
+    timed = start.elapsed_time(end) / 1e3
+    assert abs(clocked - timed) <= 0.05 * timed, (clocked, timed)
+
+    # one replay a quarter second after the last: its phases add its own
+    # time, not the gap
+    before = profiling.snapshot()["phases"]["cuda"]
+    time.sleep(0.25)
+    start.record()
+    state, _ = step(state, batch, gen)
+    end.record()
+    after = profiling.snapshot()["phases"]["cuda"]
+    added = sum(after[n]["s"] - before[n]["s"] for n in names)
+    timed = start.elapsed_time(end) / 1e3
+    assert {n: after[n]["count"] - before[n]["count"] for n in names} == \
+        dict.fromkeys(names, 1)
+    assert 0 < added <= 1.05 * timed, (added, timed)
