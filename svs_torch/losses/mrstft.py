@@ -13,16 +13,30 @@ train.py:26, default resolutions) and its ``specific_istft`` helper
 - total = mean over resolutions
 
 ``mr_mag_impl`` picks how the magnitudes are computed: ``fft`` (torch.fft,
-the exact path), ``matmul_bf16`` (frames @ windowed-DFT basis as a bf16
-``torch.matmul``, the default), ``pallas_bf16`` (the ``spectral_mag`` CUDA
-kernels) and ``pallas_fused`` / ``pallas_fused_wide`` (the
-``loss_partials`` CUDA kernels, which never write a magnitude).  The names
-are svs_tpu's; the last three run hand-written Hopper kernels on a CUDA
-tensor and their plain PyTorch versions on the CPU.
+the exact path), ``matmul_bf16`` (frames @ windowed-DFT basis in bf16 with
+f32 accumulation, the spectrum stored as bf16 before it is squared; the
+default), ``pallas_bf16`` (the ``spectral_mag`` CUDA kernels) and
+``pallas_fused`` / ``pallas_fused_wide`` (the ``loss_partials`` CUDA
+kernels, which never write a magnitude).  The names are svs_tpu's; the last
+three run hand-written Hopper kernels on a CUDA tensor and their plain
+PyTorch versions on the CPU.
+
+``matmul_bf16`` is one function with two routes, chosen by what the input
+shows.  On an sm_90 card, float32 waveforms whose geometry the loss kernels
+take (``fused_loss.card_takes``), with a target that needs no gradient,
+run as the ``loss_partials`` kernels' rounded instances: the same bf16
+basis and signal, f32 accumulation, the spectrum rounded to bf16 before
+the power, the same sums, and a backward that scales the rounded re/im as
+autograd does through the cast.  Everything else runs the PyTorch
+composition (``_spectral_mag_matmul``: a bf16 ``torch.matmul`` with a bf16
+output, then the magnitude and the sums as tensor ops), as on the CPU; a
+CUDA call that takes it is counted (``matmul_bf16_fallbacks``).  Both
+counts are in ``profiling.snapshot()['counters']``.
 """
 
 from __future__ import annotations
 
+import sys
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,7 +47,19 @@ from svs_torch.losses.masked_l1 import abs_like_jax, masked_l1_pair
 from svs_torch.ops import stft as dsp
 from svs_torch.ops.cuda import diff_mag, fused_loss
 from svs_torch.parallel.mesh import Mesh, all_sum
+from svs_torch.utils import profiling
 from svs_torch.utils.config import SVSConfig
+
+# matmul_bf16 calls on a CUDA tensor that the loss kernels did not take
+matmul_bf16_fallbacks = 0
+
+
+def counters() -> Dict[str, int]:
+    """The count as ``profiling.snapshot()['counters']`` shows it."""
+    return {"mrstft.matmul_bf16_fallbacks": matmul_bf16_fallbacks}
+
+
+profiling.publish(sys.modules[__name__])
 
 
 def patch_istft(mag: torch.Tensor, angle: torch.Tensor, *, n_fft: int = 1024,
@@ -125,6 +151,25 @@ def _root0(ss: torch.Tensor) -> torch.Tensor:
     return torch.where(live, root, torch.zeros_like(ss))
 
 
+def _kernels_take(x: torch.Tensor, y: torch.Tensor, n_fft: int, hop: int,
+                  win: int, weight: Optional[torch.Tensor]) -> bool:
+    """Whether ``matmul_bf16`` runs as the loss kernels: the kernels take
+    the waveforms (``fused_loss.card_takes``), the target needs no
+    gradient (the kernels differentiate the prediction only), and a
+    ``weight`` comes with (B, T) waveforms.  A CUDA call refused here is
+    counted in ``matmul_bf16_fallbacks``."""
+    global matmul_bf16_fallbacks
+    if x.device.type != "cuda":
+        return False
+    if (not y.requires_grad and (weight is None or x.ndim == 2)
+            and fused_loss.card_takes(x.reshape(-1, x.shape[-1]),
+                                      y.reshape(-1, y.shape[-1]),
+                                      n_fft, hop, win)):
+        return True
+    matmul_bf16_fallbacks += 1
+    return False
+
+
 def stft_loss(x: torch.Tensor, y: torch.Tensor, n_fft: int, hop: int,
               win: int, w_sc: float = 1.0, w_log_mag: float = 1.0,
               impl: str = "matmul_bf16",
@@ -143,8 +188,12 @@ def stft_loss(x: torch.Tensor, y: torch.Tensor, n_fft: int, hop: int,
     are the log-magnitude sum and ``sum(weight)``.
 
     Prediction and target run as separate magnitude calls on purpose: the
-    target needs no gradient, so its backward never runs."""
-    if impl in ("pallas_fused", "pallas_fused_wide"):
+    target needs no gradient, so its backward never runs.  ``matmul_bf16``
+    takes the loss kernels' rounded instances where
+    :func:`_kernels_take` says so (module docstring)."""
+    rounded = impl == "matmul_bf16" and _kernels_take(x, y, n_fft, hop,
+                                                      win, weight)
+    if rounded or impl in ("pallas_fused", "pallas_fused_wide"):
         if x.ndim != 2:
             x = x.reshape(-1, x.shape[-1])
             y = y.reshape(-1, y.shape[-1])
@@ -152,8 +201,15 @@ def stft_loss(x: torch.Tensor, y: torch.Tensor, n_fft: int, hop: int,
                 raise ValueError(f"{impl}: weight needs (B, T) inputs")
         return fused_loss.stft_loss_fused(
             x, y, n_fft, hop, win, weight=weight, w_sc=w_sc,
-            w_log_mag=w_log_mag, wide=impl.endswith("_wide"), group=group)
-    mag = _MAG_IMPLS[impl]
+            w_log_mag=w_log_mag, wide=impl.endswith("_wide"), group=group,
+            rounded=rounded)
+    return _composed_loss(x, y, n_fft, hop, win, _MAG_IMPLS[impl], w_sc,
+                          w_log_mag, weight, group)
+
+
+def _composed_loss(x, y, n_fft, hop, win, mag, w_sc, w_log_mag, weight,
+                   group):
+    """:func:`stft_loss` from the magnitudes ``mag`` gives, as tensor ops."""
     x_mag = mag(x, n_fft, hop, win)
     y_mag = mag(y, n_fft, hop, win)
     if weight is None:

@@ -105,10 +105,12 @@ from svs_torch.utils import profiling
 # The bound on the bytes all cached step programs hold.  A train program of
 # the ``default`` preset at B = 32 holds its pool of the step's activations
 # and its static batch: 0.82 / 1.58 / 2.35 GB under ``pallas_fused`` /
-# ``pallas_bf16`` / ``matmul_bf16``, 0.52 / 1.00 / 1.44 GB at a tail of
-# 20 rows; with validation's two programs (0.13-1.16 GB each) a ``fit``
-# holds 1.68 / 3.89 / 5.69 GB (H100, ``chip_smoke.py``'s step graph
-# phase).  8 GiB keeps a ``fit``'s four programs under every loss path and
+# ``pallas_bf16`` / ``matmul_bf16``'s PyTorch composition (which the card
+# now runs only where the loss kernels do not serve; on them
+# ``matmul_bf16`` holds what ``pallas_fused`` holds), 0.52 / 1.00 / 1.44 GB
+# at a tail of 20 rows; with validation's two programs (0.13-1.16 GB each)
+# a ``fit`` holds 1.68 / 3.89 / 5.69 GB (H100, ``chip_smoke.py``'s step
+# graph phase).  8 GiB keeps a ``fit``'s four programs under every loss path and
 # leaves 89 % of an 80-GB card to the run.
 MAX_BYTES = 8 << 30
 

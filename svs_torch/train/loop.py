@@ -32,7 +32,8 @@ from ``seed + 1`` (svs_tpu's ``jax.random.key(seed + 1)``; the two streams
 differ).  The MR-STFT loss's magnitudes follow ``cfg.mr_mag_impl``: the
 CUDA kernels ``pallas_fused`` / ``pallas_fused_wide`` (loss_partials) and
 ``pallas_bf16`` (spectral_mag) run here when ``fit`` is given such a
-config; the default stays ``matmul_bf16``.
+config; the default stays ``matmul_bf16``, which on the card runs the
+loss_partials kernels' rounded instances (``losses/mrstft.py``).
 
 ``epoch_scan`` runs each epoch's full batches as replays of one captured
 CUDA graph of the step (:mod:`svs_torch.train.scan`; eager on the CPU),

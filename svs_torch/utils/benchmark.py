@@ -31,6 +31,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from svs_torch.ops.cuda import fused_loss
 from svs_torch.utils.device import DeviceLike, resolve_device
 from svs_torch.utils.profiling import fetch_barrier
 
@@ -139,9 +140,11 @@ def train_step_bench(cfg=None, batch_size: int = 32, steps: int = 100,
     ``train_flops_per_step`` is what ``torch.utils.flop_counter`` counts over
     one eager body step (forward, backward and Adam; the convs and
     matmuls), taken before the program's warm-up and capture, which would
-    count again.  Under a kernel-backed ``mr_mag_impl`` it is None: the hand
-    kernels are launched through ctypes, invisible to the counter, and a
-    partial count would understate the MFU.  ``hbm_gibps`` (a same-run
+    count again.  Under a kernel-backed ``mr_mag_impl``, and under
+    ``matmul_bf16`` where it ran the loss kernels (on the card,
+    ``losses/mrstft.py``), it is None: the hand kernels are launched
+    through ctypes, invisible to the counter, and a partial count would
+    understate the MFU.  ``hbm_gibps`` (a same-run
     :func:`hbm_bandwidth_bench`) is reported beside it."""
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -164,10 +167,13 @@ def train_step_bench(cfg=None, batch_size: int = 32, steps: int = 100,
     eager, program = make_step_fn(cfg), make_train_step(cfg)
     gen = torch.Generator(dev).manual_seed(2)
 
+    launched = fused_loss.fwd_launches
     with FlopCounterMode(display=False) as counter:
         state, aux = eager(state, batch, gen)  # one eager step, counted
     fetch_barrier(aux["total"])
-    flops_per_step = (None if cfg.mr_mag_impl in _KERNEL_MAG_IMPLS
+    hidden = (cfg.mr_mag_impl in _KERNEL_MAG_IMPLS
+              or fused_loss.fwd_launches != launched)
+    flops_per_step = (None if hidden
                       else float(counter.get_total_flops()) or None)
 
     def best_secs(step):

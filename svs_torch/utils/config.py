@@ -56,9 +56,11 @@ class SVSConfig:
     mr_hop_sizes: Tuple[int, ...] = (120, 240, 50)
     mr_win_lengths: Tuple[int, ...] = (600, 1200, 240)
     # loss magnitude implementation (svs_torch/losses/mrstft.py):
-    # 'matmul_bf16' (windowed-DFT matmuls, the default), 'fft' (exact
-    # auraloss-parity path), or the hand-written CUDA kernels 'pallas_bf16'
-    # (spectral_mag), 'pallas_fused' and 'pallas_fused_wide' (loss_partials)
+    # 'matmul_bf16' (windowed-DFT matmuls with a bf16 output, the default;
+    # on an sm_90 card the loss_partials kernels' rounded instances), 'fft'
+    # (exact auraloss-parity path), or the hand-written CUDA kernels
+    # 'pallas_bf16' (spectral_mag), 'pallas_fused' and 'pallas_fused_wide'
+    # (loss_partials)
     mr_mag_impl: str = "matmul_bf16"
 
     # --- compute ---

@@ -22,7 +22,11 @@ Tolerances:
   rounds the scaled re/im cotangents to bf16 on both sides, where one f32
   ulp of difference moves a value by a bf16 ulp, so gradients are held to
   max|d|/max|g| < 2e-2 and cosine > 0.9999 (tests/test_fused_loss.py's
-  bounds between two bf16 paths).
+  bounds between two bf16 paths).  The rounded instances
+  (``mr_mag_impl='matmul_bf16'``) are held to their rounded plain twin at
+  the same bounds, and the loss through them to the PyTorch composition at
+  tests/test_torch_losses.py's ``matmul_bf16`` bounds (1e-3 relative on
+  values, the gradients' as above).
 - the decode's captured programs (``svs_torch/infer/graphs.py``): a replay
   runs the eager body's kernels in its order, so it gives the eager body's
   bits (PCM16: 0 LSB), with cuDNN's deterministic algorithms for float32.
@@ -48,10 +52,14 @@ ATOL, RTOL = 2e-3, 1e-4
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    allow = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False  # plain version: true f32
+    matmul = torch.backends.cuda.matmul
+    allow = matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_tf32 = False  # plain version: true f32
+    # matmul_bf16's composition: bf16 products summed in f32, as specified
+    # (cuBLAS may otherwise reduce split-K partial sums in bf16)
+    matmul.allow_bf16_reduced_precision_reduction = False
     yield torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = allow
+    matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction = allow
 
 
 _ROUTES = ("fft", "mixed", "gemm")
@@ -380,6 +388,165 @@ def test_forward_kernels_match_plain(card, kind, b, t, n_fft, hop, win):
     assert counts() == (before[0] + 2, before[1])
 
 
+# ``mr_mag_impl='matmul_bf16'`` on the card: the loss kernels' rounded
+# instances (the spectrum stored as bf16 before the power, as the bf16
+# matmul's output is) against their rounded plain twin at the train
+# resolutions and every tiling case, at the unrounded kernels' bounds; then
+# the loss through them against the PyTorch composition it replaces, at
+# tests/test_torch_losses.py's matmul_bf16 bounds (1e-3 relative on
+# values; gradients max|d|/max|g| < 2e-2, cosine > 0.9999)
+ROUNDED_CASES = [(3, 9_001, *r) for r in RESOLUTIONS] + TILING_CASES
+PARTIALS_G = [[0.7, 0.0, 1.3], [1.0, 2.0, -0.5], [0.0, 0.0, 1.0]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,n_fft,hop,win", ROUNDED_CASES)
+def test_rounded_loss_partials_kernels_match_plain(card, b, t, n_fft, hop,
+                                                   win):
+    x, y = _waves(card, 3, shape=(b, t))
+    geo = (n_fft, hop, win)
+    g = torch.tensor(PARTIALS_G, device=card)[:b]
+    before = (cfl.fwd_launches, cfl.bwd_launches)
+    p = cfl.loss_partials_fwd(x, y, *geo, rounded=True)
+    dx = cfl.loss_partials_bwd(x, y, g, *geo, rounded=True)
+    torch.cuda.synchronize()
+    assert (cfl.fwd_launches, cfl.bwd_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    torch.testing.assert_close(
+        p, cfl.loss_partials_plain(x, y, *geo, rounded=True), atol=0,
+        rtol=1e-4)
+    assert dx.shape == (b, t) and bool(torch.isfinite(dx).all())
+    _close_grads(dx, cfl.loss_partials_bwd_plain(x, y, g, *geo,
+                                                 rounded=True))
+    # the same bits from call to call, and another function than the
+    # unrounded instance's
+    assert torch.equal(p, cfl.loss_partials_fwd(x, y, *geo, rounded=True))
+    assert torch.equal(dx, cfl.loss_partials_bwd(x, y, g, *geo,
+                                                 rounded=True))
+    assert not torch.equal(p, cfl.loss_partials_fwd(x, y, *geo))
+
+
+def _loss_route_counts():
+    from svs_torch.losses import mrstft as tmr
+    return (cfl.fwd_launches, cfl.bwd_launches, tmr.matmul_bf16_fallbacks)
+
+
+def _value_and_grad(fn, x):
+    x = x.detach().clone().requires_grad_()
+    out = fn(x)
+    out.backward()
+    return out.detach(), x.grad
+
+
+def _close_losses(got, want):
+    torch.testing.assert_close(got[0], want[0], atol=0, rtol=1e-3)
+    _close_grads(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t", [(32, 768 * 127), (4, 256 * 1535)],
+                         ids=["default", "fine_tune"])
+def test_matmul_bf16_stft_loss_on_the_card_is_the_composition(card, b, t):
+    """At the train cells' patches (B = 32 x 97,536 and 4 x 392,960) each
+    resolution's ``stft_loss`` runs the rounded kernels, one launch each
+    way and no fallback, and lands on the composition reached directly."""
+    from svs_torch.losses import mrstft as tmr
+    x, y = _waves(card, 11, shape=(b, t))
+    for geo in RESOLUTIONS:
+        before = _loss_route_counts()
+        got = _value_and_grad(lambda v: tmr.stft_loss(
+            v, y, *geo, impl="matmul_bf16"), x)
+        torch.cuda.synchronize()
+        assert _loss_route_counts() == (before[0] + 1, before[1] + 1,
+                                        before[2])
+        want = _value_and_grad(lambda v: tmr._composed_loss(
+            v, y, *geo, tmr._spectral_mag_matmul, 1.0, 1.0, None, None), x)
+        _close_losses(got, want)
+
+
+@pytest.mark.cuda
+def test_weighted_matmul_bf16_on_the_card_is_the_composition(card):
+    from svs_torch.losses import mrstft as tmr
+    x, y = _waves(card, 12, shape=(3, 9_001))
+    w = torch.tensor([1.0, 0.0, 1.0], device=card)
+    for geo in RESOLUTIONS:
+        before = _loss_route_counts()
+        got = _value_and_grad(lambda v: tmr.stft_loss(
+            v, y, *geo, impl="matmul_bf16", weight=w), x)
+        assert _loss_route_counts() == (before[0] + 1, before[1] + 1,
+                                        before[2])
+        want = _value_and_grad(lambda v: tmr._composed_loss(
+            v, y, *geo, tmr._spectral_mag_matmul, 1.0, 1.0, w, None), x)
+        _close_losses(got, want)
+        assert not bool(got[1][1].any())  # the zero-weight row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,b", [("default", 32), ("fine_tune", 4)])
+def test_matmul_bf16_combined_loss_on_the_card_is_the_composition(
+        card, monkeypatch, preset, b):
+    """The train step's whole loss at a cell's patches, its gradient with
+    respect to the mask: three launches each way, no fallback, and the
+    composition's numbers (the route refused by hand)."""
+    from svs_torch.losses import mrstft as tmr
+    from svs_torch.utils.config import get_config
+    cfg = get_config(preset)
+    assert cfg.mr_mag_impl == "matmul_bf16"
+    rng = np.random.default_rng(13)
+    shape = (b, cfg.freq_bins, cfg.input_len)
+    mix = rng.random(shape, np.float32)
+    planes = [torch.from_numpy(v).to(card) for v in (
+        mix, mix * rng.random(shape, np.float32),
+        rng.uniform(-3, 3, shape).astype(np.float32),
+        rng.uniform(-3, 3, shape).astype(np.float32))]
+    mask = torch.from_numpy(rng.random(shape, np.float32)).to(card)
+
+    def loss(m):
+        return tmr.combined_loss(m, *planes, cfg)[0]
+
+    before = _loss_route_counts()
+    got = _value_and_grad(loss, mask)
+    torch.cuda.synchronize()
+    assert _loss_route_counts() == (before[0] + 3, before[1] + 3, before[2])
+    monkeypatch.setattr(tmr, "_kernels_take", lambda *args: False)
+    want = _value_and_grad(loss, mask)
+    assert _loss_route_counts() == (before[0] + 3, before[1] + 3, before[2])
+    _close_losses(got, want)
+
+
+@pytest.mark.cuda
+def test_matmul_bf16_at_a_perfect_prediction_is_the_composition(card):
+    """x == y: every cell a tie, where the rounded instances take the
+    composition's subgradient (``abs_like_jax``'s +1), a gradient that is
+    not zero."""
+    from svs_torch.losses import mrstft as tmr
+    x, _ = _waves(card, 15, shape=(2, 9_001))
+    for geo in RESOLUTIONS:
+        got = _value_and_grad(lambda v: tmr.stft_loss(
+            v, x, *geo, impl="matmul_bf16"), x)
+        want = _value_and_grad(lambda v: tmr._composed_loss(
+            v, x, *geo, tmr._spectral_mag_matmul, 1.0, 1.0, None, None), x)
+        assert got[0] == want[0] == 0.0
+        assert bool(got[1].any())
+        _close_grads(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_matmul_bf16_falls_back_where_the_kernels_do_not_serve(card):
+    """A target that needs a gradient and a float64 prediction take the
+    composition on the card, each counted once as a fallback."""
+    from svs_torch.losses import mrstft as tmr
+    x, y = _waves(card, 14, shape=(2, 9_001))
+    geo = (1024, 120, 600)
+    cases = [(x, y.clone().requires_grad_()), (x.double(), y.double())]
+    for xs, ys in cases:
+        before = _loss_route_counts()
+        got = tmr.stft_loss(xs, ys, *geo, impl="matmul_bf16")
+        assert _loss_route_counts() == (*before[:2], before[2] + 1)
+        assert torch.equal(got, tmr._composed_loss(
+            xs, ys, *geo, tmr._spectral_mag_matmul, 1.0, 1.0, None, None))
+
+
 # the geometries past the loss kernels' old limits, which the Pallas
 # kernels always took (tests/test_torch_loss_limits.py holds the plain
 # versions against those in interpret mode): (batch, samples, n_fft, hop,
@@ -560,8 +727,8 @@ def test_graph_replay_matches_the_eager_step(card, impl):
     assert graphed.step == eager.step == SCAN_STEPS
     assert epoch.captures == 1 and len(epoch.graphs) == 1
     # the wrappers launch for the eager warm-up step and record once in
-    # the capture
-    per_step = {"matmul_bf16": (0, 0, 0, 0), "pallas_bf16": (6, 3, 0, 0),
+    # the capture (matmul_bf16: the loss kernels' rounded instances)
+    per_step = {"matmul_bf16": (0, 0, 3, 3), "pallas_bf16": (6, 3, 0, 0),
                 "pallas_fused": (0, 0, 3, 3)}[impl]
     assert (cdm.fwd_launches, cdm.bwd_launches, cfl.fwd_launches,
             cfl.bwd_launches) == per_step
